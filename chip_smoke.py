@@ -1,0 +1,628 @@
+#!/usr/bin/env python3
+"""Drive kjarni_tpu_torch's generation path on one CUDA card and check it.
+
+    python3 chip_smoke.py [--phases env,kernels,bf16,int4]
+
+Phases, in order (all by default); any failure raises and exits non-zero:
+
+1. env: torch/CUDA versions, the card's name and power limit, which optional
+   packages import, and the build of every kernel from kjarni_tpu_torch/csrc.
+2. kernels: each hand-written kernel against its plain PyTorch version on the
+   card, in bf16, at the generation path's shapes; one line per case with
+   the launches the case made, max_abs_err, kernel_ms, plain_ms and (flash
+   only) library_ms, the time of torch's scaled_dot_product_attention on the
+   same inputs as a yardstick (the port never calls it).
+3. bf16: Generator over a Llama-3.2-1B-shaped checkpoint (full width, 16
+   layers, random bf16 weights from a seeded generator on the card) answers
+   three requests: a greedy generate on a ~700-token prompt (flash prefill), a
+   follow-up extending it (prefix reuse, plain attention under the 2 GB score
+   gate) and a 32-token generate_stream on another ~600-token prompt. Checks
+   the flash launch count per request and the first prefill's logits against
+   the same forward with the kernels' plain versions.
+4. int4: the same with quantize="int4"; checks 113 int4 launches per forward
+   (7 projections x 16 layers + the lm_head).
+
+The line before the last is a JSON object {"kernels": [...]}: per kernel the
+launches of phases 3-4, max_abs_err over its cases, and ms / plain_ms /
+bound_ms / library_ms -- for flash one launch at the Llama-1B prefill shape,
+for int4 the 113 launches of one decoded token. bound_ms is the larger of the
+bytes moved over 3.35 TB/s and the bf16 operations over 989 TFLOP/s (H100 SXM
+data sheet). The last line is {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import math
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+ROOT = Path(__file__).resolve().parent
+
+# Llama-3.2-1B's public config.json values
+LLAMA_1B = {
+    "model_type": "llama", "architectures": ["LlamaForCausalLM"],
+    "vocab_size": 128256, "hidden_size": 2048, "intermediate_size": 8192,
+    "num_hidden_layers": 16, "num_attention_heads": 32, "num_key_value_heads": 8,
+    "head_dim": 64, "max_position_embeddings": 131072, "rope_theta": 500000.0,
+    "rope_scaling": {"rope_type": "llama3", "factor": 32.0, "low_freq_factor": 1.0,
+                     "high_freq_factor": 4.0, "original_max_position_embeddings": 8192},
+    "rms_norm_eps": 1e-5, "tie_word_embeddings": True,
+    "bos_token_id": 128000, "eos_token_id": 128001, "torch_dtype": "bfloat16",
+}
+INT4_PER_FORWARD = 7 * LLAMA_1B["num_hidden_layers"] + 1
+FLASH_PER_PREFILL = LLAMA_1B["num_hidden_layers"]
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def cuda_ms(fn, iters: int = 20) -> float:
+    """Device milliseconds per call of `fn`: `iters` calls captured in one
+    CUDA graph, timed with events over its replays, so the host's launch
+    cost (ctypes, allocation, Python) does not count."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    replays = 3
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * iters)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def host_ms(fn, iters: int = 20) -> float:
+    """Wall milliseconds per eager call, synchronised: what one call costs
+    the host loop, launch overhead included."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time the card could take, and what sets it: the bytes moved
+    over the memory rate or the bf16 operations over the tensor-core rate."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+# ---------------------------------------------------------------------------
+# phase 1
+# ---------------------------------------------------------------------------
+
+def phase_env() -> None:
+    import torch
+    from kjarni_tpu_torch.ops.kernels import build
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0])
+    for mod in ("tokenizers", "regex", "ml_dtypes", "safetensors", "triton"):
+        try:
+            importlib.import_module(mod)
+            found = "imports"
+        except ImportError:
+            found = "missing"
+        print(f"package {mod}: {found}")
+    t0 = time.perf_counter()
+    secs = build.build()
+    print(f"kernel build: {time.perf_counter() - t0:.2f} s wall "
+          + " ".join(f"{k}={v:.2f}s" for k, v in secs.items()))
+    for name in build.KERNELS:
+        log = build.library_path(name).with_suffix(".log")
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+
+
+# ---------------------------------------------------------------------------
+# phase 2
+# ---------------------------------------------------------------------------
+
+def _attended_pairs(S, T, causal, window, q_offset, kv_len) -> int:
+    """(query, key) pairs the masks keep, per head."""
+    n = 0
+    for s in range(S):
+        pos = q_offset + s
+        hi = min(kv_len, T, pos + 1 if causal else T)
+        lo = max(0, pos - window + 1) if window else 0
+        n += max(0, hi - lo)
+    return n
+
+
+def flash_case(name, B, H, Hkv, S, T, D, causal=True, window=None, q_offset=0,
+               kv_len=None, poison=False, seed=0) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from kjarni_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev, bf = "cuda", torch.bfloat16
+    q = torch.randn(B, H, S, D, generator=g, device=dev).to(bf)
+    k = torch.randn(B, Hkv, T, D, generator=g, device=dev).to(bf)
+    v = torch.randn(B, Hkv, T, D, generator=g, device=dev).to(bf)
+    kv = T if kv_len is None else kv_len
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    launches0 = flash_attention.launches
+    ref = flash_attention_plain(q, k, v, **kw)
+    if poison:   # garbage past kv_len must not change the output
+        k[:, :, kv:] = 1e3
+        v[:, :, kv:] = -1e3
+    out = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), f"flash {name}: finite output")
+    err = (out.float() - ref.float()).abs().max().item()
+    check(err <= 3e-2, f"flash {name}: max_abs_err {err} <= 3e-2")
+    kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, **kw))
+    eager_ms = host_ms(lambda: flash_attention(q, k, v, **kw))
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), iters=5)
+    # the library yardstick: SDPA on K/V repeated to H heads (outside the
+    # timing), with is_causal, or with the same mask as a boolean tensor
+    kr = k.repeat_interleave(H // Hkv, dim=1)
+    vr = v.repeat_interleave(H // Hkv, dim=1)
+    if causal and window is None and q_offset == 0 and kv_len is None and S == T:
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, kr, vr, is_causal=True))
+    else:
+        row = q_offset + torch.arange(S, device=dev)[:, None]
+        col = torch.arange(T, device=dev)[None, :]
+        mask = (col < kv) & (col <= row if causal else True)
+        if window:
+            mask = mask & (col > row - window)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, kr, vr, attn_mask=mask))
+    pairs = _attended_pairs(S, T, causal, window, q_offset, kv)
+    nbytes = 2 * (2 * B * H * S * D + 2 * B * Hkv * min(kv, T) * D)
+    flops = 4 * D * pairs * B * H
+    bound, bound_by = bound_ms(nbytes, flops)
+    row = {"case": f"flash {name}", "launches": flash_attention.launches - launches0,
+           "max_abs_err": err, "kernel_ms": kernel_ms,
+           "eager_ms": eager_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound, "bound_by": bound_by}
+    print(json.dumps(row))
+    return row
+
+
+def _int4_weights(K, N, G, seed):
+    import torch
+    from kjarni_tpu_torch.models.llama import _quant_int4
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn(K, N, generator=g, device="cuda") * 0.02
+    return _quant_int4(w, K // G)
+
+
+def int4_case(name, M, K, N, seed=0) -> dict:
+    import torch
+    from kjarni_tpu_torch.ops.kernels.int4_matvec import int4_matvec, int4_matvec_plain
+    G = K // 128
+    w4, scale = _int4_weights(K, N, G, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+    launches0 = int4_matvec.launches
+    ref = int4_matvec_plain(x, w4, scale)
+    out = int4_matvec(x, w4, scale)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    cos = torch.nn.functional.cosine_similarity(
+        out.float().reshape(-1), ref.float().reshape(-1), dim=0).item()
+    check(bool(torch.allclose(out.float(), ref.float(), rtol=2e-2, atol=2e-2)),
+          f"int4 {name}: allclose rtol/atol 2e-2 (max_abs_err {err})")
+    check(cos > 0.999, f"int4 {name}: cosine {cos} > 0.999")
+    # decode finds its weights cold: cycle through copies filling > 2x L2
+    nbytes = M * K * 2 + w4.numel() + scale.numel() * 4 + M * N * 2
+    copies = max(1, min(64, math.ceil(100e6 / (w4.numel() + scale.numel() * 4))))
+    ws = [(w4.clone(), scale.clone()) for _ in range(copies)]
+    it = [0]
+
+    def run(fn):
+        w, s = ws[it[0] % copies]
+        it[0] += 1
+        fn(x, w, s)
+
+    kernel_ms = cuda_ms(lambda: run(int4_matvec), iters=max(20, copies))
+    eager_ms = host_ms(lambda: run(int4_matvec), iters=max(20, copies))
+    plain_ms = cuda_ms(lambda: run(int4_matvec_plain), iters=10)
+    bound, bound_by = bound_ms(nbytes, 2 * M * K * N)
+    row = {"case": f"int4 {name}", "launches": int4_matvec.launches - launches0,
+           "max_abs_err": err, "cosine": cos,
+           "kernel_ms": kernel_ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+           "library_ms": None, "bound_ms": bound, "bound_by": bound_by}
+    print(json.dumps(row))
+    return row
+
+
+def phase_kernels() -> dict:
+    B, H, Hkv, D = 1, 32, 8, 64
+    flash = [
+        flash_case("llama1b-prefill S=T=1024", B, H, Hkv, 1024, 1024, D),
+        flash_case("D=128 gqa", 1, 16, 4, 512, 512, 128, seed=1),
+        flash_case("D=32 gqa", 2, 8, 2, 256, 256, 32, seed=2),
+        flash_case("unaligned S=T=700", B, H, Hkv, 700, 700, D, seed=3),
+        flash_case("window=64", 1, 8, 2, 512, 512, D, window=64, seed=4),
+        flash_case("q_offset=200 kv_len=328 poisoned", B, H, Hkv, 128, 512, D,
+                   q_offset=200, kv_len=328, poison=True, seed=5),
+    ]
+    shapes = {"q/o 2048x2048": (2048, 2048), "k/v 2048x512": (2048, 512),
+              "gate/up 2048x8192": (2048, 8192), "down 8192x2048": (8192, 2048),
+              "lm_head 2048x128256": (2048, 128256)}
+    per_token = {"q/o 2048x2048": 32, "k/v 2048x512": 32, "gate/up 2048x8192": 32,
+                 "down 8192x2048": 16, "lm_head 2048x128256": 1}
+    int4 = {name: int4_case(f"M=1 {name}", 1, K, N, seed=i)
+            for i, (name, (K, N)) in enumerate(shapes.items())}
+    prefill = int4_case("M=1024 gate/up 2048x8192", 1024, 2048, 8192, seed=9)
+    tok = {key: sum(per_token[n] * int4[n][key] for n in shapes)
+           for key in ("kernel_ms", "eager_ms", "plain_ms", "bound_ms")}
+    check(all(int4[n]["bound_by"] == "bytes" for n in shapes), "int4 M=1 bound by bytes")
+    tok["bound_by"] = "bytes"
+    print(json.dumps({"case": "int4 one decoded token (113 launches)", **tok}))
+    return {"flash": flash, "int4": list(int4.values()) + [prefill],
+            "int4_token": tok}
+
+
+# ---------------------------------------------------------------------------
+# phases 3 and 4
+# ---------------------------------------------------------------------------
+
+def write_model_dir(d: Path, seed: int = 0) -> None:
+    """config.json + model.safetensors of random bf16 weights, generated on
+    the card from a seeded generator (N(0, 0.02); norms are ones)."""
+    import torch
+    from kjarni_tpu_torch.weights.safetensors_loader import save_file
+    c = LLAMA_1B
+    hid, inter, V = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
+    qd = c["num_attention_heads"] * c["head_dim"]
+    kvd = c["num_key_value_heads"] * c["head_dim"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return (torch.randn(*shape, generator=g, device="cuda") * 0.02
+                ).to(torch.bfloat16).cpu()
+
+    ones = torch.ones(hid, dtype=torch.bfloat16)
+    tensors = {"model.embed_tokens.weight": rnd(V, hid), "model.norm.weight": ones}
+    for i in range(c["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        tensors.update({
+            p + "self_attn.q_proj.weight": rnd(qd, hid),
+            p + "self_attn.k_proj.weight": rnd(kvd, hid),
+            p + "self_attn.v_proj.weight": rnd(kvd, hid),
+            p + "self_attn.o_proj.weight": rnd(hid, qd),
+            p + "mlp.gate_proj.weight": rnd(inter, hid),
+            p + "mlp.up_proj.weight": rnd(inter, hid),
+            p + "mlp.down_proj.weight": rnd(hid, inter),
+            p + "input_layernorm.weight": ones,
+            p + "post_attention_layernorm.weight": ones,
+        })
+    d.mkdir(parents=True, exist_ok=True)
+    save_file(tensors, d / "model.safetensors")
+    (d / "config.json").write_text(json.dumps(c))
+
+
+def write_tokenizer(path: Path, vocab_size: int) -> None:
+    """A word-level tokenizer.json over the whole vocabulary: [PAD], [UNK]
+    and the words w0, w1, ... (whitespace split), so every id decodes."""
+    from tokenizers import Tokenizer, models, normalizers, pre_tokenizers
+    words = ["[PAD]", "[UNK]"] + [f"w{i}" for i in range(vocab_size - 2)]
+    tk = Tokenizer(models.WordLevel({w: i for i, w in enumerate(words)},
+                                    unk_token="[UNK]"))
+    tk.normalizer = normalizers.Lowercase()
+    tk.pre_tokenizer = pre_tokenizers.Whitespace()
+    tk.save(str(path))
+
+
+def _prompt(n: int, seed: int) -> str:
+    """n random words of the tokenizer's vocabulary (ids 1000..120000)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return " ".join(f"w{i - 2}" for i in
+                    torch.randint(1000, 120000, (n,), generator=g).tolist())
+
+
+def _logits_vs_plain(lm, text: str) -> dict:
+    """The first prefill's logits through the kernels vs the same forward
+    with the kernels' plain versions, on the card, both in bf16; and both
+    against that forward in f32 (plain versions, f32 copies of the params)."""
+    import torch
+    from kjarni_tpu_torch.core.bucketing import seq_bucket
+    from kjarni_tpu_torch.models import llama as kllama
+    from kjarni_tpu_torch.ops.kernels import flash_attention as fa
+    from kjarni_tpu_torch.ops.kernels import int4_matvec as i4
+    ids = lm.encode_prompt(text)
+    bucket = seq_bucket(len(ids), lm.max_context)
+    x = torch.zeros(1, bucket, dtype=torch.long, device="cuda")
+    x[0, :len(ids)] = torch.tensor(ids, device="cuda")
+
+    def fwd(params, dtype):
+        ck, cv = kllama.init_cache(lm.config, 1, bucket, dtype, "cuda")
+        with torch.inference_mode():
+            return kllama.forward(params, lm.config, x, ck, cv, 0, len(ids) - 1,
+                                  use_flash=True)[0].float()
+
+    def f32(p):
+        return {k: f32(v) if isinstance(v, dict) else
+                (v.float() if v.is_floating_point() else v) for k, v in p.items()}
+
+    counts = fa.flash_attention.launches, i4.int4_matvec.launches
+    got = fwd(lm.params, lm._cache_dtype)
+    # one call's wall time moves with the shared host: take the median of 5
+    runs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd(lm.params, lm._cache_dtype)
+        torch.cuda.synchronize()
+        runs.append(1e3 * (time.perf_counter() - t0))
+    # comparison launches are not the main path's: restore the counts
+    fa.flash_attention.launches, i4.int4_matvec.launches = counts
+    saved = kllama.flash_attention, kllama.int4_matvec
+    kllama.flash_attention, kllama.int4_matvec = (fa.flash_attention_plain,
+                                                  i4.int4_matvec_plain)
+    try:
+        ref = fwd(lm.params, lm._cache_dtype)
+        ref32 = fwd(f32(lm.params), torch.float32)
+    finally:
+        kllama.flash_attention, kllama.int4_matvec = saved
+    torch.cuda.empty_cache()
+
+    def cmp(a, b):
+        err = (a - b).abs().max().item()
+        return (err, err / b.abs().max().item(),
+                torch.nn.functional.cosine_similarity(a, b).item())
+
+    err, rel, cos = cmp(got, ref)
+    err32, _, cos32 = cmp(got, ref32)
+    plain32, _, _ = cmp(ref, ref32)
+    check(bool(torch.isfinite(got).all()), "prefill logits finite")
+    check(got.shape == (1, LLAMA_1B["vocab_size"]), f"logits shape {got.shape}")
+    # bf16 rounds in other places on the two paths (the flash kernel's bf16
+    # probabilities; the int4 plain version's bf16 dequantized weights, which
+    # the kernel never forms) and 16 residual layers carry that forward. So
+    # the f32 forward decides: the kernels may be no further from it than
+    # twice the plain bf16 path is. The cosine against the plain path only
+    # catches a gross fault (a wrong tile or mask drops it far below 0.995).
+    check(cos > 0.995, f"prefill logits vs plain: cosine {cos} > 0.995")
+    check(err32 <= 2 * plain32, f"prefill logits vs f32: kernels {err32} <= "
+                                f"2 x plain bf16 {plain32}")
+    return {"logits_max_abs_err": err, "logits_rel_err": rel, "logits_cosine": cos,
+            "kernels_vs_f32_max_abs_err": err32, "kernels_vs_f32_cosine": cos32,
+            "plain_bf16_vs_f32_max_abs_err": plain32,
+            "prefill_ms_1024": statistics.median(runs), "prefill_ms_1024_runs": runs}
+
+
+def profile_request(gen, text: str, new_tokens: int = 16) -> dict:
+    """torch.profiler over one streamed request (prefill + `new_tokens`
+    decode steps): device busy share of the wall time, the kernels that take
+    the most device time, and the torch ops (with input shapes) that launch
+    the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from kjarni_tpu_torch.generate.sampling import GenerationConfig
+    cfg = GenerationConfig.greedy(max_new_tokens=new_tokens, max_length=4096)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as p:
+        t0 = time.perf_counter()
+        for _ in gen.generate_stream(text, config=cfg):
+            pass
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or \
+            getattr(e, "self_cuda_time_total", 0.0)
+
+    def on_device(e):
+        return str(e.device_type).endswith("CUDA")
+
+    kernels = [e for e in p.key_averages() if on_device(e) and dev_us(e) > 0]
+    total = sum(dev_us(e) for e in kernels)
+    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+
+    def op_dev_us(e):   # device time of the kernels an op launched itself
+        return getattr(e, "device_time_total", None) or \
+            getattr(e, "cuda_time_total", 0.0)
+
+    ops = [e for e in p.key_averages(group_by_input_shape=True)
+           if not on_device(e) and e.key.startswith("aten::") and op_dev_us(e) > 0]
+    top_ops = sorted(ops, key=op_dev_us, reverse=True)[:8]
+    return {"profile_wall_ms": wall_us / 1e3, "profile_kernel_ms": total / 1e3,
+            "profile_device_busy": total / wall_us,
+            "profile_top_kernels": [[e.key[:70], round(dev_us(e) / 1e3, 3), e.count]
+                                    for e in top],
+            "profile_top_ops": [[e.key, str(e.input_shapes)[:90],
+                                 round(op_dev_us(e) / 1e3, 3), e.count]
+                                for e in top_ops]}
+
+
+def run_slice(model_dir: Path, quantize) -> dict:
+    import torch
+    from kjarni_tpu_torch import Generator
+    from kjarni_tpu_torch.generate.sampling import GenerationConfig
+    from kjarni_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from kjarni_tpu_torch.ops.kernels.int4_matvec import int4_matvec
+    tag = quantize or "bf16"
+    t0 = time.perf_counter()
+    gen = Generator(str(model_dir), quantize=quantize)
+    lm = gen.lm
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(lm.device.type == "cuda" and lm._flash_ok, "model on the card")
+    a, b = _prompt(700, 1), _prompt(600, 2)
+    stats = _logits_vs_plain(lm, a)
+    torch.cuda.reset_peak_memory_stats()
+
+    def request(name, fn, text, expect_flash):
+        f0, i0 = flash_attention.launches, int4_matvec.launches
+        n_before = len(lm._session_ids)
+        n_prompt = len(lm.encode_prompt(text))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn(text)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        out_ids = lm._session_ids[n_prompt:]
+        flash_n = flash_attention.launches - f0
+        int4_n = int4_matvec.launches - i0
+        check(flash_n == expect_flash,
+              f"{tag} {name}: {flash_n} flash launches, expected {expect_flash}")
+        if quantize == "int4":
+            want = INT4_PER_FORWARD * (1 + len(out_ids))
+            check(int4_n == want, f"{tag} {name}: {int4_n} int4 launches, "
+                                  f"expected {want}")
+        else:
+            check(int4_n == 0, f"{tag} {name}: no int4 launches")
+        check(len(out_ids) > 0, f"{tag} {name}: generated tokens")
+        row = {"request": f"{tag} {name}", "prompt_tokens": n_prompt,
+               "prefilled_tokens": lm.last_prefill_tokens,
+               "new_tokens": len(out_ids), "seconds": secs,
+               "tok_per_s": len(out_ids) / secs, "flash_launches": flash_n,
+               "int4_launches": int4_n, "session_before": n_before}
+        print(json.dumps(row))
+        return row
+
+    greedy = GenerationConfig.greedy(max_new_tokens=64, max_length=4096)
+    out1 = {}
+
+    def generate(text):
+        out1["text"] = gen.generate(text, config=greedy)
+
+    r1 = request("generate 700", generate, a, FLASH_PER_PREFILL)
+    follow = f"{a} {out1['text']} {_prompt(600, 3)}"
+    r2 = request("follow-up reuse", generate, follow, 0)
+    check(r2["prefilled_tokens"] == r2["prompt_tokens"] - r1["prompt_tokens"]
+          - r1["new_tokens"], "follow-up prefilled only its new suffix")
+    stream_cfg = GenerationConfig.greedy(max_new_tokens=32, max_length=4096)
+    first = {}
+
+    def stream(text):
+        n = 0
+        for _ in gen.generate_stream(text, config=stream_cfg):
+            if n == 0:
+                torch.cuda.synchronize()
+                first["t"] = time.perf_counter()
+            n += 1
+        torch.cuda.synchronize()
+        first["decode_s"] = time.perf_counter() - first["t"]
+
+    t_req = time.perf_counter()
+    r3 = request("stream 600", stream, b, FLASH_PER_PREFILL)
+    ttft_ms = 1e3 * (first["t"] - t_req)
+    decode_tps = (r3["new_tokens"] - 1) / first["decode_s"]
+    prof = profile_request(gen, _prompt(600, 4))
+    summary = {"slice": tag, "load_s": load_s, **stats, **prof,
+               "stream_ttft_ms": ttft_ms, "stream_decode_tok_per_s": decode_tps,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(json.dumps(summary))
+    del gen, lm
+    torch.cuda.empty_cache()
+    return summary
+
+
+def phase_slices(phases) -> None:
+    with tempfile.TemporaryDirectory(prefix="kjarni_smoke_") as tmp:
+        d = Path(tmp) / "llama-3.2-1b-random"
+        t0 = time.perf_counter()
+        write_model_dir(d)
+        write_tokenizer(d / "tokenizer.json", LLAMA_1B["vocab_size"])
+        print(f"model dir written: {time.perf_counter() - t0:.1f} s, "
+              f"{(d / 'model.safetensors').stat().st_size / 1e9:.2f} GB")
+        if "bf16" in phases:
+            run_slice(d, None)
+        if "int4" in phases:
+            run_slice(d, "int4")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default="env,kernels,bf16,int4")
+    phases = ap.parse_args().phases.split(",")
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from kjarni_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from kjarni_tpu_torch.ops.kernels.int4_matvec import int4_matvec
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    phase_env()   # builds the kernels; every later phase needs them
+    kern = phase_kernels() if "kernels" in phases else None
+    flash_attention.launches = 0
+    int4_matvec.launches = 0
+    if "bf16" in phases or "int4" in phases:
+        phase_slices(phases)
+    launches = {"flash": flash_attention.launches, "int4": int4_matvec.launches}
+    if "bf16" in phases or "int4" in phases:
+        check(launches["flash"] > 0, "the main path launched the flash kernel")
+    if "int4" in phases:
+        check(launches["int4"] > 0, "the main path launched the int4 kernel")
+    if kern is not None:
+        f0 = kern["flash"][0]
+        tok = kern["int4_token"]
+        line = {"kernels": [
+            {"name": "flash_attention", "route": "cuda",
+             "source": "kjarni_tpu_torch/csrc/flash_attention.cu",
+             "replaces": "kjarni_tpu/ops/pallas/flash_attention.py:135",
+             "launches": launches["flash"],
+             "max_abs_err": max(r["max_abs_err"] for r in kern["flash"]),
+             "ms": f0["kernel_ms"], "plain_ms": f0["plain_ms"],
+             "bound_ms": f0["bound_ms"], "bound_by": f0["bound_by"],
+             "library_ms": f0["library_ms"]},
+            {"name": "int4_matvec", "route": "cuda",
+             "source": "kjarni_tpu_torch/csrc/int4_matvec.cu",
+             "replaces": "kjarni_tpu/ops/pallas/int4_matvec.py:70",
+             "launches": launches["int4"],
+             "max_abs_err": max(r["max_abs_err"] for r in kern["int4"]),
+             "ms": tok["kernel_ms"], "plain_ms": tok["plain_ms"],
+             "bound_ms": tok["bound_ms"], "bound_by": tok["bound_by"],
+             "library_ms": None},
+        ]}
+        print(json.dumps(line))
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

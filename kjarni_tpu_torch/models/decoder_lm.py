@@ -1,0 +1,358 @@
+"""DecoderLM: a loaded llama-family language model with a streaming generator
+(port of kjarni_tpu/models/decoder_lm.py, llama family).
+
+Per request: one prefill forward over the prompt bucket, writing the KV cache
+in place and skipping a prefix that is still in the cache from the previous
+request; then a host loop, one forward and one host sync (the sampled id) per
+token. The JAX package fuses that loop into a `lax.while_loop` with an
+on-device stop exit; here the loop is on the host and keeps the same
+semantics: the stop token is dropped, and decode attention reads the cache
+only up to the current 512-slot bucket.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import random as _random
+from pathlib import Path
+from typing import Iterator, Optional, Sequence
+
+import torch
+
+from ..chat_templates import ChatTemplate, Conversation, template_for_arch
+from ..core.bucketing import seq_bucket
+from ..core.cancellation import CancellationToken
+from ..core.errors import GenerationError, InvalidConfigError
+from ..core.kvcache import slice_working
+from ..core.stats import GenerationStats
+from ..generate.sampling import (GenerationConfig, SamplingParams, process_logits,
+                                 sample_token)
+from ..generate.stream import StreamDecoder, StreamedToken, TokenType
+from ..tokenizer import KjarniTokenizer
+from ..weights.safetensors_loader import ModelWeights
+from . import llama as kllama
+
+DEFAULT_MAX_CONTEXT = 4096
+
+logger = logging.getLogger(__name__)
+
+
+def not_ported(what: str, item: str) -> InvalidConfigError:
+    return InvalidConfigError(
+        f"{what} is not ported to kjarni_tpu_torch yet (ROADMAP.md, {item})")
+
+
+def resolve_device(device) -> torch.device:
+    """None / "auto" / "cuda" mean the card, and a missing card raises; the
+    CPU runs only when asked for."""
+    d = torch.device("cuda" if device in (None, "auto", "gpu") else device)
+    if d.type == "cuda" and not torch.cuda.is_available():
+        raise InvalidConfigError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU")
+    if d.type not in ("cuda", "cpu"):
+        raise InvalidConfigError(f"unsupported device '{device}'")
+    return d
+
+
+def resolve_dtype(dtype, device: torch.device) -> torch.dtype:
+    """"auto" -> bf16 on the card, f32 on the CPU (as the JAX package's
+    resolve_dtype). The card's kernels take bf16, so the card runs bf16."""
+    if dtype in ("auto", None):
+        return torch.bfloat16 if device.type == "cuda" else torch.float32
+    if isinstance(dtype, str):
+        dtype = {"f32": torch.float32, "float32": torch.float32,
+                 "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}[dtype]
+    if device.type == "cuda" and dtype != torch.bfloat16:
+        raise not_ported(f"dtype {dtype} on the card (its kernels take bf16)",
+                          "queue 1, item 3")
+    return dtype
+
+
+class DecoderLM:
+    """A causal LM ready for generation (cf. DecoderLanguageModel traits.rs:272)."""
+
+    def __init__(self, model_dir: Path, dtype="auto",
+                 max_context: Optional[int] = None,
+                 quantize: Optional[str] = None,
+                 kv_cache: Optional[str] = None,
+                 execution_plan=None,
+                 tp: Optional[int] = None,
+                 device=None):
+        # options of the JAX DecoderLM that this slice does not port
+        if quantize == "int8":
+            raise not_ported("quantize='int8'", "queue 1, item 3")
+        if quantize not in (None, "int4"):
+            raise InvalidConfigError(f"unknown quantize mode '{quantize}'")
+        if kv_cache == "int8":
+            raise not_ported("kv_cache='int8'", "queue 1, item 3")
+        if kv_cache is not None:
+            raise InvalidConfigError(f"unknown kv_cache mode '{kv_cache}'")
+        if tp is not None and tp > 1:
+            raise not_ported("tensor parallelism (tp>1)", "queue 1, item 9")
+        if execution_plan is not None:
+            raise not_ported("execution_plan host offload", "queue 1, item 8")
+
+        self.device = resolve_device(device)
+        dtype = resolve_dtype(dtype, self.device)
+        model_dir = Path(model_dir)
+        self.model_dir = model_dir
+        has_safetensors = (model_dir / "model.safetensors").exists() or \
+            (model_dir / "model.safetensors.index.json").exists()
+        if not has_safetensors and (model_dir / "model.gguf").exists():
+            raise not_ported("GGUF weights", "queue 1, item 1")
+        ws = ModelWeights(model_dir)  # raises with a clear error
+        hf_cfg = json.loads((model_dir / "config.json").read_text())
+        self.hf_config = hf_cfg
+        if hf_cfg.get("model_type", "llama") == "gpt2":
+            raise not_ported("the gpt2 family", "queue 1, item 3")
+        self.config = cfg = kllama.DecoderConfig.from_hf(hf_cfg)
+
+        self.max_context = min(cfg.max_seq_len, max_context or DEFAULT_MAX_CONTEXT)
+        params = kllama.load_params(ws, cfg, dtype, rope_cache_len=self.max_context,
+                                    device=self.device)
+        if quantize == "int4":
+            params = kllama.quantize_params_int4(params)
+        self.params = params
+        self._cache_dtype = dtype
+        self._cache = None  # allocated lazily, reused across generations
+
+        tok_path = model_dir / "tokenizer.json"
+        if not tok_path.exists():
+            raise not_ported(f"a model dir without tokenizer.json ({model_dir}; "
+                              "the GGUF-embedded tokenizer)", "queue 1, item 1")
+        self.tokenizer = KjarniTokenizer.from_file(tok_path)
+        self.chat_template: ChatTemplate = template_for_arch(cfg.arch)
+
+        # stop tokens: generation_config.json eos wins over config.json
+        eos: tuple[int, ...] = tuple(cfg.eos_token_ids)
+        gen_cfg_path = model_dir / "generation_config.json"
+        self.hf_generation_config: dict = {}
+        if gen_cfg_path.exists():
+            self.hf_generation_config = json.loads(gen_cfg_path.read_text())
+            g_eos = self.hf_generation_config.get("eos_token_id")
+            if g_eos is not None:
+                eos = tuple(g_eos) if isinstance(g_eos, list) else (int(g_eos),)
+        self.stop_token_ids = set(eos)
+        self.bos_token_id = cfg.bos_token_id
+
+        # flash prefill: on the card, for long prompts
+        self._flash_min_seq = 512
+        self._flash_ok = self.device.type == "cuda"
+        # decode attention reads only the current ceil-to-bucket slice of the
+        # cache; contexts at or below one bucket read the whole cache
+        self._kv_bucket_step = 512
+        # conversation prefix reuse: token ids currently in the cache
+        self._session_ids: list[int] = []
+        self._min_reuse_prefix = 16
+
+    # ------------------------------------------------------------------
+    # internals
+    # ------------------------------------------------------------------
+
+    def _ensure_cache(self):
+        if self._cache is None:
+            self._cache = kllama.init_cache(self.config, 1, self.max_context,
+                                            self._cache_dtype, self.device)
+        return self._cache
+
+    @torch.inference_mode()
+    def _prefill_with_reuse(self, ids: list[int], ck, cv):
+        """Prefill `ids`, skipping the longest cache-resident common prefix.
+
+        Multi-turn chat re-sends the whole conversation; the K/V of the shared
+        prefix is already in the cache from the previous turn, so only the
+        suffix is computed (incremental prefill / prompt caching).
+        """
+        prompt_len = len(ids)
+        common = 0
+        limit = min(len(self._session_ids), prompt_len - 1)
+        while common < limit and self._session_ids[common] == ids[common]:
+            common += 1
+        if common < self._min_reuse_prefix:
+            common = 0
+
+        suffix = ids[common:]
+        bucket = seq_bucket(len(suffix), self.max_context - common)
+        padded = torch.zeros((1, bucket), dtype=torch.long)
+        padded[0, :len(suffix)] = torch.tensor(suffix, dtype=torch.long)
+        use_flash = self._flash_ok and bucket >= self._flash_min_seq
+        kv_bucket = None
+        if use_flash and common > 0:
+            # cache-reuse prefill: the materialized path is kept at moderate
+            # shapes; flash is taken only when the f32 score matrix would
+            # pass 2 GB (the JAX package's gate, not re-tuned for the card)
+            score_bytes = 4 * self.config.num_heads * bucket * (common + bucket)
+            use_flash = score_bytes > 2_000_000_000
+        if use_flash:
+            kv_bucket = min(-(-(common + bucket) // 128) * 128, self.max_context)
+        logits, ck, cv = kllama.forward(
+            self.params, self.config, padded.to(self.device), ck, cv, common,
+            len(suffix) - 1, use_flash=use_flash, kv_bucket=kv_bucket)
+        self.last_prefill_tokens = len(suffix)  # observability for tests/stats
+        return logits[0], ck, cv, common
+
+    def _kv_bucket(self, pos: int) -> Optional[int]:
+        """Cache slots decode attention reads when writing slot `pos`: the
+        ceil-to-bucket fill, or None (the whole cache) once that covers it."""
+        kb = -(-(pos + 1) // self._kv_bucket_step) * self._kv_bucket_step
+        return None if kb >= self.max_context else kb
+
+    @torch.inference_mode()
+    def _decode(self, logits, ck, cv, history: torch.Tensor, pos: int,
+                gen: GenerationConfig, generator: torch.Generator, steps: int,
+                cancellation: Optional[CancellationToken] = None,
+                ) -> Iterator[int]:
+        """Sample, then forward the sampled token, one host sync per token.
+
+        Yields at most `steps` generated ids, each after its K/V is in the
+        cache. Stops before yielding a stop token (it is dropped, as the JAX
+        package's `n = i - done` does) and at the context or max_length limit.
+        """
+        greedy = gen.strategy == "greedy"
+        pen, ngram = gen.repetition_penalty, gen.no_repeat_ngram_size
+        for _ in range(steps):
+            if cancellation is not None and cancellation.is_cancelled:
+                return
+            if pos >= self.max_context or pos >= gen.max_length:
+                return
+            lg = process_logits(logits, history, pos, pen, ngram)
+            tok = sample_token(lg, generator, gen.sampling, greedy)
+            t = int(tok)
+            if t in self.stop_token_ids:
+                return
+            history[pos] = tok
+            # the static bucket changes every _kv_bucket_step tokens: the
+            # segments of the JAX package's fused loop
+            kb = self._kv_bucket(pos)
+            wk = ck if kb is None else slice_working(ck, kb, axis=3)
+            wv = cv if kb is None else slice_working(cv, kb, axis=3)
+            logits, _, _ = kllama.forward(self.params, self.config,
+                                          tok.view(1, 1), wk, wv, pos)
+            logits = logits[0]
+            pos += 1
+            yield t
+
+    def _start(self, gen: GenerationConfig, prompt, token_ids):
+        if token_ids is None:
+            if prompt is None:
+                raise GenerationError("either prompt or token_ids is required")
+            token_ids = self.encode_prompt(prompt, gen.add_bos_token)
+        ids = self._bound_prompt(list(token_ids))
+        if not ids:
+            raise GenerationError("empty prompt")
+        history = torch.zeros(self.max_context, dtype=torch.long, device=self.device)
+        history[:len(ids)] = torch.tensor(ids, dtype=torch.long)
+        seed = gen.seed if gen.seed is not None else _random.getrandbits(31)
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        return ids, history, generator
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+
+    def _bound_prompt(self, ids: list[int]) -> list[int]:
+        """Bound a prompt to the context window, keeping the NEWEST tokens."""
+        limit = self.max_context - 1
+        if len(ids) <= limit:
+            return ids
+        logger.warning(
+            "prompt (%d tokens) exceeds max_context %d; dropping the oldest "
+            "%d tokens and keeping the newest %d",
+            len(ids), self.max_context, len(ids) - limit, limit)
+        return ids[-limit:]
+
+    def encode_prompt(self, prompt: str, add_bos: bool = True) -> list[int]:
+        ids = self.tokenizer.encode(prompt, add_special_tokens=False)
+        if add_bos and self.bos_token_id is not None and \
+                (not ids or ids[0] != self.bos_token_id) and \
+                self.config.arch in ("llama", "mistral"):
+            ids = [self.bos_token_id] + ids
+        return ids
+
+    def apply_chat_template(self, conversation: Conversation) -> str:
+        return self.chat_template.apply(conversation)
+
+    def generate_stream(self, prompt: Optional[str] = None, *,
+                        token_ids: Optional[Sequence[int]] = None,
+                        config: Optional[GenerationConfig] = None,
+                        cancellation: Optional[CancellationToken] = None,
+                        emit_prompt: bool = False,
+                        stats: Optional[GenerationStats] = None,
+                        ) -> Iterator[StreamedToken]:
+        """Token-streaming generation (cf. generator.rs:183,228)."""
+        gen = config or GenerationConfig()
+        ids, history, generator = self._start(gen, prompt, token_ids)
+        prompt_len = len(ids)
+        stats = stats or GenerationStats()
+        stats.start()
+        ck, cv = self._ensure_cache()
+        logits, ck, cv, _ = self._prefill_with_reuse(ids, ck, cv)
+        stats.mark_prefill(prompt_len)
+        if emit_prompt:
+            for t in ids:
+                yield StreamedToken(self.tokenizer.decode([t], False), t,
+                                    TokenType.PROMPT)
+        max_new = gen.max_new_tokens if gen.max_new_tokens is not None else \
+            max(gen.max_length - prompt_len, 0)
+        sdec = StreamDecoder(self.tokenizer)
+        emitted: list[int] = []
+        try:
+            for t in self._decode(logits, ck, cv, history, prompt_len, gen,
+                                  generator, max_new, cancellation):
+                emitted.append(t)
+                yield StreamedToken(sdec.push(t), t, TokenType.GENERATED)
+        finally:
+            self._session_ids = ids + emitted
+            stats.mark_decode_done(len(emitted))
+            stats.print_summary()
+
+    def generate(self, prompt: Optional[str] = None, *,
+                 token_ids: Optional[Sequence[int]] = None,
+                 config: Optional[GenerationConfig] = None,
+                 cancellation: Optional[CancellationToken] = None,
+                 fused: bool = True) -> str:
+        """Blocking generation returning the full completion. fused=False, or
+        a cancellation token, takes the streaming loop, as in the JAX package."""
+        if not fused or cancellation is not None:
+            return "".join(st.text for st in self.generate_stream(
+                prompt, token_ids=token_ids, config=config,
+                cancellation=cancellation))
+        gen = config or GenerationConfig()
+        ids, history, generator = self._start(gen, prompt, token_ids)
+        prompt_len = len(ids)
+        ck, cv = self._ensure_cache()
+        logits, ck, cv, _ = self._prefill_with_reuse(ids, ck, cv)
+        max_new = gen.max_new_tokens if gen.max_new_tokens is not None else \
+            max(gen.max_length - prompt_len, 0)
+        max_steps = max(min(max_new, self.max_context - prompt_len - 1,
+                            gen.max_length - prompt_len), 0)
+        toks = list(self._decode(logits, ck, cv, history, prompt_len, gen,
+                                 generator, max_steps))
+        self._session_ids = ids + toks
+        return self.tokenizer.decode(toks, skip_special_tokens=True)
+
+    def generate_batch(self, prompts, *, config=None):
+        raise not_ported("generate_batch", "queue 1, item 3")
+
+    def default_generation_config(self) -> GenerationConfig:
+        """Defaults from the model's generation_config.json: temperature /
+        top_p / top_k / repetition_penalty seed the sampling params."""
+        g = self.hf_generation_config
+        base = GenerationConfig()
+        if not g:
+            return base
+        sp = SamplingParams(
+            temperature=g.get("temperature", base.sampling.temperature),
+            top_k=g.get("top_k", base.sampling.top_k),
+            top_p=g.get("top_p", base.sampling.top_p),
+            min_p=g.get("min_p", base.sampling.min_p),
+        )
+        return dataclasses.replace(
+            base,
+            sampling=sp,
+            repetition_penalty=g.get("repetition_penalty",
+                                     base.repetition_penalty),
+            strategy="sample" if g.get("do_sample", True) else "greedy",
+        )

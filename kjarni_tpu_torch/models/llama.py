@@ -1,0 +1,405 @@
+"""Unified GQA+RoPE+RMSNorm+SwiGLU decoder: Llama / Qwen2 / Mistral / Phi-3
+(port of kjarni_tpu/models/llama.py).
+
+Params keep the JAX package's layout: a dict whose per-layer weights are
+stacked [L, ...], linear weights [K, N] for x @ w, int4 weights as
+{"w4": [.., K/2, N] int8, "scale": [.., G, N] f32}. The layer loop is a Python
+loop over views of the stacked tensors. The KV cache [L, B, Hkv, T, D] is
+written in place; a write past T is refused, not clamped.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..core.errors import GenerationError, InvalidConfigError
+from ..core.metadata import RopeScaling
+from ..ops.attention import NEG_INF, attention, merge_heads
+from ..ops.kernels.flash_attention import flash_attention
+from ..ops.kernels.int4_matvec import int4_matvec
+from ..ops.norms import rms_norm
+from ..ops.rope import apply_rope, base_inv_freq, llama3_inv_freq
+from ..weights.safetensors_loader import ModelWeights
+
+
+@dataclasses.dataclass(frozen=True)
+class DecoderConfig:
+    arch: str  # "llama" | "qwen2" | "mistral" | "phi3"
+    vocab_size: int
+    hidden_size: int
+    num_layers: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    intermediate_size: int
+    max_seq_len: int
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    rope_scaling: Optional[RopeScaling] = None
+    longrope_short_factor: Optional[tuple[float, ...]] = None
+    longrope_long_factor: Optional[tuple[float, ...]] = None
+    original_max_seq_len: Optional[int] = None
+    qkv_bias: bool = False
+    sliding_window: Optional[int] = None
+    tie_word_embeddings: bool = False
+    bos_token_id: Optional[int] = None
+    eos_token_ids: tuple[int, ...] = ()
+
+    @staticmethod
+    def from_hf(cfg: dict) -> "DecoderConfig":
+        mt = cfg.get("model_type", "llama")
+        archs = {"llama": "llama", "qwen2": "qwen2", "mistral": "mistral",
+                 "phi3": "phi3"}
+        if mt not in archs:
+            raise InvalidConfigError(f"unsupported decoder model_type '{mt}'")
+        head_dim = cfg.get("head_dim") or cfg["hidden_size"] // cfg["num_attention_heads"]
+        rope_scaling = None
+        short = long = None
+        orig = None
+        rs = cfg.get("rope_scaling")
+        if rs:
+            rtype = rs.get("rope_type", rs.get("type", ""))
+            if rtype == "llama3":
+                rope_scaling = RopeScaling(
+                    rope_type="llama3",
+                    factor=rs.get("factor", 32.0),
+                    low_freq_factor=rs.get("low_freq_factor", 1.0),
+                    high_freq_factor=rs.get("high_freq_factor", 4.0),
+                    original_max_position_embeddings=rs.get(
+                        "original_max_position_embeddings", 8192),
+                )
+            elif rtype in ("longrope", "su"):
+                short = tuple(float(x) for x in rs["short_factor"])
+                long = tuple(float(x) for x in rs["long_factor"])
+                orig = cfg.get("original_max_position_embeddings",
+                               cfg["max_position_embeddings"])
+        eos = cfg.get("eos_token_id")
+        if eos is None:
+            eos_ids: tuple[int, ...] = ()
+        elif isinstance(eos, list):
+            eos_ids = tuple(int(e) for e in eos)
+        else:
+            eos_ids = (int(eos),)
+        return DecoderConfig(
+            arch=archs[mt],
+            vocab_size=cfg["vocab_size"],
+            hidden_size=cfg["hidden_size"],
+            num_layers=cfg["num_hidden_layers"],
+            num_heads=cfg["num_attention_heads"],
+            num_kv_heads=cfg.get("num_key_value_heads", cfg["num_attention_heads"]),
+            head_dim=head_dim,
+            intermediate_size=cfg["intermediate_size"],
+            max_seq_len=cfg["max_position_embeddings"],
+            rms_norm_eps=cfg.get("rms_norm_eps", 1e-6),
+            rope_theta=cfg.get("rope_theta", 10000.0),
+            rope_scaling=rope_scaling,
+            longrope_short_factor=short,
+            longrope_long_factor=long,
+            original_max_seq_len=orig,
+            qkv_bias=mt == "qwen2",
+            sliding_window=(cfg.get("sliding_window")
+                            if cfg.get("use_sliding_window", mt == "mistral") else None),
+            tie_word_embeddings=cfg.get("tie_word_embeddings", False),
+            bos_token_id=cfg.get("bos_token_id"),
+            eos_token_ids=eos_ids,
+        )
+
+
+# ---------------------------------------------------------------------------
+# Weight loading
+# ---------------------------------------------------------------------------
+
+def _stack(ws: ModelWeights, fmt: str, L: int, dtype, device,
+           transpose: bool = True) -> torch.Tensor:
+    """Stack L checkpoint tensors on `device`. Each layer goes to the device
+    in its stored dtype and is transposed and cast there, so the host holds
+    no converted copy of the model."""
+    out = None
+    for i in range(L):
+        t = ws.get(fmt.format(i)).to(device)
+        t = t.t() if transpose else t
+        if out is None:
+            out = torch.empty((L, *t.shape), dtype=dtype, device=device)
+        out[i].copy_(t)
+    return out
+
+
+def load_params(ws: ModelWeights, cfg: DecoderConfig, dtype=torch.float32,
+                rope_cache_len: Optional[int] = None,
+                device: torch.device | str = "cpu") -> dict:
+    """Map HF llama-layout checkpoints into the stacked param dict.
+
+    Phi-3's fused qkv_proj / gate_up_proj are split here so one forward serves
+    every arch.
+    """
+    L = cfg.num_layers
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = "model."
+
+    def stack(fmt, transpose=True):
+        return _stack(ws, fmt, L, dtype, device, transpose)
+
+    def lin_stack(names_fmt, bias_fmt=None):
+        out = {"w": stack(names_fmt)}
+        if bias_fmt and bias_fmt.format(0) in ws:
+            out["b"] = stack(bias_fmt, transpose=False)
+        return out
+
+    def one(name):
+        return ws.get(name).to(device=device, dtype=dtype)
+
+    if cfg.arch == "phi3":
+        qkv = stack(p + "layers.{}.self_attn.qkv_proj.weight")
+        q_dim, kv_dim = H * D, Hkv * D
+        q = {"w": qkv[:, :, :q_dim]}
+        k = {"w": qkv[:, :, q_dim:q_dim + kv_dim]}
+        v = {"w": qkv[:, :, q_dim + kv_dim:]}
+        gate_up = stack(p + "layers.{}.mlp.gate_up_proj.weight")
+        gate = {"w": gate_up[:, :, :cfg.intermediate_size]}
+        up = {"w": gate_up[:, :, cfg.intermediate_size:]}
+    else:
+        q = lin_stack(p + "layers.{}.self_attn.q_proj.weight",
+                      p + "layers.{}.self_attn.q_proj.bias")
+        k = lin_stack(p + "layers.{}.self_attn.k_proj.weight",
+                      p + "layers.{}.self_attn.k_proj.bias")
+        v = lin_stack(p + "layers.{}.self_attn.v_proj.weight",
+                      p + "layers.{}.self_attn.v_proj.bias")
+        gate = lin_stack(p + "layers.{}.mlp.gate_proj.weight")
+        up = lin_stack(p + "layers.{}.mlp.up_proj.weight")
+
+    layers = {
+        "q": q, "k": k, "v": v,
+        "o": lin_stack(p + "layers.{}.self_attn.o_proj.weight"),
+        "gate": gate, "up": up,
+        "down": lin_stack(p + "layers.{}.mlp.down_proj.weight"),
+        "attn_norm": stack(p + "layers.{}.input_layernorm.weight", transpose=False),
+        "ffn_norm": stack(p + "layers.{}.post_attention_layernorm.weight",
+                          transpose=False),
+    }
+    embed = one(p + "embed_tokens.weight")
+    if cfg.tie_word_embeddings or "lm_head.weight" not in ws:
+        lm_head = embed.t()    # a view: the tied head shares the table
+    else:
+        lm_head = one("lm_head.weight").t().contiguous()
+    cos, sin = rope_cache(cfg, rope_cache_len)
+    return {
+        "embed": embed,
+        "layers": layers,
+        "final_norm": one(p + "norm.weight"),
+        "lm_head": lm_head,
+        "rope_cos": torch.from_numpy(cos).to(device),
+        "rope_sin": torch.from_numpy(sin).to(device),
+    }
+
+
+def rope_cache(cfg: DecoderConfig, length: Optional[int] = None
+               ) -> tuple[np.ndarray, np.ndarray]:
+    """Precompute f32 cos/sin tables [length, D], honoring llama3 and
+    phi3-longrope scaling (numpy, as in the JAX package)."""
+    length = length or cfg.max_seq_len
+    D = cfg.head_dim
+    attn_factor = 1.0
+    if cfg.longrope_short_factor is not None:
+        orig = cfg.original_max_seq_len or cfg.max_seq_len
+        factors = np.asarray(
+            cfg.longrope_long_factor if length > orig else cfg.longrope_short_factor,
+            dtype=np.float64)
+        inv = base_inv_freq(D, cfg.rope_theta).astype(np.float64) / factors
+        scale = length / orig if orig else 1.0
+        if scale > 1.0:
+            attn_factor = float(np.sqrt(1.0 + np.log(scale) / np.log(orig)))
+    elif cfg.rope_scaling is not None:
+        inv = llama3_inv_freq(D, cfg.rope_theta, cfg.rope_scaling).astype(np.float64)
+    else:
+        inv = base_inv_freq(D, cfg.rope_theta).astype(np.float64)
+    pos = np.arange(length, dtype=np.float64)
+    angles = np.outer(pos, inv)
+    cos = np.concatenate([np.cos(angles), np.cos(angles)], axis=-1) * attn_factor
+    sin = np.concatenate([np.sin(angles), np.sin(angles)], axis=-1) * attn_factor
+    return cos.astype(np.float32), sin.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# int4 weights
+# ---------------------------------------------------------------------------
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """[..., K, N] int8 in [-8, 7] -> [..., K/2, N] int8, two nibbles per byte.
+
+    HALF-SPLIT: row k in the low nibble, row k + K/2 in the high nibble, as in
+    the JAX package (ops/kernels/int4_matvec.py unpacks it). K must be even.
+    """
+    K2 = q.shape[-2] // 2
+    lo = (q[..., :K2, :] & 0xF).to(torch.uint8)
+    hi = (q[..., K2:, :] & 0xF).to(torch.uint8)
+    return ((hi << 4) | lo).view(torch.int8)
+
+
+def _quant_int4(w: torch.Tensor, group_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    # row-major f32: a transposed view (the tied head is embed.t()) would pass
+    # its layout on to w4, which the kernel reads row by row
+    w32 = w.float().contiguous()
+    K, N = w32.shape[-2], w32.shape[-1]
+    # half-split packing needs an even group count (each half scales with
+    # its own contiguous groups); otherwise one scale per column
+    g = group_size if K % (2 * group_size) == 0 else K
+    G = K // g
+    wg = w32.reshape(*w32.shape[:-2], G, g, N)
+    absmax = wg.abs().amax(dim=-2).clamp_min(1e-8)          # [..., G, N]
+    scale = absmax / 7.0
+    q = torch.clamp(torch.round(wg / scale[..., None, :]), -8, 7)
+    return pack_int4(q.reshape(w32.shape).to(torch.int8)), scale
+
+
+def quantize_params_int4(params: dict, group_size: int = 128) -> dict:
+    """Group-wise int4 weight-only quantization of every projection and the
+    lm_head ({"w4": [.., K/2, N] int8, "scale": [.., K/g, N] f32}), on the
+    params' own device, one layer at a time. Same arithmetic as the JAX
+    package's quantize_params_int4, so both give the same w4 and scales."""
+    out = dict(params)
+    layers = dict(params["layers"])
+    for name in ("q", "k", "v", "o", "gate", "up", "down"):
+        entry = dict(layers[name])
+        w = entry.pop("w")
+        parts = [_quant_int4(w[i], group_size) for i in range(w.shape[0])]
+        entry["w4"] = torch.stack([p[0] for p in parts])
+        entry["scale"] = torch.stack([p[1] for p in parts])
+        layers[name] = entry
+    out["layers"] = layers
+    w4, scale = _quant_int4(params["lm_head"], group_size)
+    out["lm_head"] = {"w4": w4, "scale": scale}
+    return out
+
+
+def _mm(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """Linear apply over a param dict. The "w4" branch is the int4 kernel
+    (ops/kernels/int4_matvec.py) for decode and prefill alike."""
+    if "w4" in p:
+        lead = x.shape[:-1]
+        y = int4_matvec(x.reshape(-1, x.shape[-1]), p["w4"], p["scale"])
+        y = y.reshape(*lead, y.shape[-1])
+    else:
+        y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def _head_mm(x: torch.Tensor, head) -> torch.Tensor:
+    return _mm(x, head) if isinstance(head, dict) else x @ head
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: DecoderConfig, batch: int, max_len: int,
+               dtype=torch.float32, device: torch.device | str = "cpu"):
+    """Fixed-shape KV cache [L, B, Hkv, T, D], written in place."""
+    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _cache_write(cache: torch.Tensor, new: torch.Tensor, pos_start: int) -> None:
+    """Write [B, H, S, D] into one layer's cache [B, H, T, D] at pos_start.
+    XLA's dynamic_update_slice would clamp the start so the update fits; a
+    write past T here is a caller error and is refused."""
+    S, T = new.shape[2], cache.shape[2]
+    if pos_start < 0 or pos_start + S > T:
+        raise GenerationError(
+            f"KV cache write of {S} positions at {pos_start} exceeds its "
+            f"{T} slots")
+    cache[:, :, pos_start:pos_start + S].copy_(new)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _run_stack(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
+               cache_k: torch.Tensor, cache_v: torch.Tensor, pos_start: int,
+               use_flash: bool = False, kv_bucket: Optional[int] = None
+               ) -> torch.Tensor:
+    """Embed -> layer loop -> final norm, shared by prefill and decode.
+
+    `use_flash` routes attention through the flash kernel: from-zero
+    prefills attend the fresh K/V block, cache-reuse prefills (pos_start > 0)
+    the first `kv_bucket` cache slots at q_offset = pos_start.
+    """
+    B, S = ids.shape
+    T = cache_k.shape[3]
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    pos_start = int(pos_start)
+    x = F.embedding(ids, params["embed"])
+    cos = params["rope_cos"][pos_start:pos_start + S]
+    sin = params["rope_sin"][pos_start:pos_start + S]
+
+    bias = None
+    if not use_flash:
+        # causal bias over cache slots: query slot i sees kv slots j <= i
+        qi = pos_start + torch.arange(S, device=ids.device)[:, None]
+        kj = torch.arange(T, device=ids.device)[None, :]
+        keep = kj <= qi
+        if cfg.sliding_window:
+            keep = keep & (kj > qi - cfg.sliding_window)
+        bias = torch.where(keep, 0.0, NEG_INF)[None, None]      # [1, 1, S, T]
+
+    lp_all = params["layers"]
+    for i in range(cfg.num_layers):
+        lp = {n: ({k: t[i] for k, t in e.items()} if isinstance(e, dict) else e[i])
+              for n, e in lp_all.items()}
+        kc, vc = cache_k[i], cache_v[i]
+        hn = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+        q = _mm(hn, lp["q"]).reshape(B, S, H, D).transpose(1, 2)
+        k = _mm(hn, lp["k"]).reshape(B, S, Hkv, D).transpose(1, 2)
+        v = _mm(hn, lp["v"]).reshape(B, S, Hkv, D).transpose(1, 2)
+        q, k = apply_rope(q, k, cos, sin)
+        _cache_write(kc, k, pos_start)
+        _cache_write(vc, v, pos_start)
+        if use_flash:
+            kb = kv_bucket if kv_bucket is not None else S
+            if kb <= S:
+                # from-zero prefill: the fresh block is the whole valid cache
+                ctx = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+            else:
+                ctx = flash_attention(q, kc[:, :, :kb], vc[:, :, :kb], causal=True,
+                                      window=cfg.sliding_window, q_offset=pos_start,
+                                      kv_len=pos_start + S)
+        else:
+            ctx = attention(q, kc, vc, bias)
+        x = x + _mm(merge_heads(ctx), lp["o"])
+        hn = rms_norm(x, lp["ffn_norm"], cfg.rms_norm_eps)
+        x = x + _mm(F.silu(_mm(hn, lp["gate"])) * _mm(hn, lp["up"]), lp["down"])
+    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+
+
+def forward(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
+            cache_k: torch.Tensor, cache_v: torch.Tensor, pos_start: int,
+            last_idx: Optional[int] = None, use_flash: bool = False,
+            kv_bucket: Optional[int] = None):
+    """One decoder pass, shared by prefill and decode.
+
+    ids: [B, S] tokens at absolute positions pos_start + arange(S). Their K/V
+    are written into the cache in place; queries attend causally over
+    cache[0 .. pos_start+S). Returns (logits at `last_idx` (default S-1),
+    cache_k, cache_v), the caches being the same tensors that were passed.
+    """
+    x = _run_stack(params, cfg, ids, cache_k, cache_v, pos_start, use_flash,
+                   kv_bucket)
+    if last_idx is None:
+        last_idx = ids.shape[1] - 1
+    logits = _head_mm(x[:, int(last_idx)], params["lm_head"])
+    return logits, cache_k, cache_v
+
+
+def forward_all_logits(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
+                       cache_k: torch.Tensor, cache_v: torch.Tensor, pos_start: int):
+    """Like forward() but returns logits at every position."""
+    x = _run_stack(params, cfg, ids, cache_k, cache_v, pos_start)
+    return _head_mm(x, params["lm_head"]), cache_k, cache_v

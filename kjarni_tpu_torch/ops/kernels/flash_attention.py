@@ -1,0 +1,106 @@
+"""Flash attention: a hand-written Hopper kernel and its plain PyTorch version.
+
+Replaces kjarni_tpu/ops/pallas/flash_attention.py::flash_attention. The CUDA
+source is csrc/flash_attention.cu; its header says what bounds it on the H100
+(tensor-core flops at long prefills) and what the design does about that.
+
+`flash_attention` launches the kernel for CUDA tensors and raises on what the
+kernel does not take; it runs the plain version only for tensors on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import build
+
+NEG_INF = -1e30  # the kernel's mask value, as in the Pallas kernel
+HEAD_DIMS = (32, 64, 128)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = False, scale: Optional[float] = None,
+                          window: Optional[int] = None, q_offset: int = 0,
+                          kv_len: Optional[int] = None) -> torch.Tensor:
+    """The same function in plain torch ops, in f32: q [B,H,S,D], k/v
+    [B,Hkv,T,D] -> [B,H,S,D] in q's dtype. Queries sit at absolute positions
+    q_offset..q_offset+S-1 and attend K/V positions below kv_len."""
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    G = H // Hkv
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    kv_len = T if kv_len is None else kv_len
+    qf = q.float().reshape(B, Hkv, G * S, D)
+    s = torch.matmul(qf, k.float().transpose(-1, -2)) * scale   # [B,Hkv,G*S,T]
+    row = q_offset + torch.arange(G * S, device=q.device) % S
+    col = torch.arange(T, device=q.device)
+    keep = (col < kv_len)[None, :].expand(G * S, T)
+    if causal:
+        keep = keep & (col[None, :] <= row[:, None])
+    if window is not None:
+        keep = keep & (col[None, :] > row[:, None] - window)
+    s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    out = torch.matmul(p, v.float()) / p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
+    return out.reshape(B, H, S, D).to(q.dtype)
+
+
+def _kernel_view(t: torch.Tensor) -> torch.Tensor:
+    """t itself when the kernel can read it through its strides (unit D
+    stride, 16-byte aligned rows), else a contiguous copy."""
+    ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+          and all(s % 8 == 0 for s in t.stride()[:-1]))
+    return t if ok else t.contiguous()
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = False, scale: Optional[float] = None,
+                    window: Optional[int] = None, q_offset: int = 0,
+                    kv_len: Optional[int] = None) -> torch.Tensor:
+    """q [B, H, S, D], k/v [B, Hkv, T, D] -> [B, H, S, D].
+
+    q_offset (default 0) is the absolute position of q[:, :, 0]; queries
+    attend K/V positions below kv_len (default T): the cache-resume form.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     window=window, q_offset=q_offset,
+                                     kv_len=kv_len)
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention: tensors on {q.device}/{k.device}/"
+                         f"{v.device}; the kernel takes one CUDA device")
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
+        raise TypeError(f"flash_attention kernel takes bf16, got {q.dtype}")
+    if D not in HEAD_DIMS or k.shape != v.shape or k.shape[0] != B \
+            or k.shape[3] != D or H % Hkv:
+        raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)}"
+                         f" k {tuple(k.shape)} v {tuple(v.shape)}")
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
+    # [B, S, H, D] storage: merge_heads of the result is then a free view
+    o = torch.empty(B, S, H, D, dtype=q.dtype, device=q.device).transpose(1, 2)
+    strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, o)
+                                      for s in t.stride()[:3]))
+    lib = build.load("flash_attention")
+    fn = lib.kj_flash_attention_bf16
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int64)] + \
+            [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
+             B, H, Hkv, S, T, D, int(q_offset), int(T if kv_len is None else kv_len),
+             int(causal), int(window or 0), float(scale),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, err, "flash_attention")
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0

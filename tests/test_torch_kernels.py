@@ -1,0 +1,181 @@
+"""kjarni_tpu_torch's kernel modules against the JAX package, on the CPU.
+
+On the CPU each wrapper runs its kernel's plain PyTorch version; the JAX side
+runs the Pallas kernels in interpret mode. Inputs come from a numpy seed and
+go through both. Tolerances: flash atol 2e-5 in f32 and 3e-2 in bf16 (the
+JAX package's own flash tests); int4 rtol/atol 2e-2 and cosine > 0.9995
+(0.999 for bf16 inputs), as tests/test_int4_matvec.py.
+"""
+
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from kjarni_tpu.models.llama import _mm as jax_mm
+from kjarni_tpu.models.llama import pack_int4 as jax_pack_int4
+from kjarni_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
+from kjarni_tpu.ops.pallas.int4_matvec import int4_matvec as jax_int4_matvec
+from kjarni_tpu_torch.models.llama import pack_int4
+from kjarni_tpu_torch.ops.kernels.flash_attention import flash_attention
+from kjarni_tpu_torch.ops.kernels.int4_matvec import int4_matvec, split_plan
+
+
+def rand(*shape, seed=0):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def to_torch(a, dtype=torch.float32):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(dtype)
+
+
+# every case of tests/test_flash_attention.py:
+# (B, H, Hkv, S, T, D, causal, window, q_offset, kv_len, block_q, block_k)
+FLASH_CASES = {
+    "full": (1, 2, 2, 128, 128, 64, False, None, None, None, None, None),
+    "causal": (1, 2, 2, 128, 128, 32, True, None, None, None, None, None),
+    "multi_block_kv": (1, 1, 1, 128, 384, 32, False, None, None, None, None, 128),
+    "unaligned": (1, 1, 1, 100, 200, 32, False, None, None, None, 64, 64),
+    "gqa": (1, 4, 2, 64, 64, 32, False, None, None, None, 64, 64),
+    "window": (1, 2, 2, 256, 256, 32, True, 64, None, None, 64, 64),
+    "offset": (1, 2, 2, 128, 384, 32, True, None, 200, 328, 64, 64),
+    "offset_zero": (1, 2, 2, 128, 128, 32, True, None, 0, 128, None, None),
+    "offset_window": (1, 1, 1, 128, 256, 32, True, 48, 100, 228, 64, 64),
+    "autotuned_gqa_offset": (1, 4, 2, 256, 640, 32, True, None, 384, 640, None, None),
+}
+
+
+class TestFlashPlainVsJax:
+    @pytest.mark.parametrize("name", list(FLASH_CASES))
+    def test_f32_matches(self, name):
+        B, H, Hkv, S, T, D, causal, window, off, kv_len, bq, bk = FLASH_CASES[name]
+        seed = sorted(FLASH_CASES).index(name) * 3
+        q, k, v = rand(B, H, S, D, seed=seed), rand(B, Hkv, T, D, seed=seed + 1), \
+            rand(B, Hkv, T, D, seed=seed + 2)
+        jkw = dict(causal=causal, window=window, block_q=bq, block_k=bk,
+                   interpret=True)
+        if off is not None:
+            jkw.update(q_offset=jnp.int32(off), kv_len=jnp.int32(kv_len))
+        ref = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **jkw)
+        got = flash_attention(to_torch(q), to_torch(k), to_torch(v), causal=causal,
+                              window=window, q_offset=off or 0, kv_len=kv_len)
+        assert got.dtype == torch.float32 and got.shape == (B, H, S, D)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5)
+
+    def test_bf16_matches(self):
+        q, k, v = (rand(1, 1, 64, 32, seed=s) for s in (16, 17, 18))
+        ref = jax_flash(*(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)),
+                        block_q=64, block_k=64, interpret=True)
+        got = flash_attention(*(to_torch(a, torch.bfloat16) for a in (q, k, v)))
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(ref, dtype=np.float32), atol=3e-2)
+
+    def test_garbage_tail_ignored(self):
+        S, T, off = 64, 256, 64
+        q = to_torch(rand(1, 1, S, 32, seed=33))
+        k, v = rand(1, 1, T, 32, seed=34), rand(1, 1, T, 32, seed=35)
+        kv_len = off + S
+        clean = flash_attention(q, to_torch(k), to_torch(v), causal=True,
+                                q_offset=off, kv_len=kv_len)
+        k[:, :, kv_len:], v[:, :, kv_len:] = 1e3, -1e3
+        dirty = flash_attention(q, to_torch(k), to_torch(v), causal=True,
+                                q_offset=off, kv_len=kv_len)
+        np.testing.assert_allclose(dirty.numpy(), clean.numpy(), atol=1e-6)
+
+    def test_cpu_runs_plain_without_counting(self):
+        before = flash_attention.launches
+        flash_attention(*(to_torch(rand(1, 2, 16, 32, seed=s)) for s in (1, 2, 3)))
+        assert flash_attention.launches == before
+
+    def test_other_devices_raise(self):
+        q = torch.empty(1, 2, 16, 32, device="meta")
+        with pytest.raises(ValueError):
+            flash_attention(q, q, q)
+
+
+def make_int4_case(B, K, N, g, seed=0):
+    """(x, w4, scale, dequantized reference product), as test_int4_matvec.py."""
+    rng = np.random.default_rng(seed)
+    w32 = rng.standard_normal((K, N)).astype(np.float32) * 0.1
+    G = K // g
+    wg = w32.reshape(G, g, N)
+    scale = (np.abs(wg).max(axis=1) / 7.0).astype(np.float32)
+    q = np.clip(np.round(wg / scale[:, None, :]), -8, 7).reshape(K, N).astype(np.int8)
+    x = rng.standard_normal((B, K)).astype(np.float32)
+    deq = (q.astype(np.float32).reshape(G, g, N) * scale[:, None, :]).reshape(K, N)
+    return x, jax_pack_int4(q), scale, q, x @ deq
+
+
+def _cos(a, b):
+    a, b = np.ravel(a).astype(np.float32), np.ravel(b).astype(np.float32)
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-9))
+
+
+class TestInt4PlainVsJax:
+    @pytest.mark.parametrize("B,K,N,g", [(1, 256, 512, 64), (4, 512, 512, 128),
+                                         (8, 256, 1024, 64), (2, 256, 384, 64)])
+    def test_matches_kernel_and_mm(self, B, K, N, g):
+        x, w4, scale, _, ref = make_int4_case(B, K, N, g, seed=K + N + B)
+        got = int4_matvec(to_torch(x), torch.from_numpy(w4), to_torch(scale)).numpy()
+        assert got.shape == (B, N)
+        jk = np.asarray(jax_int4_matvec(jnp.asarray(x), jnp.asarray(w4),
+                                        jnp.asarray(scale), block_n=256,
+                                        interpret=True))
+        np.testing.assert_allclose(got, jk, rtol=2e-2, atol=2e-2)
+        assert _cos(got, jk) > 0.9995
+        np.testing.assert_allclose(got, ref, rtol=2e-2, atol=2e-2)
+        # in f32 the plain version is _mm's w4 branch
+        mm = np.asarray(jax_mm(jnp.asarray(x), {"w4": jnp.asarray(w4),
+                                                "scale": jnp.asarray(scale)}))
+        np.testing.assert_allclose(got, mm, rtol=1e-5, atol=1e-5)
+
+    def test_bf16_inputs(self):
+        x, w4, scale, _, ref = make_int4_case(1, 256, 512, 128, seed=5)
+        got = int4_matvec(to_torch(x, torch.bfloat16), torch.from_numpy(w4),
+                          to_torch(scale))
+        assert got.dtype == torch.bfloat16
+        jk = jax_int4_matvec(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w4),
+                             jnp.asarray(scale), block_n=512, interpret=True)
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(jk, np.float32),
+                                   rtol=2e-2, atol=2e-2)
+        assert _cos(got.float().numpy(), ref) > 0.999
+
+    def test_single_group_matches_mm(self):
+        # K % 256 != 0: quantize_params_int4 falls back to one scale per column
+        x, w4, scale, _, ref = make_int4_case(3, 192, 200, 192, seed=7)
+        assert scale.shape == (1, 200)
+        got = int4_matvec(to_torch(x), torch.from_numpy(w4), to_torch(scale)).numpy()
+        mm = np.asarray(jax_mm(jnp.asarray(x), {"w4": jnp.asarray(w4),
+                                                "scale": jnp.asarray(scale)}))
+        np.testing.assert_allclose(got, mm, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got, ref, rtol=2e-2, atol=2e-2)
+
+    def test_pack_matches_jax(self):
+        q = np.random.default_rng(3).integers(-8, 8, (2, 64, 48)).astype(np.int8)
+        np.testing.assert_array_equal(pack_int4(torch.from_numpy(q)).numpy(),
+                                      jax_pack_int4(q))
+
+    def test_cpu_runs_plain_without_counting(self):
+        x, w4, scale, _, _ = make_int4_case(1, 256, 128, 64)
+        before = int4_matvec.launches
+        int4_matvec(to_torch(x), torch.from_numpy(w4), to_torch(scale))
+        assert int4_matvec.launches == before
+
+    @pytest.mark.parametrize("M,K,N", [(1, 2048, 2048), (1, 8192, 2048),
+                                       (1, 2048, 128256), (1024, 2048, 8192),
+                                       (3, 192, 200)])
+    def test_split_plan_covers_k(self, M, K, N):
+        splits, rows = split_plan(M, K, N)
+        assert rows % 64 == 0 and splits >= 1
+        assert (splits - 1) * rows < K // 2 <= splits * rows
+
+
+def test_bf16_cast_matches_ml_dtypes():
+    """Weights cross between the packages as f32: torch's bf16 rounding is
+    ml_dtypes' (round to nearest even)."""
+    a = rand(4096, seed=11) * 3
+    np.testing.assert_array_equal(
+        torch.from_numpy(a).to(torch.bfloat16).float().numpy(),
+        a.astype(ml_dtypes.bfloat16).astype(np.float32))

@@ -1,0 +1,128 @@
+"""kjarni_tpu_torch's llama forward against the JAX package's, on the CPU.
+
+Both run the same random llama params (`__graft_entry__._random_llama`,
+converted with `params_from_jax`) in f32; the JAX flash path runs the Pallas
+kernel in interpret mode, the port's the kernel's plain version. Tolerance
+atol 1e-3 on the logits (f32; the sums run in other orders).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import kjarni_tpu.ops.pallas.flash_attention as jax_fa
+from __graft_entry__ import _random_llama
+from kjarni_tpu.models import llama as jl
+from kjarni_tpu_torch.core.errors import GenerationError
+from kjarni_tpu_torch.models import llama as tl
+from kjarni_tpu_torch.weights.convert import params_from_jax
+
+ATOL = 1e-3
+
+
+@pytest.fixture
+def interpret_flash(monkeypatch):
+    orig = jax_fa.flash_attention
+
+    def interp(*a, **kw):
+        kw["interpret"] = True
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(jax_fa, "flash_attention", interp)
+
+
+@pytest.fixture(scope="module")
+def model():
+    cfg_j, params_np = _random_llama({"num_layers": 2, "max_seq_len": 512})
+    cfg_t = tl.DecoderConfig(**{f.name: getattr(cfg_j, f.name)
+                                for f in dataclasses.fields(tl.DecoderConfig)})
+    return cfg_j, cfg_t, params_np
+
+
+def _ids(n, seed, vocab=1024):
+    return np.random.default_rng(seed).integers(0, vocab, (1, n)).astype(np.int32)
+
+
+def _run_jax(cfg, params, chunks, **last_kw):
+    """Prefill `chunks` in turn (each [1, S] at the running position); the
+    last one with `last_kw`. Returns (logits, cache_k)."""
+    params = jax.tree.map(jnp.asarray, params)
+    ck, cv = jl.init_cache(cfg, 1, 512)
+    pos = 0
+    for i, ids in enumerate(chunks):
+        kw = last_kw if i == len(chunks) - 1 else {}
+        lg, ck, cv = jl.forward(params, cfg, jnp.asarray(ids), ck, cv,
+                                jnp.int32(pos), **kw)
+        pos += ids.shape[1]
+    return np.asarray(lg), np.asarray(ck)
+
+
+def _run_torch(cfg, params, chunks, **last_kw):
+    ck, cv = tl.init_cache(cfg, 1, 512)
+    pos = 0
+    for i, ids in enumerate(chunks):
+        kw = last_kw if i == len(chunks) - 1 else {}
+        lg, ck, cv = tl.forward(params, cfg, torch.from_numpy(ids).long(), ck, cv,
+                                pos, **kw)
+        pos += ids.shape[1]
+    return lg.numpy(), ck.numpy()
+
+
+class TestForwardParity:
+    @pytest.mark.parametrize("case", ["prefill", "prefill_then_decode",
+                                      "flash_from_zero", "flash_kv_bucket"])
+    def test_matches_jax(self, model, interpret_flash, case):
+        cfg_j, cfg_t, params_np = model
+        chunks = {"prefill": [_ids(128, 0)],
+                  "prefill_then_decode": [_ids(100, 1), _ids(1, 2)],
+                  "flash_from_zero": [_ids(128, 3)],
+                  "flash_kv_bucket": [_ids(128, 4), _ids(128, 5)]}[case]
+        kw = {"flash_from_zero": dict(use_flash=True),
+              "flash_kv_bucket": dict(use_flash=True, kv_bucket=256)}.get(case, {})
+        lg_j, ck_j = _run_jax(cfg_j, params_np, chunks, **kw)
+        lg_t, ck_t = _run_torch(cfg_t, params_from_jax(params_np), chunks, **kw)
+        np.testing.assert_allclose(lg_t, lg_j, atol=ATOL)
+        np.testing.assert_allclose(ck_t, ck_j, atol=ATOL)
+
+    def test_int4_params_match_jax(self, model):
+        cfg_j, cfg_t, params_np = model
+        q_np = jl.quantize_params_int4(params_np)
+        chunks = [_ids(64, 6), _ids(1, 7)]
+        lg_j, _ = _run_jax(cfg_j, q_np, chunks)
+        lg_t, _ = _run_torch(cfg_t, params_from_jax(q_np), chunks)
+        np.testing.assert_allclose(lg_t, lg_j, atol=ATOL)
+
+    def test_quantize_matches_jax(self, model):
+        _, _, params_np = model
+        q_np = jl.quantize_params_int4(params_np)
+        q_t = tl.quantize_params_int4(params_from_jax(params_np))
+        for name in ("q", "down"):
+            np.testing.assert_array_equal(q_t["layers"][name]["w4"].numpy(),
+                                          q_np["layers"][name]["w4"])
+            np.testing.assert_allclose(q_t["layers"][name]["scale"].numpy(),
+                                       q_np["layers"][name]["scale"], rtol=1e-7)
+        np.testing.assert_array_equal(q_t["lm_head"]["w4"].numpy(),
+                                      q_np["lm_head"]["w4"])
+
+    def test_all_logits_match_jax(self, model):
+        cfg_j, cfg_t, params_np = model
+        ids = _ids(32, 8)
+        ck, cv = jl.init_cache(cfg_j, 1, 64)
+        lg_j, _, _ = jl.forward_all_logits(jax.tree.map(jnp.asarray, params_np),
+                                           cfg_j, jnp.asarray(ids), ck, cv, 0)
+        ck, cv = tl.init_cache(cfg_t, 1, 64)
+        lg_t, _, _ = tl.forward_all_logits(params_from_jax(params_np), cfg_t,
+                                           torch.from_numpy(ids).long(), ck, cv, 0)
+        np.testing.assert_allclose(lg_t.numpy(), np.asarray(lg_j), atol=ATOL)
+
+
+def test_cache_write_past_end_is_refused(model):
+    _, cfg_t, params_np = model
+    ck, cv = tl.init_cache(cfg_t, 1, 64)
+    with pytest.raises(GenerationError):
+        tl.forward(params_from_jax(params_np), cfg_t,
+                   torch.zeros(1, 8, dtype=torch.long), ck, cv, 60)
