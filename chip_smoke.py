@@ -1,17 +1,25 @@
 #!/usr/bin/env python3
 """Drive kjarni_tpu_torch's generation path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--phases env,kernels,bf16,int4]
+    python3 chip_smoke.py [--phases env,kernels,bf16,int4] [--root DIR]
+
+--root DIR imports kjarni_tpu_torch from another checkout (an older commit,
+say) instead of this one, to time its kernels on these same cases.
 
 Phases, in order (all by default); any failure raises and exits non-zero:
 
 1. env: torch/CUDA versions, the card's name and power limit, which optional
    packages import, and the build of every kernel from kjarni_tpu_torch/csrc.
 2. kernels: each hand-written kernel against its plain PyTorch version on the
-   card, in bf16, at the generation path's shapes; one line per case with
-   the launches the case made, max_abs_err, kernel_ms, plain_ms and (flash
-   only) library_ms, the time of torch's scaled_dot_product_attention on the
-   same inputs as a yardstick (the port never calls it).
+   card, in bf16, at the generation path's shapes (int4: every projection at
+   M = 1 for decode and M = 8, 32, 128 and 1024 for prefill buckets, and the
+   head at M = 1; two calls must give bit-identical outputs); one line per
+   case with the launches the case made, max_abs_err, kernel_ms, plain_ms and
+   library_ms, the time of one PyTorch call computing the same function as a
+   yardstick the port never calls: scaled_dot_product_attention for flash,
+   torch._weight_int4pack_mm (tinygemm, checked against the plain version
+   first) for int4. At M = 1 the int4 line also has gemm_ms: the prefill GEMM
+   on the same input, beside the GEMV that decode takes.
 3. bf16: Generator over a Llama-3.2-1B-shaped checkpoint (full width, 16
    layers, random bf16 weights from a seeded generator on the card) answers
    three requests: a greedy generate on a ~700-token prompt (flash prefill), a
@@ -25,7 +33,8 @@ Phases, in order (all by default); any failure raises and exits non-zero:
 The line before the last is a JSON object {"kernels": [...]}: per kernel the
 launches of phases 3-4, max_abs_err over its cases, and ms / plain_ms /
 bound_ms / library_ms -- for flash one launch at the Llama-1B prefill shape,
-for int4 the 113 launches of one decoded token. bound_ms is the larger of the
+for int4 the 113 launches of one decoded token (also printed: the 7 launches of
+one layer of an M-token prefill, for each prefill M). bound_ms is the larger of the
 bytes moved over 3.35 TB/s and the bf16 operations over 989 TFLOP/s (H100 SXM
 data sheet). The last line is {"ok": true, "device": {...}}.
 """
@@ -225,42 +234,113 @@ def _int4_weights(K, N, G, seed):
     return _quant_int4(w, K // G)
 
 
+def _close_to_plain(name, out, ref) -> tuple[float, float]:
+    """The int4 check: allclose rtol/atol 2e-2 and cosine > 0.999."""
+    import torch
+    err = (out.float() - ref.float()).abs().max().item()
+    cos = torch.nn.functional.cosine_similarity(
+        out.float().reshape(-1), ref.float().reshape(-1), dim=0).item()
+    check(bool(torch.allclose(out.float(), ref.float(), rtol=2e-2, atol=2e-2)),
+          f"{name}: allclose rtol/atol 2e-2 (max_abs_err {err})")
+    check(cos > 0.999, f"{name}: cosine {cos} > 0.999")
+    return err, cos
+
+
+def _tinygemm_weights(w4, scale):
+    """(packed weight, qScaleAndZeros, group size) for torch._weight_int4pack_mm
+    holding the same function as (w4, scale), or a string saying why the shape
+    cannot be expressed. The signed nibble s becomes s + 8 in [0, 15], in the
+    original K order; the scale is rounded to bf16 and the zero is 0, so
+    tinygemm's (q - 8) * scale + zero is s * scale."""
+    import torch
+    from kjarni_tpu_torch.ops.kernels.int4_matvec import unpack_int4
+    K2, N = w4.shape
+    K, G = 2 * K2, scale.shape[0]
+    if G == 1 or K // G not in (32, 64, 128, 256):
+        return f"tinygemm takes groups of 32-256 rows, not {K // G} (G = {G})"
+    if N % 8 or K % 128:
+        return f"tinygemm needs N % 8 == 0 and K % 128 == 0 (K {K}, N {N})"
+    lo, hi = unpack_int4(w4)
+    q = (torch.cat([lo, hi]) + 8).t().contiguous().to(torch.uint8)   # [N, K]
+    packed = (q[:, ::2] << 4 | q[:, 1::2]).contiguous()              # [N, K/2]
+    wp = torch._convert_weight_to_int4pack(packed, 8)
+    sz = torch.stack([scale.to(torch.bfloat16),
+                      torch.zeros_like(scale, dtype=torch.bfloat16)], -1).contiguous()
+    return wp, sz, K // G
+
+
 def int4_case(name, M, K, N, seed=0) -> dict:
     import torch
+    from kjarni_tpu_torch.ops.kernels import int4_matvec as i4
     from kjarni_tpu_torch.ops.kernels.int4_matvec import int4_matvec, int4_matvec_plain
     G = K // 128
     w4, scale = _int4_weights(K, N, G, seed)
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
     launches0 = int4_matvec.launches
-    ref = int4_matvec_plain(x, w4, scale)
+    # the plain version on the same bf16 inputs, evaluated in f32: in bf16 it
+    # rounds each half's product before adding the two, up to a bf16 ulp of
+    # the halves, which atol 2e-2 does not cover at K = 8192
+    ref = int4_matvec_plain(x.float(), w4, scale)
     out = int4_matvec(x, w4, scale)
+    again = int4_matvec(x, w4, scale)
     torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    cos = torch.nn.functional.cosine_similarity(
-        out.float().reshape(-1), ref.float().reshape(-1), dim=0).item()
-    check(bool(torch.allclose(out.float(), ref.float(), rtol=2e-2, atol=2e-2)),
-          f"int4 {name}: allclose rtol/atol 2e-2 (max_abs_err {err})")
-    check(cos > 0.999, f"int4 {name}: cosine {cos} > 0.999")
-    # decode finds its weights cold: cycle through copies filling > 2x L2
-    nbytes = M * K * 2 + w4.numel() + scale.numel() * 4 + M * N * 2
-    copies = max(1, min(64, math.ceil(100e6 / (w4.numel() + scale.numel() * 4))))
+    err, cos = _close_to_plain(f"int4 {name}", out, ref)
+    check(torch.equal(out, again), f"int4 {name}: two calls give bit-identical outputs")
+    launches = int4_matvec.launches - launches0
+    # at M = 1, the GEMM beside the GEMV that the plan picks (not in an older
+    # checkout, whose wrapper has no gemm_plan)
+    gemm = None
+    if M == 1 and hasattr(i4, "gemm_plan"):
+        plan = i4.gemm_plan(M, K, N)
+
+        def gemm(a, w, s):
+            return i4._launch(a, w, s, plan)
+        _close_to_plain(f"int4 {name} gemm", gemm(x, w4, scale), ref)
+    # the library yardstick, checked like the kernel before it is timed
+    tg = _tinygemm_weights(w4, scale)
+    if isinstance(tg, str):
+        print(f"int4 {name}: library_ms null: {tg}")
+    else:
+        lib = torch._weight_int4pack_mm(x, tg[0], tg[2], tg[1])
+        torch.cuda.synchronize()
+        _close_to_plain(f"tinygemm {name}", lib, ref)
+    # decode and short prefills find their weights cold: cycle through copies
+    # filling > 2x L2; M = 1024 is bound by its operations and cycles through two
+    wbytes = w4.numel() + scale.numel() * 4
+    nbytes = M * K * 2 + wbytes + M * N * 2
+    copies = max(1, min(64, math.ceil(100e6 / wbytes))) if M <= 128 else 2
     ws = [(w4.clone(), scale.clone()) for _ in range(copies)]
     it = [0]
 
-    def run(fn):
-        w, s = ws[it[0] % copies]
-        it[0] += 1
-        fn(x, w, s)
+    def cycle(fn, weights):
+        def step():
+            w, s = weights[it[0] % copies]
+            it[0] += 1
+            fn(x, w, s)
+        return step
 
-    kernel_ms = cuda_ms(lambda: run(int4_matvec), iters=max(20, copies))
-    eager_ms = host_ms(lambda: run(int4_matvec), iters=max(20, copies))
-    plain_ms = cuda_ms(lambda: run(int4_matvec_plain), iters=10)
+    iters = max(20, copies)
+    kernel_ms = cuda_ms(cycle(int4_matvec, ws), iters=iters)
+    eager_ms = host_ms(cycle(int4_matvec, ws), iters=iters)
+    plain_ms = cuda_ms(cycle(int4_matvec_plain, ws), iters=10)
+    gemm_ms = None if gemm is None else cuda_ms(cycle(gemm, ws), iters=iters)
+    library_ms = None
+    if not isinstance(tg, str):
+        wp, sz, gs = tg
+        del ws
+        libs = [(wp.clone(), sz.clone()) for _ in range(copies)]
+        library_ms = cuda_ms(cycle(lambda a, w, s: torch._weight_int4pack_mm(a, w, gs, s),
+                                   libs), iters=iters)
+        del libs
     bound, bound_by = bound_ms(nbytes, 2 * M * K * N)
-    row = {"case": f"int4 {name}", "launches": int4_matvec.launches - launches0,
+    row = {"case": f"int4 {name}", "launches": launches,
            "max_abs_err": err, "cosine": cos,
            "kernel_ms": kernel_ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
-           "library_ms": None, "bound_ms": bound, "bound_by": bound_by}
+           "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by,
+           "tb_per_s": 1e-9 * nbytes / kernel_ms}
+    if gemm_ms is not None:
+        row["gemm_ms"] = gemm_ms
     print(json.dumps(row))
     return row
 
@@ -283,13 +363,31 @@ def phase_kernels() -> dict:
                  "down 8192x2048": 16, "lm_head 2048x128256": 1}
     int4 = {name: int4_case(f"M=1 {name}", 1, K, N, seed=i)
             for i, (name, (K, N)) in enumerate(shapes.items())}
-    prefill = int4_case("M=1024 gate/up 2048x8192", 1024, 2048, 8192, seed=9)
-    tok = {key: sum(per_token[n] * int4[n][key] for n in shapes)
-           for key in ("kernel_ms", "eager_ms", "plain_ms", "bound_ms")}
-    check(all(int4[n]["bound_by"] == "bytes" for n in shapes), "int4 M=1 bound by bytes")
-    tok["bound_by"] = "bytes"
-    print(json.dumps({"case": "int4 one decoded token (113 launches)", **tok}))
-    return {"flash": flash, "int4": list(int4.values()) + [prefill],
+    layer = [n for n in shapes if n != "lm_head 2048x128256"]
+    # prefill buckets: short prompts and prefix-reuse suffixes (8-128), and long
+    prefill = {M: {name: int4_case(f"M={M} {name}", M, *shapes[name], seed=9 + i)
+                   for i, name in enumerate(layer)} for M in (8, 32, 128, 1024)}
+
+    def total(rows, counts, what):
+        keys = ["kernel_ms", "eager_ms", "plain_ms", "bound_ms"]
+        keys += ["gemm_ms"] if all("gemm_ms" in r for r in rows.values()) else []
+        out = {key: sum(counts[n] * rows[n][key] for n in rows) for key in keys}
+        libs = [rows[n]["library_ms"] for n in rows]
+        out["library_ms"] = (None if None in libs else
+                             sum(counts[n] * rows[n]["library_ms"] for n in rows))
+        out["bound_by"] = ("bytes" if all(rows[n]["bound_by"] == "bytes" for n in rows)
+                           else "operations")
+        print(json.dumps({"case": what, **out}))
+        return out
+
+    tok = total(int4, per_token, "int4 one decoded token (113 launches)")
+    check(tok["bound_by"] == "bytes", "int4 M=1 bound by bytes")
+    per_layer = {n: per_token[n] // LLAMA_1B["num_hidden_layers"] for n in layer}
+    for M, rows in prefill.items():
+        total(rows, per_layer, f"int4 one layer of a {M}-token prefill (7 launches)")
+    return {"flash": flash,
+            "int4": list(int4.values()) + [r for rows in prefill.values()
+                                           for r in rows.values()],
             "int4_token": tok}
 
 
@@ -569,12 +667,15 @@ def phase_slices(phases) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="env,kernels,bf16,int4")
-    phases = ap.parse_args().phases.split(",")
+    ap.add_argument("--root", type=Path, default=ROOT,
+                    help="the checkout whose kjarni_tpu_torch is imported")
+    args = ap.parse_args()
+    phases = args.phases.split(",")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(args.root.resolve()))
     from kjarni_tpu_torch.ops.kernels.flash_attention import flash_attention
     from kjarni_tpu_torch.ops.kernels.int4_matvec import int4_matvec
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -610,7 +711,7 @@ def main() -> int:
              "max_abs_err": max(r["max_abs_err"] for r in kern["int4"]),
              "ms": tok["kernel_ms"], "plain_ms": tok["plain_ms"],
              "bound_ms": tok["bound_ms"], "bound_by": tok["bound_by"],
-             "library_ms": None},
+             "library_ms": tok["library_ms"]},
         ]}
         print(json.dumps(line))
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -4,203 +4,689 @@
 // Same function: x [M,K] bf16, w4 [K/2,N] int8 holding two nibbles per byte
 // (low nibble = row r, high nibble = row r + K/2), scale [G,N] f32 over groups
 // of g = K/G rows; the group scale multiplies the f32 partial of its group,
-// not the weight tile. Output [M,N] bf16.
+// not the weight. Output [M,N] bf16. G == 1 (one scale per column) is taken
+// as well as even G. Two kernels; the wrapper's launch_plan picks one by M.
 //
-// What bounds it on the H100: at decode (M = 1) every packed byte is read once
-// and used for 4 flops, so it is bound by device-memory bytes (K*N/2 weight
-// bytes + 4*G*N scale bytes). The design:
-//   * the nibbles are sign-extended in registers and fed to bf16 mma.sync
-//     (nibble values are exact in bf16), accumulating in f32 -- the weight is
-//     never dequantized into memory;
-//   * a block owns 128 output columns and 16 rows of x; weight tiles of 64
-//     packed rows x 128 columns go through shared memory with 16-byte loads;
-//   * any M: rows past M are zero-filled in the kernel (the Pallas kernel
-//     padded x to 8 rows for Mosaic; nothing is padded here), and prefill
-//     (M = bucket) runs the same code with more row tiles;
-//   * small decode grids are split along K (`splits` blocks per column tile)
-//     so the card has enough blocks in flight; each split writes f32 partials
-//     and a second small kernel sums them in a fixed order (deterministic);
-//   * G == 1 (one scale per column) is taken as well as even G.
-// Not yet done (later work): cp.async/TMA pipelining, larger M tiles for prefill.
+// Decode (M == 1): int4_gemv_kernel. Every packed byte is read once and used
+// for 4 flops, so it is bound by device-memory bytes (K*N/2 weight bytes).
+//   * a block owns 8 * col_threads columns and all of K: each thread owns 8
+//     columns (one 8-byte load per packed row) and walks its share of K in
+//     steps of 8 rows, the next step's weight and x loads issued before the
+//     current step is used (x is small and stays in L1/L2); the plan picks
+//     col_threads so that even small N fills the card without splitting K
+//     across blocks;
+//   * nibbles are decoded in registers with bit operations: a nibble moved to
+//     bits 16..19 and combined with 0x43080000 is the f32 136 + s (no int->float
+//     conversion); the 136 * sum(x) this adds is subtracted once per group;
+//   * FMA in f32 on the CUDA cores; the group scale is read once per group and
+//     column, at the group's first step, and multiplies the f32 partial;
+//   * the block sums its K lanes in a fixed tree (warp shuffles, then the
+//     warps in order through shared memory). No atomics and no split across
+//     blocks: two calls give bit-identical outputs.
+//
+// Prefill (M > 1): int4_gemm_kernel. 2*M*K*N flops over K*N/2 + 2*M*K bytes:
+// bound by the weight bytes at small M and by the tensor cores at M = 1024.
+//   * 32, 64 or 128 x rows by 128 output columns per block (the plan takes the
+//     smallest that holds M, so a short prompt feeds few zero rows to the
+//     tensor cores), 8 warps, bf16 mma.sync m16n8k16 fed by ldmatrix;
+//   * x, packed-weight and group-scale stages go through a 3-stage cp.async
+//     ring, so the copies overlap the products;
+//   * the packed [64, 128] weight bytes of a stage are decoded once into two
+//     bf16 tiles (low rows, high rows) in shared memory (byte_perm + lop3 +
+//     one bf16x2 subtraction per two nibbles) and serve all the block's rows
+//     of x; the decoded tiles are double-buffered, so stage s+1 is decoded
+//     while stage s is multiplied, with one barrier per stage;
+//   * the group scale multiplies the f32 partial at each group's end; where
+//     every stage lies inside one group (all of Llama's shapes) a stage's
+//     products run without a branch and flush once per half;
+//   * where the output tiles are too few to fill the card (short prompts,
+//     narrow N), the plan splits K across up to 16 blocks per tile. They write
+//     f32 partials, and the last to arrive, counted per tile, sums them in
+//     split order in the same launch: bit-identical outputs, no float atomics.
+// One block (8 warps) fits an SM, for its shared memory, and the ldmatrix ->
+// mma latency is poorly hidden. Next (later work): wgmma with TMA-fed,
+// warp-specialised stages.
 #include "mma.cuh"
 
 namespace {
 
-constexpr int kBN = 128;       // output columns per block: 4 warps x 32
-constexpr int kBM = 16;        // x rows per block (one mma row tile)
-constexpr int kBKP = 64;       // packed weight rows per shared-memory stage
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
 
 struct Int4Params {
   const __nv_bfloat16* x;      // [M, K]
-  const int8_t* w4;            // [K/2, N]
+  const uint8_t* w4;           // [K/2, N]
   const float* scale;          // [G, N]
-  float* partial;              // [splits, M, N] when splits > 1
   __nv_bfloat16* y;            // [M, N]
   int M, K, N, G;
-  int rows_per_split;          // packed rows per K split, a multiple of kBKP
-  int vec_w;                   // w4 rows are 16-byte aligned (N % 16 == 0)
+  float* ws;                   // prefill, split K: [splits, M, N] f32 partials
+  int* counters;               // prefill, split K: arrivals per output tile
+  int split_stages;            // prefill: K stages per split
+  int col_threads;             // decode: threads across a block's columns
+  int rows_per_lane;           // decode: packed rows per thread, a multiple of 8
+  int vec_w;                   // decode: w4 rows load as 8-byte vectors
+  int vec_s;                   // decode: scale rows load as float4
+  int vec_x;                   // decode: x rows load as 16-byte vectors
 };
 
-__device__ __forceinline__ float lo_nibble(int b) { return (float)(((b & 0xF) ^ 8) - 8); }
-__device__ __forceinline__ float hi_nibble(int b) { return (float)((((b >> 4) & 0xF) ^ 8) - 8); }
+// ---------------------------------------------------------------------------
+// decode GEMV
+// ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads) int4_mm_kernel(const Int4Params p) {
-  __shared__ __align__(16) int8_t Ws[kBKP][kBN + 16];
-  __shared__ __align__(16) __nv_bfloat16 Xlo[kBM][kBKP + 8];
-  __shared__ __align__(16) __nv_bfloat16 Xhi[kBM][kBKP + 8];
+constexpr int kV = 8;                             // columns (packed bytes) per thread
+constexpr int kUnroll = 8;                        // packed rows (loads) per step
+constexpr int kMaxColThreads = 32;
 
-  const int K2 = p.K / 2;
-  const int g = p.K / p.G;               // rows per group (K when G == 1)
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * kBM;
-  const int r_begin = blockIdx.z * p.rows_per_split;
-  const int r_end = min(K2, r_begin + p.rows_per_split);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int gid = lane / 4;
-  const int tig = lane % 4;
+// the nibble at bits 16..19 of w -> 136 + s as an f32, s its signed value
+__device__ __forceinline__ float biased(uint32_t w) {
+  return __uint_as_float((w & 0x000F0000u) ^ 0x43080000u);
+}
 
-  float acc[4][4], part_lo[4][4], part_hi[4][4];
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
+
+// kV bytes of one packed row; zeros past column N
+__device__ __forceinline__ uint2 load_bytes(const uint8_t* src, int valid, bool vec) {
+  if (vec && valid >= kV) return __ldg(reinterpret_cast<const uint2*>(src));
+  uint32_t q[2] = {0u, 0u};
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < kV; ++j)
+    if (j < valid) q[j / 4] |= static_cast<uint32_t>(__ldg(src + j)) << (8 * (j % 4));
+  return make_uint2(q[0], q[1]);
+}
+
+// kV scales of one group row; zeros past column N
+__device__ __forceinline__ void load_scales(float (&s)[kV], const float* src, int valid,
+                                            bool vec) {
+  if (vec && valid >= kV) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(src));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(src) + 1);
+    s[0] = a.x; s[1] = a.y; s[2] = a.z; s[3] = a.w;
+    s[4] = b.x; s[5] = b.y; s[6] = b.z; s[7] = b.w;
+  } else {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = part_lo[j][e] = part_hi[j][e] = 0.f;
+    for (int j = 0; j < kV; ++j) s[j] = j < valid ? __ldg(src + j) : 0.f;
   }
+}
 
-  for (int rs = r_begin; rs < r_end; rs += kBKP) {
-    // weight stage: kBKP packed rows x kBN columns, zeros past the edges
-    for (int idx = threadIdx.x; idx < kBKP * (kBN / 16); idx += kThreads) {
-      const int rr = idx / (kBN / 16);
-      const int cc = (idx % (kBN / 16)) * 16;
-      const int r = rs + rr;
-      const int n = n0 + cc;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < r_end) {
-        const int8_t* src = p.w4 + (int64_t)r * p.N + n;
-        if (p.vec_w && n + 16 <= p.N) {
-          val = *reinterpret_cast<const uint4*>(src);
-        } else {
-          __align__(16) uint8_t bytes[16];
+// x[m, r..r+7] as 8 raw bf16; zeros past r_end
+__device__ __forceinline__ uint4 load_x8(const __nv_bfloat16* src, int r, int r_end,
+                                         bool vec) {
+  if (vec && r + kUnroll <= r_end) return __ldg(reinterpret_cast<const uint4*>(src));
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-          for (int i = 0; i < 16; ++i) bytes[i] = (n + i < p.N) ? (uint8_t)src[i] : 0;
-          val = *reinterpret_cast<uint4*>(bytes);
-        }
-      }
-      *reinterpret_cast<uint4*>(&Ws[rr][cc]) = val;
-    }
-    // x stage: the matching columns of both halves of x
-    for (int idx = threadIdx.x; idx < kBM * kBKP; idx += kThreads) {
-      const int mm = idx / kBKP;
-      const int c = idx % kBKP;
-      const int m = m0 + mm;
-      const int r = rs + c;
-      __nv_bfloat16 lo = __float2bfloat16(0.f), hi = lo;
-      if (m < p.M && r < r_end) {
-        lo = p.x[(int64_t)m * p.K + r];
-        hi = p.x[(int64_t)m * p.K + K2 + r];
-      }
-      Xlo[mm][c] = lo;
-      Xhi[mm][c] = hi;
-    }
-    __syncthreads();
+  for (int u = 0; u < kUnroll; ++u)
+    if (r + u < r_end)
+      w[u / 2] |= static_cast<uint32_t>(__bfloat16_as_ushort(src[u])) << (16 * (u % 2));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
 
-    for (int ks = 0; ks < kBKP; ks += 16) {
-      const int r = rs + ks;
-      if (r >= r_end) break;
-      uint32_t alo[4], ahi[4];
-      alo[0] = *reinterpret_cast<const uint32_t*>(&Xlo[gid][ks + 2 * tig]);
-      alo[1] = *reinterpret_cast<const uint32_t*>(&Xlo[gid + 8][ks + 2 * tig]);
-      alo[2] = *reinterpret_cast<const uint32_t*>(&Xlo[gid][ks + 2 * tig + 8]);
-      alo[3] = *reinterpret_cast<const uint32_t*>(&Xlo[gid + 8][ks + 2 * tig + 8]);
-      ahi[0] = *reinterpret_cast<const uint32_t*>(&Xhi[gid][ks + 2 * tig]);
-      ahi[1] = *reinterpret_cast<const uint32_t*>(&Xhi[gid + 8][ks + 2 * tig]);
-      ahi[2] = *reinterpret_cast<const uint32_t*>(&Xhi[gid][ks + 2 * tig + 8]);
-      ahi[3] = *reinterpret_cast<const uint32_t*>(&Xhi[gid + 8][ks + 2 * tig + 8]);
+// the weight bytes of rows r..r+7 and x's matching rows of both halves
+__device__ __forceinline__ void load_step(const Int4Params& p, int r, int rb, int col0,
+                                          int valid, uint2 (&q)[kUnroll], uint4 (&xv)[2]) {
+  const int K2 = p.K / 2;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = warp * 32 + j * 8 + gid;
-        const int w0 = Ws[ks + 2 * tig][c];
-        const int w1 = Ws[ks + 2 * tig + 1][c];
-        const int w2 = Ws[ks + 2 * tig + 8][c];
-        const int w3 = Ws[ks + 2 * tig + 9][c];
-        kj::mma_bf16(part_lo[j], alo, kj::pack_bf16(lo_nibble(w0), lo_nibble(w1)),
-                     kj::pack_bf16(lo_nibble(w2), lo_nibble(w3)));
-        kj::mma_bf16(part_hi[j], ahi, kj::pack_bf16(hi_nibble(w0), hi_nibble(w1)),
-                     kj::pack_bf16(hi_nibble(w2), hi_nibble(w3)));
-      }
-      // a 16-row step lies inside one group on each half; at the group's
-      // end its scale multiplies the f32 partial
-      const int rn = r + 16;
-      const int glo = r / g;
-      const int ghi = (K2 + r) / g;
-      if (rn >= r_end || rn / g != glo || (K2 + rn) / g != ghi) {
+  for (int u = 0; u < kUnroll; ++u)
+    q[u] = r + u < rb ? load_bytes(p.w4 + (int64_t)(r + u) * p.N + col0, valid, p.vec_w)
+                      : make_uint2(0u, 0u);
+  xv[0] = load_x8(p.x + r, r, rb, p.vec_x);
+  xv[1] = load_x8(p.x + K2 + r, r, rb, p.vec_x);
+}
+
+// one row of x; block = col_threads threads across 8 * col_threads columns x
+// kThreads / col_threads threads down K, each over rows_per_lane packed rows.
+__global__ void __launch_bounds__(kThreads, 2) int4_gemv_kernel(const Int4Params p) {
+  constexpr int kWarps = kThreads / 32;
+  __shared__ __align__(16) float red[kWarps][kV * kMaxColThreads];
+  const int CT = p.col_threads;
+  const int BN = kV * CT;
+  const int K2 = p.K / 2;
+  const int g = p.K / p.G;                 // rows per group (K when G == 1)
+  const int ct = threadIdx.x % CT;
+  const int kl = threadIdx.x / CT;
+  const int col0 = blockIdx.x * BN + ct * kV;
+  const int valid = p.N - col0;
+  const int ra = min(K2, kl * p.rows_per_lane);
+  const int rb = min(K2, ra + p.rows_per_lane);
+
+  float acc[kV], plo[kV], phi[kV], slo[kV], shi[kV];
+  float xlo_sum = 0.f, xhi_sum = 0.f;
+#pragma unroll
+  for (int v = 0; v < kV; ++v) acc[v] = plo[v] = phi[v] = 0.f;
+
+  uint2 qn[kUnroll];
+  uint4 xn[2];
+  if (ra < rb) load_step(p, ra, rb, col0, valid, qn, xn);
+  for (int r = ra; r < rb; r += kUnroll) {
+    uint2 q[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) q[u] = qn[u];
+    const uint4 xv[2] = {xn[0], xn[1]};
+    if (r + kUnroll < rb) load_step(p, r + kUnroll, rb, col0, valid, qn, xn);
+    if (r == ra || r % g == 0) {           // a group starts: its scales
+      load_scales(slo, p.scale + (int64_t)(r / g) * p.N + col0, valid, p.vec_s);
+      load_scales(shi, p.scale + (int64_t)((K2 + r) / g) * p.N + col0, valid, p.vec_s);
+    }
+    float xl[kUnroll], xh[kUnroll];
+    const uint32_t a[4] = {xv[0].x, xv[0].y, xv[0].z, xv[0].w};
+    const uint32_t b[4] = {xv[1].x, xv[1].y, xv[1].z, xv[1].w};
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      xl[u] = u % 2 ? bf16_hi(a[u / 2]) : bf16_lo(a[u / 2]);
+      xh[u] = u % 2 ? bf16_hi(b[u / 2]) : bf16_lo(b[u / 2]);
+      xlo_sum += xl[u];
+      xhi_sum += xh[u];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        const uint32_t c = w ? q[u].y : q[u].x;   // columns 4w..4w+3 of the thread's 8
+        const float lo[4] = {biased(c << 16), biased(c << 8), biased(c), biased(c >> 8)};
+        const float hi[4] = {biased(c << 12), biased(c << 4), biased(c >> 4),
+                             biased(c >> 12)};
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = n0 + warp * 32 + j * 8 + 2 * tig + (e & 1);
-            const float slo = col < p.N ? p.scale[(int64_t)glo * p.N + col] : 0.f;
-            const float shi = col < p.N ? p.scale[(int64_t)ghi * p.N + col] : 0.f;
-            acc[j][e] += part_lo[j][e] * slo + part_hi[j][e] * shi;
-            part_lo[j][e] = 0.f;
-            part_hi[j][e] = 0.f;
-          }
+          plo[4 * w + j] = fmaf(lo[j], xl[u], plo[4 * w + j]);
+          phi[4 * w + j] = fmaf(hi[j], xh[u], phi[4 * w + j]);
         }
       }
     }
-    __syncthreads();
+    // a step lies inside one group of each half (g % 16 == 0 when G > 1);
+    // at the group's end its scale multiplies the f32 partial
+    const int rn = r + kUnroll;
+    if (rn >= rb || rn % g == 0) {
+      const float blo = 136.f * xlo_sum, bhi = 136.f * xhi_sum;
+#pragma unroll
+      for (int v = 0; v < kV; ++v) {
+        acc[v] = fmaf(plo[v] - blo, slo[v], acc[v]);
+        acc[v] = fmaf(phi[v] - bhi, shi[v], acc[v]);
+        plo[v] = phi[v] = 0.f;
+      }
+      xlo_sum = xhi_sum = 0.f;
+    }
   }
 
+  // sum the K lanes in a fixed tree: within the warp by shuffles (lanes
+  // CT, 2CT, ... apart hold the same columns), then the warps in order
+  for (int off = CT; off < 32; off *= 2) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+    for (int v = 0; v < kV; ++v) acc[v] += __shfl_xor_sync(0xFFFFFFFFu, acc[v], off);
+  }
+  const int warp = threadIdx.x / 32;
+  if (threadIdx.x % 32 < CT) {
+    float* dst = &red[warp][ct * kV];
+    *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    *reinterpret_cast<float4*>(dst + 4) = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < BN; t += kThreads) {
+    const int col = blockIdx.x * BN + t;
+    float s = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int m = m0 + gid + 8 * (e >> 1);
-      const int col = n0 + warp * 32 + j * 8 + 2 * tig + (e & 1);
-      if (m >= p.M || col >= p.N) continue;
-      if (gridDim.z == 1) {
-        p.y[(int64_t)m * p.N + col] = __float2bfloat16(acc[j][e]);
-      } else {
-        p.partial[((int64_t)blockIdx.z * p.M + m) * p.N + col] = acc[j][e];
-      }
+    for (int w = 0; w < kWarps; ++w) s += red[w][t];
+    if (col < p.N) p.y[col] = __float2bfloat16(s);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// prefill GEMM
+// ---------------------------------------------------------------------------
+
+constexpr int kBN = 128;                 // output columns per block
+constexpr int kBKP = 64;                 // packed rows per stage
+constexpr int kStages = 3;               // cp.async ring depth
+constexpr int kXStride = kBKP + 8;       // bf16 per staged x row (ldmatrix without conflicts)
+constexpr int kWStride = kBN + 8;        // bf16 per decoded weight row
+constexpr int kW4Bytes = kBKP * kBN;
+constexpr int kSBytes = 2 * kBN * 4;     // the stage's low and high group scales
+constexpr int kWTile = kBKP * kWStride;  // bf16 of one decoded half
+constexpr int kMaxSplits = 16;
+
+// a block's x rows: 32 * kMI, each warp taking 16 * kMI of them (kMI = 1, 2, 4)
+template <int kMI>
+struct GemmTile {
+  static constexpr int kBM = 32 * kMI;
+  static constexpr int kXBytes = kBM * kXStride * 2;                   // one half of x
+  static constexpr int kStageBytes = 2 * kXBytes + kW4Bytes + kSBytes;
+  static constexpr int kSmem = kStages * kStageBytes + 4 * kWTile * 2;  // + 2 decoded buffers
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when !pred (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// one stage: x[m0.., rs..rs+kBKP) and x[m0.., K2+rs..) into Xlo / Xhi, the
+// packed rows [rs, rs+kBKP) x columns [n0, n0+kBN) into W4, and the scale rows
+// of the groups holding rows rs (low half) and K2 + rs (high half); zeros past
+// the edges
+template <int kMI, bool kAligned>
+__device__ __forceinline__ void load_stage(const Int4Params& p, unsigned char* st,
+                                           int m0, int n0, int rs, int K2, int g) {
+  using T = GemmTile<kMI>;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(st);
+  uint8_t* w4s = st + 2 * T::kXBytes;
+  float* ss = reinterpret_cast<float*>(st + 2 * T::kXBytes + kW4Bytes);
+  constexpr int kXChunks = T::kBM * kBKP / 8;    // 16-byte chunks per half
+  for (int i = threadIdx.x; i < 2 * kXChunks; i += kThreads) {
+    const int h = i / kXChunks, row = (i % kXChunks) / (kBKP / 8);
+    const int c = (i % (kBKP / 8)) * 8;
+    const int m = m0 + row, k = rs + c;
+    __nv_bfloat16* dst = xs + h * (T::kBM * kXStride) + row * kXStride + c;
+    const __nv_bfloat16* src = p.x + (int64_t)m * p.K + h * K2 + k;
+    if constexpr (kAligned) {
+      const bool ok = m < p.M && k < K2;
+      cp_async16(dst, ok ? src : p.x, ok);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        dst[j] = (m < p.M && k + j < K2) ? src[j] : __float2bfloat16(0.f);
+    }
+  }
+  constexpr int kWChunks = kBKP * kBN / 16;
+  for (int i = threadIdx.x; i < kWChunks; i += kThreads) {
+    const int row = i / (kBN / 16), c = (i % (kBN / 16)) * 16;
+    const int r = rs + row, n = n0 + c;
+    uint8_t* dst = w4s + row * kBN + c;
+    const uint8_t* src = p.w4 + (int64_t)r * p.N + n;
+    if constexpr (kAligned) {
+      const bool ok = r < K2 && n < p.N;
+      cp_async16(dst, ok ? src : p.w4, ok);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) dst[j] = (r < K2 && n + j < p.N) ? src[j] : 0;
+    }
+  }
+  for (int i = threadIdx.x; i < 2 * kBN / 4; i += kThreads) {
+    const int h = i / (kBN / 4), c = (i % (kBN / 4)) * 4;
+    const int n = n0 + c;
+    float* dst = ss + h * kBN + c;
+    const float* src = p.scale + (int64_t)((h * K2 + rs) / g) * p.N + n;
+    if constexpr (kAligned) {
+      cp_async16(dst, n < p.N ? src : p.scale, n < p.N);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dst[j] = n + j < p.N ? src[j] : 0.f;
     }
   }
 }
 
-// y = sum over splits of the partials, in split order
-__global__ void sum_splits_kernel(const float* partial, __nv_bfloat16* y, int64_t MN,
-                                  int splits) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= MN) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += partial[z * MN + i];
-  y[i] = __float2bfloat16(s);
+// nibbles at bits 0..3 and 16..19 -> two bf16 holding their signed values
+__device__ __forceinline__ uint32_t nibble_pair(uint32_t t) {
+  const uint32_t v = (t & 0x000F000Fu) ^ 0x43084308u;      // bf16x2 of 136 + s
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                                   __float2bfloat162_rn(136.f));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// one 16-byte chunk of the packed [kBKP, kBN] bytes -> bf16 in the low-row
+// tile at wlo and the high-row tile kWTile further on
+__device__ __forceinline__ void decode_chunk(const uint8_t* w4s, __nv_bfloat16* wlo, int i) {
+  const int row = i / (kBN / 16), c = (i % (kBN / 16)) * 16;
+  const uint4 q = *reinterpret_cast<const uint4*>(w4s + row * kBN + c);
+  const uint32_t words[4] = {q.x, q.y, q.z, q.w};
+  uint32_t lo[8], hi[8];
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const uint32_t a = __byte_perm(words[w], 0, 0x4140);  // columns 4w, 4w+1
+    const uint32_t b = __byte_perm(words[w], 0, 0x4342);  // columns 4w+2, 4w+3
+    lo[2 * w] = nibble_pair(a);
+    hi[2 * w] = nibble_pair(a >> 4);
+    lo[2 * w + 1] = nibble_pair(b);
+    hi[2 * w + 1] = nibble_pair(b >> 4);
+  }
+  uint4* dlo = reinterpret_cast<uint4*>(wlo + row * kWStride + c);
+  uint4* dhi = reinterpret_cast<uint4*>(wlo + kWTile + row * kWStride + c);
+  dlo[0] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  dlo[1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
+  dhi[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+  dhi[1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
+}
+
+// each thread decodes kDecodeChunks chunks of a stage
+constexpr int kDecodeChunks = kBKP * kBN / 16 / kThreads;
+static_assert(kDecodeChunks == 2, "one chunk per half of a stage's products");
+
+// d = a * b, the accumulator starting at zero
+__device__ __forceinline__ void mma_bf16_first(float (&d)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+// The last split's block: y[tile] = the splits' f32 partials summed in split
+// order. Each thread owns kMI * 4 runs of 4 columns; all of a split's loads
+// start before any is added, and nothing is stored until every split is
+// read, so the loads stay in flight together.
+template <int kMI>
+__device__ __forceinline__ void sum_splits(const Int4Params& p, int m0, int n0, int splits) {
+  constexpr int kItems = 32 * kMI * (kBN / 4) / kThreads;   // = 4 * kMI
+  const int64_t plane = (int64_t)p.M * p.N;
+  if (p.N % 4 == 0) {
+    float4 sum[kItems];
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) sum[it] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int z = 0; z < splits; ++z) {
+      float4 v[kItems];
+#pragma unroll
+      for (int it = 0; it < kItems; ++it) {
+        const int t = threadIdx.x + it * kThreads;
+        const int m = m0 + t / (kBN / 4), col = n0 + (t % (kBN / 4)) * 4;
+        v[it] = m < p.M && col < p.N
+                    ? __ldcg(reinterpret_cast<const float4*>(p.ws + z * plane +
+                                                             (int64_t)m * p.N + col))
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int it = 0; it < kItems; ++it) {
+        sum[it].x += v[it].x; sum[it].y += v[it].y;
+        sum[it].z += v[it].z; sum[it].w += v[it].w;
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+      const int t = threadIdx.x + it * kThreads;
+      const int m = m0 + t / (kBN / 4), col = n0 + (t % (kBN / 4)) * 4;
+      if (m >= p.M || col >= p.N) continue;
+      uint2 out;
+      out.x = kj::pack_bf16(sum[it].x, sum[it].y);
+      out.y = kj::pack_bf16(sum[it].z, sum[it].w);
+      *reinterpret_cast<uint2*>(p.y + (int64_t)m * p.N + col) = out;
+    }
+    return;
+  }
+  for (int t = threadIdx.x; t < 32 * kMI * kBN; t += kThreads) {   // ragged N
+    const int m = m0 + t / kBN, col = n0 + t % kBN;
+    if (m >= p.M || col >= p.N) continue;
+    const float* src = p.ws + (int64_t)m * p.N + col;
+    float s = 0.f;
+    for (int z = 0; z < splits; ++z) s += __ldcg(src + z * plane);
+    p.y[(int64_t)m * p.N + col] = __float2bfloat16(s);
+  }
+}
+
+// kUniform: each stage's half lies inside one group (g % kBKP == 0, or G == 1),
+// so the products of a stage run without a branch and its staged scales serve
+// one flush per half; otherwise a group may end at any 16-row step.
+// blockIdx.z is the block's split of K: stages [z * split_stages, ...).
+template <int kMI, bool kAligned, bool kUniform>
+__global__ void __launch_bounds__(kThreads, 1) int4_gemm_kernel(const Int4Params p) {
+  using T = GemmTile<kMI>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int last_split;
+  const int K2 = p.K / 2;
+  const int g = p.K / p.G;
+  const int n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * T::kBM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 4, wn = warp % 4;     // the warp's 16 * kMI rows x 32 columns
+  const int tig = lane % 4;
+  // decoded tiles: buffer b holds low rows at wbuf + 2b * kWTile, high rows after
+  __nv_bfloat16* wbuf = reinterpret_cast<__nv_bfloat16*>(smem + kStages * T::kStageBytes);
+
+  float acc[kMI][4][4], part[kMI][4][4];
+#pragma unroll
+  for (int i = 0; i < kMI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = part[i][j][e] = 0.f;
+
+  // the scale of group `grp` multiplies the partial, which starts again at 0;
+  // `staged` holds the half's scales of the stage's first group
+  auto flush = [&](int grp, bool in_stage, const float* staged) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = wn * 32 + j * 8 + 2 * tig;
+      const int col = n0 + c;
+      float s0, s1;
+      if (in_stage) {
+        const float2 t = *reinterpret_cast<const float2*>(staged + c);
+        s0 = t.x; s1 = t.y;
+      } else {
+        const float* s = p.scale + (int64_t)grp * p.N + col;
+        s0 = col < p.N ? __ldg(s) : 0.f;
+        s1 = col + 1 < p.N ? __ldg(s + 1) : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kMI; ++i) {
+        acc[i][j][0] = fmaf(part[i][j][0], s0, acc[i][j][0]);
+        acc[i][j][1] = fmaf(part[i][j][1], s1, acc[i][j][1]);
+        acc[i][j][2] = fmaf(part[i][j][2], s0, acc[i][j][2]);
+        acc[i][j][3] = fmaf(part[i][j][3], s1, acc[i][j][3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+      }
+    }
+  };
+
+  // this block's stages [st0, st0 + nst); local stage i sits in ring slot
+  // i % kStages and decoded buffer i % 2
+  const int st0 = blockIdx.z * p.split_stages;
+  const int nst = min((K2 + kBKP - 1) / kBKP - st0, p.split_stages);
+  auto stage = [&](int i) { return smem + (i % kStages) * T::kStageBytes; };
+  if (nst > 0) load_stage<kMI, kAligned>(p, stage(0), m0, n0, st0 * kBKP, K2, g);
+  cp_async_commit();
+  if (nst > 1) load_stage<kMI, kAligned>(p, stage(1), m0, n0, (st0 + 1) * kBKP, K2, g);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  if (nst > 0) {
+#pragma unroll
+    for (int c = 0; c < kDecodeChunks; ++c)
+      decode_chunk(stage(0) + 2 * T::kXBytes, wbuf, threadIdx.x + c * kThreads);
+  }
+  for (int i = 0; i < nst; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();     // stage i+1 landed, stage i decoded, stage i-1 consumed
+    if (i + 2 < nst)
+      load_stage<kMI, kAligned>(p, stage(i + 2), m0, n0, (st0 + i + 2) * kBKP, K2, g);
+    cp_async_commit();
+    // stage i+1 is decoded a chunk at a time between this stage's products
+    const uint8_t* next_w4 = stage(i + 1) + 2 * T::kXBytes;
+    __nv_bfloat16* next_w = wbuf + ((i + 1) % 2) * 2 * kWTile;
+    unsigned char* cur = stage(i);
+    const float* staged = reinterpret_cast<const float*>(cur + 2 * T::kXBytes + kW4Bytes);
+    const int rs = (st0 + i) * kBKP;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const __nv_bfloat16* xs =
+          reinterpret_cast<const __nv_bfloat16*>(cur) + h * (T::kBM * kXStride);
+      const __nv_bfloat16* ws = wbuf + ((i % 2) * 2 + h) * kWTile;
+      const int base = h ? K2 : 0;
+#pragma unroll
+      for (int ks = 0; ks < kBKP; ks += 16) {
+        const int r = rs + ks;
+        if (!kUniform && r >= K2) break;   // (rows past K2 are zeros)
+        uint32_t a[kMI][4], b[4][2];
+#pragma unroll
+        for (int mi = 0; mi < kMI; ++mi)
+          ldmatrix_x4(a[mi], xs + (wm * 16 * kMI + mi * 16 + lane % 16) * kXStride + ks +
+                                 (lane / 16) * 8);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          uint32_t t[4];
+          ldmatrix_x4_trans(t, ws + (ks + lane % 16) * kWStride + wn * 32 + j * 16 +
+                                   (lane / 16) * 8);
+          b[2 * j][0] = t[0]; b[2 * j][1] = t[1];
+          b[2 * j + 1][0] = t[2]; b[2 * j + 1][1] = t[3];
+        }
+#pragma unroll
+        for (int mi = 0; mi < kMI; ++mi) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (kUniform && ks == 0) mma_bf16_first(part[mi][j], a[mi], b[j][0], b[j][1]);
+            else kj::mma_bf16(part[mi][j], a[mi], b[j][0], b[j][1]);
+          }
+        }
+        if (ks == 16 && i + 1 < nst)
+          decode_chunk(next_w4, next_w, threadIdx.x + h * kThreads);
+        if constexpr (!kUniform) {
+          const int rn = r + 16;
+          if (ks + 16 == kBKP || rn >= K2 || rn % g == 0) {
+            const int grp = (base + r) / g;
+            flush(grp, grp == (base + rs) / g, staged + h * kBN);
+          }
+        }
+      }
+      if constexpr (kUniform) flush(0, true, staged + h * kBN);
+    }
+  }
+  cp_async_wait<0>();
+
+  // one split: the tile goes straight to y. Several: each block writes its f32
+  // partial; the last to arrive (counted per output tile) sums them in split
+  // order and resets the count, so the result is the same on every call.
+  const bool split = gridDim.z > 1;
+  float* part_out = p.ws + (int64_t)blockIdx.z * p.M * p.N;
+  const int gid = lane / 4;
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + wn * 32 + j * 8 + 2 * tig;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int m = m0 + wm * 16 * kMI + mi * 16 + gid + 8 * hr;
+        if (m >= p.M) continue;
+        const float v0 = acc[mi][j][2 * hr], v1 = acc[mi][j][2 * hr + 1];
+        if (split) {
+          float* dst = part_out + (int64_t)m * p.N + col;
+          if (col < p.N) dst[0] = v0;
+          if (col + 1 < p.N) dst[1] = v1;
+          continue;
+        }
+        __nv_bfloat16* dst = p.y + (int64_t)m * p.N + col;
+        if (col + 1 < p.N && p.N % 2 == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+        } else {
+          if (col < p.N) dst[0] = __float2bfloat16(v0);
+          if (col + 1 < p.N) dst[1] = __float2bfloat16(v1);
+        }
+      }
+    }
+  }
+  if (!split) return;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int* count = p.counters + blockIdx.y * gridDim.x + blockIdx.x;
+    last_split = atomicAdd(count, 1) == static_cast<int>(gridDim.z) - 1;
+    if (last_split) *count = 0;
+  }
+  __syncthreads();
+  if (!last_split) return;
+  __threadfence();
+  sum_splits<kMI>(p, m0, n0, gridDim.z);
+}
+
+cudaError_t launch_gemv(const Int4Params& p, cudaStream_t st) {
+  const int BN = kV * p.col_threads;
+  int4_gemv_kernel<<<(p.N + BN - 1) / BN, kThreads, 0, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <int kMI, bool kAligned, bool kUniform>
+cudaError_t launch_gemm(const Int4Params& p, int splits, cudaStream_t st) {
+  using T = GemmTile<kMI>;
+  // above 48 KB a kernel's dynamic shared memory must be allowed, once
+  static bool allowed = false;
+  if (!allowed) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(int4_gemm_kernel<kMI, kAligned, kUniform>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+    if (err != cudaSuccess) return err;
+    allowed = true;
+  }
+  const dim3 grid((p.N + kBN - 1) / kBN, (p.M + T::kBM - 1) / T::kBM, splits);
+  int4_gemm_kernel<kMI, kAligned, kUniform><<<grid, kThreads, T::kSmem, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <int kMI>
+cudaError_t launch_gemm_tile(const Int4Params& p, int splits, cudaStream_t st) {
+  const bool aligned = p.K % 16 == 0 && p.N % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(p.x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(p.w4) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(p.scale) % 16 == 0;
+  const bool uniform = p.G == 1 || (p.K / p.G) % kBKP == 0;
+  return aligned ? (uniform ? launch_gemm<kMI, true, true>(p, splits, st)
+                            : launch_gemm<kMI, true, false>(p, splits, st))
+                 : (uniform ? launch_gemm<kMI, false, true>(p, splits, st)
+                            : launch_gemm<kMI, false, false>(p, splits, st));
 }
 
 }  // namespace
 
-// Returns a cudaError_t; 0 means both launches were accepted. `partial` holds
-// splits * M * N floats and is only used when splits > 1.
+// path 0: decode GEMV (M == 1), `col_threads` in {2, 4, 8, 16, 32} threads
+// across each block's columns, `rows_per_lane` packed rows per thread (a
+// multiple of 8, covering K/2 with the block's kThreads / col_threads lanes).
+// path 1: prefill GEMM (any M), `row_tile` in {32, 64, 128} x rows per block,
+// K split across `splits` blocks per output tile (1..16, none of them empty).
+// With splits > 1, `ws` holds splits * M * N floats and `counters` one int per
+// output tile, all zero; the kernel leaves them zero. Returns a cudaError_t;
+// 0 means the launch was accepted.
 extern "C" int kj_int4_matvec_bf16(const void* x, const void* w4, const void* scale,
-                                   void* partial, void* y, int M, int K, int N, int G,
-                                   int splits, int rows_per_split, void* stream) {
+                                   void* y, void* ws, void* counters, int M, int K, int N,
+                                   int G, int path, int col_threads, int rows_per_lane,
+                                   int row_tile, int splits, void* stream) {
   Int4Params p;
   p.x = static_cast<const __nv_bfloat16*>(x);
-  p.w4 = static_cast<const int8_t*>(w4);
+  p.w4 = static_cast<const uint8_t*>(w4);
   p.scale = static_cast<const float*>(scale);
-  p.partial = static_cast<float*>(partial);
   p.y = static_cast<__nv_bfloat16*>(y);
+  p.ws = static_cast<float*>(ws);
+  p.counters = static_cast<int*>(counters);
   p.M = M; p.K = K; p.N = N; p.G = G;
-  p.rows_per_split = rows_per_split;
-  p.vec_w = (N % 16 == 0) && (reinterpret_cast<uintptr_t>(w4) % 16 == 0);
+  p.col_threads = col_threads;
+  p.rows_per_lane = rows_per_lane;
+  p.vec_w = N % kV == 0 && reinterpret_cast<uintptr_t>(w4) % 8 == 0;
+  p.vec_s = N % 4 == 0 && reinterpret_cast<uintptr_t>(scale) % 16 == 0;
+  p.vec_x = K % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
-  int4_mm_kernel<<<grid, kThreads, 0, st>>>(p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const int64_t MN = (int64_t)M * N;
-  sum_splits_kernel<<<(unsigned)((MN + 255) / 256), 256, 0, st>>>(p.partial, p.y, MN,
-                                                                  splits);
-  return static_cast<int>(cudaGetLastError());
+  if (path == 1) {
+    const int nst = (K / 2 + kBKP - 1) / kBKP;
+    p.split_stages = splits > 0 ? (nst + splits - 1) / splits : 0;
+    if (splits < 1 || splits > kMaxSplits || (splits - 1) * p.split_stages >= nst ||
+        (splits > 1 && (ws == nullptr || counters == nullptr)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    switch (row_tile) {
+      case 32: return static_cast<int>(launch_gemm_tile<1>(p, splits, st));
+      case 64: return static_cast<int>(launch_gemm_tile<2>(p, splits, st));
+      case 128: return static_cast<int>(launch_gemm_tile<4>(p, splits, st));
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const int lanes = col_threads > 0 ? kThreads / col_threads : 0;
+  if (path != 0 || M != 1 || col_threads < 2 || col_threads > kMaxColThreads ||
+      (col_threads & (col_threads - 1)) != 0 ||
+      rows_per_lane % kUnroll != 0 || (int64_t)lanes * rows_per_lane < K / 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_gemv(p, st));
 }

@@ -2,9 +2,11 @@
 
 Replaces kjarni_tpu/ops/pallas/int4_matvec.py::int4_matvec. In the port it is
 the "w4" branch of models/llama.py::_mm, for decode (M = 1) and prefill
-(M = bucket) alike. The CUDA source is csrc/int4_matvec.cu; its header says
-what bounds it on the H100 (the packed weight bytes at decode) and what the
-design does about that.
+(M = bucket) alike. `launch_plan` picks the kernel by M: a GEMV that streams
+the packed bytes for decode (M == 1), a tiled tensor-core GEMM for everything
+else, with a row tile and a split of K sized to the grid. The CUDA source is
+csrc/int4_matvec.cu; its header says what bounds each path on the H100 and
+what the design does about it.
 
 `int4_matvec` launches the kernel for CUDA tensors and raises on what the
 kernel does not take; it runs the plain version only for tensors on the CPU.
@@ -13,13 +15,96 @@ kernel does not take; it runs the plain version only for tensors on the CPU.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from . import build
 
-_BN, _BM, _BKP = 128, 16, 64   # the kernel's column, row and K-stage tiles
-_TARGET_BLOCKS = 2 * 132       # two blocks per H100 SM
+_GEMV_THREADS = 256     # a GEMV block: col_threads across its columns x the rest down K
+_GEMV_COLS = 8          # columns (packed bytes) per GEMV thread
+_GEMV_STEP = 8          # packed rows per GEMV step
+_GEMM_COLS = 128        # output columns per GEMM block
+_GEMM_STAGE = 64        # packed rows per GEMM stage
+_GEMM_MAX_SPLITS = 16
+# the plan's cost model, fitted to chip_smoke.py's int4 lines on an H100 SXM
+# (M = 1 to 1024): microseconds per 64-row stage of a block by its row tile,
+# and the rate at which one block sums split partials from L2
+_GEMM_STAGE_US = {32: 1.3, 64: 2.0, 128: 3.5}
+_SUM_BYTES_PER_US = 60e3
+_SMS = 132              # H100 SXM
+
+
+class Plan(NamedTuple):
+    """How one call launches: `path` "gemv" or "gemm". For the GEMV, the
+    threads across each block's 8 * col_threads columns and the packed rows
+    each of the block's other threads walks down K (the block covers all of
+    K). For the GEMM, the x rows per block and the blocks that split K for
+    each output tile."""
+    path: str
+    col_threads: int = 0
+    rows_per_lane: int = 0
+    row_tile: int = 0
+    splits: int = 0
+
+
+@functools.lru_cache(maxsize=256)
+def gemm_plan(M: int, K: int, N: int) -> Plan:
+    """The GEMM's grid: the row tile (32, 64 or 128 rows of x) and the split
+    of K's 64-row stages across blocks, chosen together as the cheapest by a
+    model fitted to the H100 (one block per SM): waves x stages per split x
+    the row tile's time per stage, plus, where K is split, the last block's
+    read of every split's f32 partial. K is split only where the output
+    tiles leave SMs idle; on a tie, the fewer splits. No split is left
+    empty. Cached: a forward calls it once per projection."""
+    stages = max(1, -(-(K // 2) // _GEMM_STAGE))
+    best = None
+    for row_tile, stage_us in _GEMM_STAGE_US.items():
+        tiles = -(-N // _GEMM_COLS) * -(-M // row_tile)
+        most = 1 if tiles >= _SMS else min(_GEMM_MAX_SPLITS, stages)
+        for s in range(1, most + 1):
+            per = -(-stages // s)
+            splits = -(-stages // per)
+            us = -(-tiles * splits // _SMS) * per * stage_us
+            if splits > 1:
+                us += splits * min(M, row_tile) * _GEMM_COLS * 4 / _SUM_BYTES_PER_US
+            if best is None or (us, splits) < best[:2]:
+                best = (us, splits, row_tile)
+    return Plan("gemm", row_tile=best[2], splits=best[1])
+
+
+def launch_plan(M: int, K: int, N: int, G: int) -> Plan:
+    """Pick the kernel by M and size its grid. Decode (M == 1) takes the GEMV
+    with the widest blocks that still give two per SM; where N is too small
+    for that, 32-column blocks (one 32-byte sector of each packed row), or
+    16-column ones where even those leave SMs idle. Every other M takes the
+    GEMM (`gemm_plan`)."""
+    if M > 1:
+        return gemm_plan(M, K, N)
+
+    def blocks(ct):
+        return -(-N // (_GEMV_COLS * ct))
+    ct = next((c for c in (32, 16, 8, 4) if blocks(c) >= 2 * _SMS), 4)
+    if blocks(ct) < _SMS:
+        ct = 2
+    lanes = _GEMV_THREADS // ct
+    rows = -(-max(1, K // 2) // (lanes * _GEMV_STEP)) * _GEMV_STEP
+    return Plan("gemv", col_threads=ct, rows_per_lane=rows)
+
+
+_COUNTERS: dict[int, torch.Tensor] = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """The split GEMM's arrival counts, one per output tile: zeros, kept per
+    device, which the kernel leaves zero. Launches on one device share them,
+    so they run on one stream at a time."""
+    c = _COUNTERS.get(device.index)
+    if c is None or c.numel() < n:
+        c = _COUNTERS[device.index] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                                  device=device)
+    return c
 
 
 def unpack_int4(w4: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -45,17 +130,6 @@ def int4_matvec_plain(x: torch.Tensor, w4: torch.Tensor,
         w_lo = (lo.reshape(G2, g, N) * s[:G2, None, :]).reshape(K2, N)
         w_hi = (hi.reshape(G2, g, N) * s[G2:, None, :]).reshape(K2, N)
     return x[..., :K2] @ w_lo + x[..., K2:] @ w_hi
-
-
-def split_plan(M: int, K: int, N: int) -> tuple[int, int]:
-    """(splits, packed rows per split): split K across blocks until the grid
-    has about two blocks per SM. Splits start on stage boundaries."""
-    K2 = K // 2
-    blocks = -(-N // _BN) * -(-M // _BM)
-    stages = -(-K2 // _BKP)
-    want = max(1, min(-(-_TARGET_BLOCKS // blocks), stages))
-    rows = -(-stages // want) * _BKP
-    return -(-K2 // rows), rows
 
 
 def int4_matvec(x: torch.Tensor, w4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -84,19 +158,29 @@ def int4_matvec(x: torch.Tensor, w4: torch.Tensor, scale: torch.Tensor) -> torch
     if not (w4.is_contiguous() and scale.is_contiguous()):
         # a copy here would move the whole weight on every call
         raise ValueError("int4_matvec: w4 and scale must be contiguous")
-    x = x.contiguous()
+    return _launch(x.contiguous(), w4, scale, launch_plan(M, K, N, G))
+
+
+def _launch(x: torch.Tensor, w4: torch.Tensor, scale: torch.Tensor,
+            plan: Plan) -> torch.Tensor:
+    """One launch of the kernel by `plan`, on inputs int4_matvec has checked."""
+    M, K = x.shape
+    N, G = w4.shape[1], scale.shape[0]
     y = torch.empty(M, N, dtype=x.dtype, device=x.device)
-    splits, rows = split_plan(M, K, N)
-    partial = (torch.empty(splits, M, N, dtype=torch.float32, device=x.device)
-               if splits > 1 else y)
+    ws = counters = None
+    if plan.path == "gemm" and plan.splits > 1:
+        ws = torch.empty(plan.splits * M * N, dtype=torch.float32, device=x.device)
+        counters = _counters(x.device, -(-N // _GEMM_COLS) * -(-M // plan.row_tile))
     lib = build.load("int4_matvec")
     fn = lib.kj_int4_matvec_bf16
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    err = fn(x.data_ptr(), w4.data_ptr(), scale.data_ptr(), partial.data_ptr(),
-             y.data_ptr(), M, K, N, G, splits, rows,
-             torch.cuda.current_stream(x.device).cuda_stream)
+    err = fn(x.data_ptr(), w4.data_ptr(), scale.data_ptr(), y.data_ptr(),
+             None if ws is None else ws.data_ptr(),
+             None if counters is None else counters.data_ptr(),
+             M, K, N, G, int(plan.path == "gemm"), plan.col_threads, plan.rows_per_lane,
+             plan.row_tile, plan.splits, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "int4_matvec")
     int4_matvec.launches += 1
     return y

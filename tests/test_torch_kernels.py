@@ -19,7 +19,7 @@ from kjarni_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
 from kjarni_tpu.ops.pallas.int4_matvec import int4_matvec as jax_int4_matvec
 from kjarni_tpu_torch.models.llama import pack_int4
 from kjarni_tpu_torch.ops.kernels.flash_attention import flash_attention
-from kjarni_tpu_torch.ops.kernels.int4_matvec import int4_matvec, split_plan
+from kjarni_tpu_torch.ops.kernels.int4_matvec import int4_matvec, launch_plan
 
 
 def rand(*shape, seed=0):
@@ -115,7 +115,8 @@ def _cos(a, b):
 
 class TestInt4PlainVsJax:
     @pytest.mark.parametrize("B,K,N,g", [(1, 256, 512, 64), (4, 512, 512, 128),
-                                         (8, 256, 1024, 64), (2, 256, 384, 64)])
+                                         (8, 256, 1024, 64), (2, 256, 384, 64),
+                                         (5, 512, 1000, 128), (2, 512, 1000, 128)])
     def test_matches_kernel_and_mm(self, B, K, N, g):
         x, w4, scale, _, ref = make_int4_case(B, K, N, g, seed=K + N + B)
         got = int4_matvec(to_torch(x), torch.from_numpy(w4), to_torch(scale)).numpy()
@@ -163,13 +164,44 @@ class TestInt4PlainVsJax:
         int4_matvec(to_torch(x), torch.from_numpy(w4), to_torch(scale))
         assert int4_matvec.launches == before
 
-    @pytest.mark.parametrize("M,K,N", [(1, 2048, 2048), (1, 8192, 2048),
-                                       (1, 2048, 128256), (1024, 2048, 8192),
-                                       (3, 192, 200)])
-    def test_split_plan_covers_k(self, M, K, N):
-        splits, rows = split_plan(M, K, N)
-        assert rows % 64 == 0 and splits >= 1
-        assert (splits - 1) * rows < K // 2 <= splits * rows
+    @pytest.mark.parametrize("M,K,N", [
+        (1, 2048, 2048), (1, 8192, 2048), (1, 2048, 128256), (1024, 2048, 8192),
+        (3, 192, 200), (1, 2048, 512), (4, 2048, 8192), (5, 2048, 8192),
+        (4, 65536, 1000), (2, 2048, 8192), (8, 2048, 512), (32, 2048, 2048),
+        (128, 8192, 2048), (700, 4096, 1000), (1024, 2048, 512), (64, 192, 200)])
+    def test_launch_plan_covers_k(self, M, K, N):
+        G = K // 128 if K % 256 == 0 else 1
+        plan = launch_plan(M, K, N, G)
+        # each M goes to exactly one path: the GEMV takes M == 1 alone
+        assert plan.path == ("gemv" if M == 1 else "gemm")
+        if plan.path == "gemm":
+            assert plan.col_threads == plan.rows_per_lane == 0
+            # a row tile the kernel has; a short prompt takes the smallest
+            assert plan.row_tile in (32, 64, 128)
+            assert M > 32 or plan.row_tile == 32
+            # split z takes 64-row stages [z * per, (z + 1) * per): together
+            # they cover K/2 exactly once, and none is empty
+            stages = -(-(K // 2) // 64)
+            per = -(-stages // plan.splits)
+            covered = [st for z in range(plan.splits)
+                       for st in range(z * per, min(stages, (z + 1) * per))]
+            assert covered == list(range(stages))
+            assert all(z * per < stages for z in range(plan.splits))
+            assert 1 <= plan.splits <= 16
+            # K is split only where the output tiles leave SMs of the H100 idle
+            tiles = -(-N // 128) * -(-M // plan.row_tile)
+            assert plan.splits == 1 or tiles < 132
+            return
+        # lane l walks packed rows [l * rows, (l + 1) * rows): the block's
+        # lanes cover K/2 exactly once, in whole 8-row steps, with no lane
+        # taking a step more than it needs; its columns tile N
+        assert plan.row_tile == plan.splits == 0
+        lanes = 256 // plan.col_threads
+        rows = plan.rows_per_lane
+        assert plan.col_threads in (2, 4, 8, 16, 32) and rows % 8 == 0
+        assert (rows - 8) * lanes < K // 2 <= rows * lanes
+        # at least one block per SM of the H100 where N allows
+        assert -(-N // (8 * plan.col_threads)) >= min(132, -(-N // 16))
 
 
 def test_bf16_cast_matches_ml_dtypes():
