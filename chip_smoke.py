@@ -11,15 +11,22 @@ Phases, in order (all by default); any failure raises and exits non-zero:
 1. env: torch/CUDA versions, the card's name and power limit, which optional
    packages import, and the build of every kernel from kjarni_tpu_torch/csrc.
 2. kernels: each hand-written kernel against its plain PyTorch version on the
-   card, in bf16, at the generation path's shapes (int4: every projection at
-   M = 1 for decode and M = 8, 32, 128 and 1024 for prefill buckets, and the
-   head at M = 1; two calls must give bit-identical outputs); one line per
-   case with the launches the case made, max_abs_err, kernel_ms, plain_ms and
-   library_ms, the time of one PyTorch call computing the same function as a
-   yardstick the port never calls: scaled_dot_product_attention for flash,
-   torch._weight_int4pack_mm (tinygemm, checked against the plain version
-   first) for int4. At M = 1 the int4 line also has gemm_ms: the prefill GEMM
-   on the same input, beside the GEMV that decode takes.
+   card, in bf16, at the generation path's shapes (flash: Llama-1B prefill at
+   1024 and 512, Phi-3.5-mini's D = 96 prefill, the follow-up request's
+   cache-reuse shape and smaller cases for the other features; int4: every
+   projection at M = 1 for decode and M = 8, 32, 128 and 1024 for prefill
+   buckets, and the head at M = 1; two calls must give bit-identical
+   outputs); one line per case with the launches the case made,
+   max_abs_err, kernel_ms, plain_ms and library_ms, the time of one PyTorch
+   call computing the same function as a yardstick the port never calls:
+   scaled_dot_product_attention for flash (library_kernel names the device
+   kernel it ran), torch._weight_int4pack_mm (tinygemm, checked against the
+   plain version first) for int4. Each flash line also times the kernel at
+   both block sizes (kernel_ms_by_warps); the cache-reuse line times the
+   materialized attention that _run_stack runs below the score gate
+   (materialized_ms). At M = 1 the int4 line also has gemm_ms: the prefill
+   GEMM on the same input, beside the GEMV that decode takes. `--phases
+   env,flash` runs the flash cases alone.
 3. bf16: Generator over a Llama-3.2-1B-shaped checkpoint (full width, 16
    layers, random bf16 weights from a seeded generator on the card) answers
    three requests: a greedy generate on a ~700-token prompt (flash prefill), a
@@ -30,13 +37,15 @@ Phases, in order (all by default); any failure raises and exits non-zero:
 4. int4: the same with quantize="int4"; checks 113 int4 launches per forward
    (7 projections x 16 layers + the lm_head).
 
-The line before the last is a JSON object {"kernels": [...]}: per kernel the
-launches of phases 3-4, max_abs_err over its cases, and ms / plain_ms /
+After phase 4 come three lines: a JSON object {"kernels": [...]} (per kernel
+the launches of phases 3-4, max_abs_err over its cases, and ms / plain_ms /
 bound_ms / library_ms -- for flash one launch at the Llama-1B prefill shape,
-for int4 the 113 launches of one decoded token (also printed: the 7 launches of
-one layer of an M-token prefill, for each prefill M). bound_ms is the larger of the
-bytes moved over 3.35 TB/s and the bf16 operations over 989 TFLOP/s (H100 SXM
-data sheet). The last line is {"ok": true, "device": {...}}.
+for int4 the 113 launches of one decoded token; also printed before it: the 7
+launches of one layer of an M-token prefill, for each prefill M), then
+"total <seconds>", then the card's name and power limit as nvidia-smi gives
+them. bound_ms is the larger of the bytes moved over 3.35 TB/s and the bf16
+operations over 989 TFLOP/s (H100 SXM data sheet). The last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -173,17 +182,43 @@ def _attended_pairs(S, T, causal, window, q_offset, kv_len) -> int:
     return n
 
 
+def _device_kernel(fn) -> str:
+    """The name of the device kernel that takes the most time in one call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    if not ev:
+        return "not traced"
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or \
+            getattr(e, "self_cuda_time_total", 0.0)
+    return max(ev, key=dev_us).key[:90]
+
+
 def flash_case(name, B, H, Hkv, S, T, D, causal=True, window=None, q_offset=0,
-               kv_len=None, poison=False, seed=0) -> dict:
+               kv_len=None, poison=False, seed=0, cache_len=None) -> dict:
+    """One flash case against the plain version. cache_len: K/V are the
+    first T slots of a [B, Hkv, cache_len, D] cache, and the line also times
+    the materialized attention of _run_stack over the whole cache."""
     import torch
     import torch.nn.functional as F
+    from kjarni_tpu_torch.ops.kernels import flash_attention as fa
     from kjarni_tpu_torch.ops.kernels.flash_attention import (
         flash_attention, flash_attention_plain)
+    if D not in getattr(fa, "HEAD_DIMS", ()):
+        print(json.dumps({"case": f"flash {name}", "skipped":
+                          f"this checkout's kernel takes D in {fa.HEAD_DIMS}"}))
+        return None
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev, bf = "cuda", torch.bfloat16
     q = torch.randn(B, H, S, D, generator=g, device=dev).to(bf)
-    k = torch.randn(B, Hkv, T, D, generator=g, device=dev).to(bf)
-    v = torch.randn(B, Hkv, T, D, generator=g, device=dev).to(bf)
+    kc = torch.randn(B, Hkv, cache_len or T, D, generator=g, device=dev).to(bf)
+    vc = torch.randn(B, Hkv, cache_len or T, D, generator=g, device=dev).to(bf)
+    k, v = kc[:, :, :T], vc[:, :, :T]
     kv = T if kv_len is None else kv_len
     kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
     launches0 = flash_attention.launches
@@ -199,21 +234,42 @@ def flash_case(name, B, H, Hkv, S, T, D, causal=True, window=None, q_offset=0,
     kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, **kw))
     eager_ms = host_ms(lambda: flash_attention(q, k, v, **kw))
     plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), iters=5)
+    by_warps = {}
+    if hasattr(fa, "launch_plan"):   # both block sizes, each checked first
+        for w in (4, 8):
+            def run(w=w):
+                return fa._launch(q, k, v, scale=None, warps=w, **kw)
+            e = (run().float() - ref.float()).abs().max().item()
+            check(e <= 3e-2, f"flash {name} at {w} warps: max_abs_err {e} <= 3e-2")
+            by_warps[w] = cuda_ms(run)
+    materialized_ms = None
+    if cache_len:   # _run_stack below the score gate: attention over the cache
+        from kjarni_tpu_torch.ops.attention import NEG_INF, attention
+        qi = q_offset + torch.arange(S, device=dev)[:, None]
+        kj = torch.arange(cache_len, device=dev)[None, :]
+        bias = torch.where(kj <= qi, 0.0, NEG_INF)[None, None]
+        mat = attention(q, kc, vc, bias)
+        e = (mat.float() - ref.float()).abs().max().item()
+        check(e <= 3e-2, f"flash {name}: materialized max_abs_err {e} <= 3e-2")
+        materialized_ms = cuda_ms(lambda: attention(q, kc, vc, bias), iters=5)
     # the library yardstick: SDPA on K/V repeated to H heads (outside the
     # timing), with is_causal, or with the same mask as a boolean tensor
     kr = k.repeat_interleave(H // Hkv, dim=1)
     vr = v.repeat_interleave(H // Hkv, dim=1)
     if causal and window is None and q_offset == 0 and kv_len is None and S == T:
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, kr, vr, is_causal=True))
+        def sdpa():
+            return F.scaled_dot_product_attention(q, kr, vr, is_causal=True)
     else:
         row = q_offset + torch.arange(S, device=dev)[:, None]
         col = torch.arange(T, device=dev)[None, :]
         mask = (col < kv) & (col <= row if causal else True)
         if window:
             mask = mask & (col > row - window)
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, kr, vr, attn_mask=mask))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask)
+    library_ms = cuda_ms(sdpa)
+    library_kernel = _device_kernel(sdpa)
     pairs = _attended_pairs(S, T, causal, window, q_offset, kv)
     nbytes = 2 * (2 * B * H * S * D + 2 * B * Hkv * min(kv, T) * D)
     flops = 4 * D * pairs * B * H
@@ -221,7 +277,11 @@ def flash_case(name, B, H, Hkv, S, T, D, causal=True, window=None, q_offset=0,
     row = {"case": f"flash {name}", "launches": flash_attention.launches - launches0,
            "max_abs_err": err, "kernel_ms": kernel_ms,
            "eager_ms": eager_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bound, "bound_by": bound_by}
+           "library_kernel": library_kernel, "bound_ms": bound, "bound_by": bound_by}
+    if by_warps:
+        row["kernel_ms_by_warps"] = by_warps
+    if materialized_ms is not None:
+        row["materialized_ms"] = materialized_ms
     print(json.dumps(row))
     return row
 
@@ -345,7 +405,7 @@ def int4_case(name, M, K, N, seed=0) -> dict:
     return row
 
 
-def phase_kernels() -> dict:
+def phase_flash() -> list:
     B, H, Hkv, D = 1, 32, 8, 64
     flash = [
         flash_case("llama1b-prefill S=T=1024", B, H, Hkv, 1024, 1024, D),
@@ -355,7 +415,22 @@ def phase_kernels() -> dict:
         flash_case("window=64", 1, 8, 2, 512, 512, D, window=64, seed=4),
         flash_case("q_offset=200 kv_len=328 poisoned", B, H, Hkv, 128, 512, D,
                    q_offset=200, kv_len=328, poison=True, seed=5),
+        # Phi-3.5-mini's prefill (hidden 3072 / 32 heads, no GQA)
+        flash_case("phi3.5-mini-prefill S=T=1024 D=96", B, 32, 32, 1024, 1024, 96,
+                   seed=6),
+        # the smallest from-zero flash bucket
+        flash_case("llama1b-prefill S=T=512", B, H, Hkv, 512, 512, D, seed=7),
+        # the follow-up request: a 1024 bucket reusing 765 cached slots, over
+        # kv_bucket 1792 of the 4096-slot cache
+        flash_case("llama1b-reuse S=1024 q_offset=765 kv_len=1789 T=1792", B, H, Hkv,
+                   1024, 1792, D, q_offset=765, kv_len=1789, poison=True, seed=8,
+                   cache_len=4096),
     ]
+    return [r for r in flash if r is not None]
+
+
+def phase_kernels() -> dict:
+    flash = phase_flash()
     shapes = {"q/o 2048x2048": (2048, 2048), "k/v 2048x512": (2048, 512),
               "gate/up 2048x8192": (2048, 8192), "down 8192x2048": (8192, 2048),
               "lm_head 2048x128256": (2048, 128256)}
@@ -683,6 +758,8 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_env()   # builds the kernels; every later phase needs them
     kern = phase_kernels() if "kernels" in phases else None
+    if "flash" in phases and kern is None:
+        phase_flash()
     flash_attention.launches = 0
     int4_matvec.launches = 0
     if "bf16" in phases or "int4" in phases:

@@ -4,32 +4,39 @@
 // _flash_kernel). Same function: online-softmax attention of q [B,H,S,D] over
 // k/v [B,Hkv,T,D], optional causal mask and sliding window, queries at absolute
 // positions q_offset.. over the K/V prefix kv_len; masked scores are -1e30 as
-// in the Pallas kernel.
+// in the Pallas kernel. D is 32, 64, 96 or 128.
 //
 // What bounds it on the H100: at a long prefill the work is 4*S*T*D*H flops
 // (halved by the causal band) against (q,k,v,o) bytes read once, ~410 flops per
 // byte at S=T=1024, D=64 -- above the card's ~295 bf16 flops/byte ridge, so
-// the tensor cores are the limit. The design keeps the [S,T] scores out of
-// device memory and feeds the tensor cores with mma.sync:
-//   * one block = 4 warps = 64 query rows; each warp owns 16 rows and keeps
-//     its running max m, sum l and the [16, D] accumulator in registers
-//     (the Pallas kernel's (block_q, 128) VMEM scratch follows TPU tiling and
-//     has no counterpart here);
+// the tensor cores (and the exp2 unit beside them) are the limit. The design
+// keeps the [S,T] scores out of device memory and keeps the tensor cores fed:
+//   * one block = NW warps (4 or 8, launch_plan in the wrapper) of 16 query
+//     rows each; each warp keeps its running max m, sum l and the [16, D]
+//     accumulator in registers, and its Q fragments for the whole loop;
 //   * GQA is folded into the rows: the G query heads of one KV head are rows
 //     s*G + g (position-major), so one K/V tile in shared memory serves all G
-//     heads and K/V are never repeated;
-//   * the block loops over 64-key K/V tiles itself, from the left edge of the
-//     window to the causal diagonal / kv_len, and skips the rest;
-//   * the ragged edge (rows past G*S, keys past kv_len or T) is masked in the
-//     kernel: loads past the edge are zero-filled, nothing is padded in memory.
-// Not yet done (later work): TMA/wgmma, double-buffered K/V, larger tiles.
+//     heads, K/V are never repeated, and a block's causal band stays narrow;
+//   * 64-key K/V tiles go through a 2-stage ring in dynamic shared memory fed
+//     by cp.async: tile j+1 is in flight while tile j is in the tensor cores,
+//     behind one barrier per tile. Keys past kv_len (or T) are zero-filled by
+//     the copy, so nothing is padded in memory;
+//   * rows are padded to D + 8 bf16, so ldmatrix.x4 (K, the B operand of
+//     Q K^T) and ldmatrix.x4.trans (V, the B operand of P V) read them
+//     without bank conflicts: one instruction per two n-tiles;
+//   * each warp sorts its tiles: skipped (no row of the warp keeps a key),
+//     interior (every row keeps every key: no mask at all) or edge (the
+//     per-element causal / window / kv_len mask). The softmax scale is folded
+//     into the exp2 argument: one FFMA per score;
+//   * under causal the row blocks run heaviest first (the last rows, which
+//     attend the most keys), so the light blocks fill the tail.
+// Rows whose every key is masked (none on the generation path) give zeros.
 #include "mma.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block: 4 warps x 16
 constexpr int kBK = 64;        // keys per K/V tile
-constexpr int kThreads = 128;
+constexpr int kStages = 2;     // K/V ring depth
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -49,30 +56,198 @@ struct FlashParams {
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p) {
-  constexpr int KS = D / 16;   // k-steps of Q K^T
-  constexpr int NT = D / 8;    // n-tiles of the output
-  constexpr int LD = D + 8;    // shared row stride: +16 bytes against bank conflicts
-  __shared__ __align__(16) __nv_bfloat16 Ks[kBK * LD];
-  __shared__ __align__(16) __nv_bfloat16 Vs[kBK * LD];
+struct Tile {
+  static constexpr int kLD = D + 8;                  // shared row stride (bf16)
+  static constexpr int kElems = kBK * kLD;           // one K or V tile
+  static constexpr int kSmem = kStages * 2 * kElems * 2;
+};
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One warp's 16 rows against one K/V tile [k0, k0 + kBK) in shared memory:
+// scores, the mask (edge tiles only), the online-softmax update and acc += P V.
+// m is the running max of the raw scores; l a per-thread partial sum.
+template <int D, bool kMask>
+__device__ __forceinline__ void attend_tile(const __nv_bfloat16* ks,
+                                            const __nv_bfloat16* vs,
+                                            const uint32_t (&qa)[D / 16][4],
+                                            float (&acc)[D / 8][4], float (&m)[2],
+                                            float (&l)[2], int k0, const int (&pos)[2],
+                                            int kv_end, int causal, int window,
+                                            float scale_log2, int lane) {
+  constexpr int LD = Tile<D>::kLD;
+  constexpr int KS = D / 16;
+  constexpr int NT = D / 8;
+  constexpr int NJ = kBK / 8;
+  const int tig = lane % 4;
+
+  // S = Q K^T: ldmatrix.x4 gives the B fragments of n-tiles j and j + 1
+  float s[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  }
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+    for (int j = 0; j < NJ; j += 2) {
+      uint32_t b[4];
+      kj::ldmatrix_x4(b, ks + (j * 8 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 +
+                             ((lane / 8) % 2) * 8);
+      kj::mma_bf16(s[j], qa[kk], b[0], b[1]);
+      kj::mma_bf16(s[j + 1], qa[kk], b[2], b[3]);
+    }
+  }
+
+  if (kMask) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int key = k0 + j * 8 + 2 * tig + (e & 1);
+        bool keep = key < kv_end;
+        if (causal) keep = keep && key <= pos[i];
+        if (window > 0) keep = keep && key > pos[i] - window;
+        if (!keep) s[j][e] = kNegInf;
+      }
+    }
+  }
+
+  // online softmax in log2 units: p = 2^(s * scale_log2 - m * scale_log2)
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+  }
+  float corr[2], msc[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    corr[i] = exp2_approx((m[i] - mx[i]) * scale_log2);
+    m[i] = mx[i];
+    // a row with every key so far masked keeps its sum at 0 (-1e30 * scale
+    // cannot be cancelled exactly inside one FFMA)
+    msc[i] = mx[i] == kNegInf ? 0.f : mx[i] * scale_log2;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pe = exp2_approx(fmaf(s[j][e], scale_log2, -msc[e >> 1]));
+      s[j][e] = pe;
+      rs[e >> 1] += pe;
+    }
+  }
+  // l stays a per-thread partial sum; the quad is reduced once at the end
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    acc[n][0] *= corr[0];
+    acc[n][1] *= corr[0];
+    acc[n][2] *= corr[1];
+    acc[n][3] *= corr[1];
+  }
+
+  // acc += P V: the score C fragments of two n-tiles form one A fragment;
+  // ldmatrix.x4.trans gives the B fragments of output n-tiles n and n + 1
+#pragma unroll
+  for (int kt = 0; kt < kBK / 16; ++kt) {
+    uint32_t pa[4];
+    pa[0] = kj::pack_bf16(s[2 * kt][0], s[2 * kt][1]);
+    pa[1] = kj::pack_bf16(s[2 * kt][2], s[2 * kt][3]);
+    pa[2] = kj::pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]);
+    pa[3] = kj::pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3]);
+#pragma unroll
+    for (int n = 0; n < NT; n += 2) {
+      uint32_t b[4];
+      kj::ldmatrix_x4_trans(b, vs + (kt * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD +
+                                   (n + lane / 16) * 8);
+      kj::mma_bf16(acc[n], pa, b[0], b[1]);
+      kj::mma_bf16(acc[n + 1], pa, b[2], b[3]);
+    }
+  }
+}
+
+template <int D, int NW>
+__global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const FlashParams p) {
+  constexpr int kBQ = 16 * NW;       // query rows per block
+  constexpr int kThreads = 32 * NW;
+  constexpr int KS = D / 16;         // k-steps of Q K^T
+  constexpr int NT = D / 8;          // n-tiles of the output
+  constexpr int LD = Tile<D>::kLD;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);   // [kStages][kBK][LD]
+  __nv_bfloat16* Vs = Ks + kStages * Tile<D>::kElems;
 
   const int G = p.H / p.Hkv;
   const int rows = G * p.S;
-  const int r0 = blockIdx.x * kBQ;
-  const int b = blockIdx.y / p.Hkv;
-  const int hkv = blockIdx.y % p.Hkv;
+  // heaviest first: under causal the last row blocks attend the most keys
+  const int rb = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int r0 = rb * kBQ;
+  const int b = blockIdx.x / p.Hkv;
+  const int hkv = blockIdx.x % p.Hkv;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int gid = lane / 4;
   const int tig = lane % 4;
 
+  // the K/V range the block needs: left edge of the window to the causal
+  // diagonal of its last row, bounded by kv_len and T
+  const int kv_end = min(p.kv_len, p.T);
+  const int last_row = min(r0 + kBQ, rows) - 1;
+  int k_hi = kv_end;
+  if (p.causal) k_hi = min(k_hi, p.q_offset + last_row / G + 1);
+  int k_lo = 0;
+  if (p.window > 0) k_lo = max(0, p.q_offset + r0 / G - p.window + 1);
+  k_lo = (k_lo / kBK) * kBK;
+  const int ntiles = k_hi > k_lo ? (k_hi - k_lo + kBK - 1) / kBK : 0;
+
+  const __nv_bfloat16* kbase = p.k + b * p.k_sb + hkv * p.k_sh;
+  const __nv_bfloat16* vbase = p.v + b * p.v_sb + hkv * p.v_sh;
+  const int64_t k_ss = p.k_ss, v_ss = p.v_ss;
+  // tile t of the range into ring stage `stage`, 16-byte copies; keys past
+  // kv_end are zero-filled from a valid address (row 0)
+  auto load_tile = [&](int t, int stage) {
+    constexpr int VPR = D / 8;
+    static_assert(kBK * VPR % kThreads == 0, "whole copies per thread");
+    const int k0 = k_lo + t * kBK;
+    __nv_bfloat16* ks = Ks + stage * Tile<D>::kElems;
+    __nv_bfloat16* vs = Vs + stage * Tile<D>::kElems;
+#pragma unroll
+    for (int it = 0; it < kBK * VPR / kThreads; ++it) {
+      const int idx = it * kThreads + threadIdx.x;
+      const int rr = idx / VPR;
+      const int cc = (idx % VPR) * 8;
+      const bool in = k0 + rr < kv_end;
+      const int64_t key = in ? k0 + rr : 0;
+      kj::cp_async16(ks + rr * LD + cc, kbase + key * k_ss + cc, in);
+      kj::cp_async16(vs + rr * LD + cc, vbase + key * v_ss + cc, in);
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < ntiles) load_tile(st, st);
+    kj::cp_async_commit();
+  }
+
   // this thread's two rows (gid and gid + 8 of the warp's 16)
+  const int wr0 = r0 + warp * 16;
   bool valid[2];
   int pos[2];
   int64_t qoff[2], ooff[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = r0 + warp * 16 + gid + 8 * i;
+    const int r = wr0 + gid + 8 * i;
     valid[i] = r < rows;
     const int s = valid[i] ? r / G : 0;
     const int h = hkv * G + (valid[i] ? r % G : 0);
@@ -96,17 +271,18 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p
     }
   }
 
-  // the K/V range this tile needs: left edge of the window to the causal
-  // diagonal of its last row, bounded by kv_len and T
-  const int kv_end = min(p.kv_len, p.T);
-  const int last_row = min(r0 + kBQ, rows) - 1;
-  const int pos_lo = p.q_offset + r0 / G;
-  const int pos_hi = p.q_offset + last_row / G;
-  int k_hi = kv_end;
-  if (p.causal) k_hi = min(k_hi, pos_hi + 1);
-  int k_lo = 0;
-  if (p.window > 0) k_lo = max(0, pos_lo - p.window + 1);
-  k_lo = (k_lo / kBK) * kBK;
+  // the warp's own key range [w_lo, w_hi), and the keys every one of its
+  // rows keeps, [full_lo, full_hi)
+  const bool wvalid = wr0 < rows;
+  const int wpos_lo = p.q_offset + wr0 / G;
+  const int wpos_hi = p.q_offset + (min(wr0 + 16, rows) - 1) / G;
+  int w_hi = kv_end, full_hi = kv_end;
+  if (p.causal) {
+    w_hi = min(w_hi, wpos_hi + 1);
+    full_hi = min(full_hi, wpos_lo + 1);
+  }
+  const int w_lo = p.window > 0 ? wpos_lo - p.window + 1 : 0;
+  const int full_lo = p.window > 0 ? wpos_hi - p.window + 1 : 0;
 
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
@@ -117,105 +293,27 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   }
 
-  const __nv_bfloat16* kbase = p.k + b * p.k_sb + hkv * p.k_sh;
-  const __nv_bfloat16* vbase = p.v + b * p.v_sb + hkv * p.v_sh;
-
-  for (int k0 = k_lo; k0 < k_hi; k0 += kBK) {
-    // K and V tiles into shared memory, 16-byte vectors, zeros past kv_end
-    constexpr int VPR = D / 8;
-    for (int idx = threadIdx.x; idx < kBK * VPR; idx += kThreads) {
-      const int rr = idx / VPR;
-      const int cc = (idx % VPR) * 8;
-      const int key = k0 + rr;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-      if (key < kv_end) {
-        kv = *reinterpret_cast<const uint4*>(kbase + key * p.k_ss + cc);
-        vv = *reinterpret_cast<const uint4*>(vbase + key * p.v_ss + cc);
-      }
-      *reinterpret_cast<uint4*>(&Ks[rr * LD + cc]) = kv;
-      *reinterpret_cast<uint4*>(&Vs[rr * LD + cc]) = vv;
-    }
+  for (int t = 0; t < ntiles; ++t) {
+    // tile t has landed for every thread, and every warp is done with the
+    // stage that tile t + kStages - 1 overwrites
+    kj::cp_async_wait<kStages - 2>();
     __syncthreads();
+    if (t + kStages - 1 < ntiles) load_tile(t + kStages - 1, (t + kStages - 1) % kStages);
+    kj::cp_async_commit();
 
-    // scores for this warp's 16 rows x 64 keys
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        const __nv_bfloat16* kr = &Ks[(j * 8 + gid) * LD + kk * 16 + 2 * tig];
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + 8);
-        kj::mma_bf16(s[j], qa[kk], b0, b1);
-      }
+    const int k0 = k_lo + t * kBK;
+    if (!wvalid || k0 >= w_hi || k0 + kBK <= w_lo) continue;
+    const __nv_bfloat16* ks = Ks + (t % kStages) * Tile<D>::kElems;
+    const __nv_bfloat16* vs = Vs + (t % kStages) * Tile<D>::kElems;
+    if (k0 >= full_lo && k0 + kBK <= full_hi) {
+      attend_tile<D, false>(ks, vs, qa, acc, m, l, k0, pos, kv_end, p.causal, p.window,
+                            p.scale_log2, lane);
+    } else {
+      attend_tile<D, true>(ks, vs, qa, acc, m, l, k0, pos, kv_end, p.causal, p.window,
+                           p.scale_log2, lane);
     }
-
-    // scale and mask, then the online-softmax update (in log2 units)
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int key = k0 + j * 8 + 2 * tig + (e & 1);
-        bool keep = valid[i] && key < kv_end;
-        if (p.causal) keep = keep && key <= pos[i];
-        if (p.window > 0) keep = keep && key > pos[i] - p.window;
-        const float x = keep ? s[j][e] * p.scale_log2 : kNegInf;
-        s[j][e] = x;
-        mx[i] = fmaxf(mx[i], x);
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      corr[i] = exp2f(m[i] - mx[i]);
-      m[i] = mx[i];
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = exp2f(s[j][e] - m[e >> 1]);
-        s[j][e] = pe;
-        rs[e >> 1] += pe;
-      }
-    }
-    // l stays a per-thread partial sum; the quad is reduced once at the end
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
-    }
-
-    // acc += P V: the score C fragments of two n-tiles form one A fragment
-#pragma unroll
-    for (int kt = 0; kt < 4; ++kt) {
-      uint32_t pa[4];
-      pa[0] = kj::pack_bf16(s[2 * kt][0], s[2 * kt][1]);
-      pa[1] = kj::pack_bf16(s[2 * kt][2], s[2 * kt][3]);
-      pa[2] = kj::pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]);
-      pa[3] = kj::pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3]);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const __nv_bfloat16* vr = &Vs[(kt * 16 + 2 * tig) * LD + n * 8 + gid];
-        const uint32_t b0 = kj::pack_raw(vr[0], vr[LD]);
-        const uint32_t b1 = kj::pack_raw(vr[8 * LD], vr[9 * LD]);
-        kj::mma_bf16(acc[n], pa, b0, b1);
-      }
-    }
-    __syncthreads();
   }
+  kj::cp_async_wait<0>();
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -235,23 +333,39 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p
   }
 }
 
-template <int D>
+template <int D, int NW>
 cudaError_t launch(const FlashParams& p, int B, cudaStream_t stream) {
+  constexpr int kBQ = 16 * NW;
+  constexpr int kSmem = Tile<D>::kSmem;
+  // above 48 KB a block's dynamic shared memory must be asked for, once
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_kernel<D, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return attr;
   const int rows = (p.H / p.Hkv) * p.S;
-  const dim3 grid((rows + kBQ - 1) / kBQ, B * p.Hkv);
-  flash_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(p);
+  const dim3 grid(B * p.Hkv, (rows + kBQ - 1) / kBQ);
+  flash_fwd_kernel<D, NW><<<grid, NW * 32, kSmem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_warps(const FlashParams& p, int B, int warps, cudaStream_t stream) {
+  switch (warps) {
+    case 4: return launch<D, 4>(p, B, stream);
+    case 8: return launch<D, 8>(p, B, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // strides: 12 int64 element strides (b, h, s) of q, k, v, o in that order.
-// Returns a cudaError_t; 0 means the launch was accepted.
+// warps: 4 or 8 per block (16 query rows each). Returns a cudaError_t; 0
+// means the launch was accepted.
 extern "C" int kj_flash_attention_bf16(const void* q, const void* k, const void* v,
                                        void* o, const int64_t* strides, int B, int H,
                                        int Hkv, int S, int T, int D, int q_offset,
                                        int kv_len, int causal, int window, float scale,
-                                       void* stream) {
+                                       int warps, void* stream) {
   FlashParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -267,9 +381,10 @@ extern "C" int kj_flash_attention_bf16(const void* q, const void* k, const void*
   p.scale_log2 = scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch<32>(p, B, st);
-    case 64: return launch<64>(p, B, st);
-    case 128: return launch<128>(p, B, st);
+    case 32: return launch_warps<32>(p, B, warps, st);
+    case 64: return launch_warps<64>(p, B, warps, st);
+    case 96: return launch_warps<96>(p, B, warps, st);
+    case 128: return launch_warps<128>(p, B, warps, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

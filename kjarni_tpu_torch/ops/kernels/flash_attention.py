@@ -3,9 +3,11 @@
 Replaces kjarni_tpu/ops/pallas/flash_attention.py::flash_attention. The CUDA
 source is csrc/flash_attention.cu; its header says what bounds it on the H100
 (tensor-core flops at long prefills) and what the design does about that.
+`launch_plan` sizes its blocks (4 or 8 warps of 16 query rows).
 
 `flash_attention` launches the kernel for CUDA tensors and raises on what the
-kernel does not take; it runs the plain version only for tensors on the CPU.
+kernel does not take (`check_shapes` holds the shape rules); it runs the plain
+version only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ import torch
 from . import build
 
 NEG_INF = -1e30  # the kernel's mask value, as in the Pallas kernel
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 96, 128)
+_SMS = 132              # H100 SXM
+_MAX_GRID_Y = 65535     # row blocks per (batch, KV head)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -57,6 +61,30 @@ def _kernel_view(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.contiguous()
 
 
+def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise ValueError unless the kernel takes these shapes: q [B, H, S, D],
+    k and v [B, Hkv, T, D] alike, D in HEAD_DIMS, Hkv dividing H, and no more
+    row blocks than a grid holds. Reads shapes only (CPU or meta tensors do)."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"flash_attention: q and k must be 4-d, got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    if D not in HEAD_DIMS or k.shape != v.shape or k.shape[0] != B \
+            or k.shape[3] != D or Hkv < 1 or H % Hkv \
+            or -(-(H // Hkv) * S // 64) > _MAX_GRID_Y:
+        raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)}"
+                         f" k {tuple(k.shape)} v {tuple(v.shape)} (D in {HEAD_DIMS})")
+
+
+def launch_plan(B: int, H: int, Hkv: int, S: int) -> int:
+    """Warps per block (16 query rows each): 8 where 128-row blocks still
+    give every SM of the H100 one, so each K/V tile feeds 128 rows; else 4,
+    so a small grid spreads over twice the blocks."""
+    blocks = B * Hkv * -(-(H // Hkv) * S // 128)
+    return 8 if blocks >= _SMS else 4
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False, scale: Optional[float] = None,
                     window: Optional[int] = None, q_offset: int = 0,
@@ -70,17 +98,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      window=window, q_offset=q_offset,
                                      kv_len=kv_len)
-    B, H, S, D = q.shape
-    Hkv, T = k.shape[1], k.shape[2]
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention: tensors on {q.device}/{k.device}/"
                          f"{v.device}; the kernel takes one CUDA device")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise TypeError(f"flash_attention kernel takes bf16, got {q.dtype}")
-    if D not in HEAD_DIMS or k.shape != v.shape or k.shape[0] != B \
-            or k.shape[3] != D or H % Hkv:
-        raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)}"
-                         f" k {tuple(k.shape)} v {tuple(v.shape)}")
+    check_shapes(q, k, v)
+    B, H, S, _ = q.shape
+    return _launch(q, k, v, causal=causal, scale=scale, window=window,
+                   q_offset=q_offset, kv_len=kv_len,
+                   warps=launch_plan(B, H, k.shape[1], S))
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+            scale: Optional[float], window: Optional[int], q_offset: int,
+            kv_len: Optional[int], warps: int) -> torch.Tensor:
+    """One launch of the kernel with `warps` per block, on inputs
+    flash_attention has checked."""
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
@@ -92,11 +128,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fn = lib.kj_flash_attention_bf16
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int64)] + \
-            [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
+            [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
              B, H, Hkv, S, T, D, int(q_offset), int(T if kv_len is None else kv_len),
-             int(causal), int(window or 0), float(scale),
+             int(causal), int(window or 0), float(scale), int(warps),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "flash_attention")
     flash_attention.launches += 1

@@ -2,9 +2,12 @@
 
 int4 at M = 1 (the decode GEMV) and at Ms across the GEMM's row tiles, with
 one group and with groups of 128, ragged K/2 and N, K split across blocks
-and not, and bit-identical repeat calls; flash with batch > 1,
-no GQA, D = 128 with a window and an offset. Skipped without a card; on the
-machine with the card (which has no jax, hence --noconftest):
+and not, and bit-identical repeat calls; flash at D = 32, 64, 96 and 128 and G = 1, 4
+and 8, with batch > 1, S and T across several 64-key tiles with ragged edges,
+every tile class (interior, causal diagonal, window left edge, kv_len edge
+with a poisoned tail), q in the [B, S, H, D] storage that the model passes,
+both block sizes, and bit-identical repeat calls. Skipped without a card; on
+the machine with the card (which has no jax, hence --noconftest):
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
@@ -20,6 +23,7 @@ import pytest
 import torch
 
 from kjarni_tpu_torch.models.llama import _quant_int4
+from kjarni_tpu_torch.ops.kernels import flash_attention as fa
 from kjarni_tpu_torch.ops.kernels.flash_attention import (flash_attention,
                                                           flash_attention_plain)
 from kjarni_tpu_torch.ops.kernels.int4_matvec import (int4_matvec, int4_matvec_plain,
@@ -101,6 +105,55 @@ def test_flash_kernel_matches_plain(card, B, H, Hkv, S, T, D, window, q_offset,
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, ref, rtol=0, atol=3e-2)
+
+
+# (B, H, Hkv, S, T, D, causal, window, q_offset, kv_len); kv_len cases poison
+# the K/V tail past kv_len
+_FLASH_TILES = [
+    (1, 8, 8, 200, 200, 96, True, None, 0, None),       # G = 1, Phi-3's D
+    (2, 16, 4, 333, 333, 64, True, None, 0, None),      # G = 4, batch 2
+    (1, 32, 4, 130, 130, 128, True, None, 0, None),     # G = 8
+    (1, 8, 1, 257, 257, 32, True, None, 0, None),       # G = 8, one KV head
+    (1, 8, 2, 300, 300, 64, True, 100, 0, None),        # window left edge
+    (1, 4, 4, 256, 256, 96, True, 70, 0, None),
+    (1, 16, 4, 100, 512, 64, True, None, 300, 400),     # kv_len edge, offset
+    (1, 8, 8, 70, 448, 96, True, None, 310, 380),
+    (1, 16, 2, 64, 320, 128, True, 50, 200, 264),       # all three at once
+    (1, 4, 2, 150, 190, 64, False, None, 0, 170),       # not causal
+    (1, 32, 8, 1024, 1024, 64, True, None, 0, None),    # Llama-1B prefill
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,T,D,causal,window,q_offset,kv_len", _FLASH_TILES)
+def test_flash_kernel_tile_classes(card, B, H, Hkv, S, T, D, causal, window,
+                                   q_offset, kv_len):
+    g = torch.Generator(device=card).manual_seed(B + H + S + T + D)
+    # q as the model passes it: [B, S, H, D] storage seen as [B, H, S, D]
+    q = torch.randn(B, S, H, D, generator=g, device=card).to(torch.bfloat16)
+    q = q.transpose(1, 2)
+    k = torch.randn(B, Hkv, T, D, generator=g, device=card).to(torch.bfloat16)
+    v = torch.randn(B, Hkv, T, D, generator=g, device=card).to(torch.bfloat16)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    ref = flash_attention_plain(q, k, v, **kw).float()
+    if kv_len is not None:
+        k[:, :, kv_len:], v[:, :, kv_len:] = 1e3, -1e3
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (B, H, S, D) and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), ref, rtol=0, atol=3e-2)
+    assert torch.equal(flash_attention(q, k, v, **kw), got)
+    # both block sizes, whichever launch_plan picks here
+    for warps in (4, 8):
+        out = fa._launch(q, k, v, scale=None, warps=warps, **kw)
+        torch.testing.assert_close(out.float(), ref, rtol=0, atol=3e-2)
+        assert torch.equal(fa._launch(q, k, v, scale=None, warps=warps, **kw), out)
+
+
+def test_flash_kernel_refuses_unsupported_head_dims(card):
+    for D in (80, 256):
+        q = torch.zeros(1, 2, 8, D, device=card, dtype=torch.bfloat16)
+        with pytest.raises(ValueError):
+            flash_attention(q, q, q)
 
 
 def test_kernels_refuse_f32_on_the_card(card):

@@ -18,7 +18,9 @@ from kjarni_tpu.models.llama import pack_int4 as jax_pack_int4
 from kjarni_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
 from kjarni_tpu.ops.pallas.int4_matvec import int4_matvec as jax_int4_matvec
 from kjarni_tpu_torch.models.llama import pack_int4
-from kjarni_tpu_torch.ops.kernels.flash_attention import flash_attention
+from kjarni_tpu_torch.ops.kernels.flash_attention import (HEAD_DIMS, check_shapes,
+                                                          flash_attention)
+from kjarni_tpu_torch.ops.kernels.flash_attention import launch_plan as flash_plan
 from kjarni_tpu_torch.ops.kernels.int4_matvec import int4_matvec, launch_plan
 
 
@@ -43,6 +45,8 @@ FLASH_CASES = {
     "offset_zero": (1, 2, 2, 128, 128, 32, True, None, 0, 128, None, None),
     "offset_window": (1, 1, 1, 128, 256, 32, True, 48, 100, 228, 64, 64),
     "autotuned_gqa_offset": (1, 4, 2, 256, 640, 32, True, None, 384, 640, None, None),
+    # Phi-3's head width (hidden 3072 / 32 heads), ragged S
+    "causal_d96": (1, 2, 2, 100, 100, 96, True, None, None, None, None, None),
 }
 
 
@@ -93,6 +97,44 @@ class TestFlashPlainVsJax:
         q = torch.empty(1, 2, 16, 32, device="meta")
         with pytest.raises(ValueError):
             flash_attention(q, q, q)
+
+
+class TestFlashShapes:
+    """The kernel's shape rules, checked without a card (meta tensors)."""
+
+    @pytest.mark.parametrize("D", [32, 64, 96, 128])
+    def test_head_dims_accepted(self, D):
+        assert D in HEAD_DIMS
+        q = torch.empty(1, 32, 1024, D, device="meta", dtype=torch.bfloat16)
+        kv = torch.empty(1, 8, 1024, D, device="meta", dtype=torch.bfloat16)
+        check_shapes(q, kv, kv)
+
+    @pytest.mark.parametrize("D", [80, 256])
+    def test_head_dims_refused(self, D):
+        q = torch.empty(1, 4, 64, D, device="meta", dtype=torch.bfloat16)
+        with pytest.raises(ValueError):
+            check_shapes(q, q, q)
+
+    @pytest.mark.parametrize("q_shape,k_shape,v_shape", [
+        ((1, 6, 64, 64), (1, 4, 64, 64), (1, 4, 64, 64)),    # Hkv does not divide H
+        ((1, 4, 64, 64), (1, 2, 64, 64), (1, 2, 32, 64)),    # k and v differ
+        ((2, 4, 64, 64), (1, 2, 64, 64), (1, 2, 64, 64)),    # batch differs
+        ((1, 4, 64, 64), (1, 2, 64, 32), (1, 2, 64, 32)),    # D differs
+        ((1, 8, 9_000_000, 64), (1, 1, 64, 64), (1, 1, 64, 64)),  # grid too tall
+    ])
+    def test_mismatched_shapes_refused(self, q_shape, k_shape, v_shape):
+        q, k, v = (torch.empty(s, device="meta") for s in (q_shape, k_shape, v_shape))
+        with pytest.raises(ValueError):
+            check_shapes(q, k, v)
+
+    @pytest.mark.parametrize("B,H,Hkv,S,warps", [
+        (1, 32, 8, 1024, 8),     # Llama-1B prefill: 256 blocks of 128 rows
+        (1, 32, 32, 1024, 8),    # Phi-3.5-mini prefill
+        (1, 32, 8, 128, 4),      # a short prefill: 32 blocks of 128 rows
+        (2, 8, 2, 256, 4),
+    ])
+    def test_launch_plan(self, B, H, Hkv, S, warps):
+        assert flash_plan(B, H, Hkv, S) == warps
 
 
 def make_int4_case(B, K, N, g, seed=0):

@@ -88,6 +88,25 @@ class TestForwardParity:
         np.testing.assert_allclose(lg_t, lg_j, atol=ATOL)
         np.testing.assert_allclose(ck_t, ck_j, atol=ATOL)
 
+    @pytest.mark.parametrize("width", ["phi3_d96", "mistral_window64"])
+    @pytest.mark.parametrize("case", ["flash_from_zero", "flash_kv_bucket"])
+    def test_flash_widths_match_jax(self, interpret_flash, width, case):
+        """Phi-3's head width (96, no GQA) and a Mistral-style sliding window,
+        through the flash path of both packages."""
+        extra = {"phi3_d96": dict(head_dim=96, num_heads=4, num_kv_heads=4),
+                 "mistral_window64": dict(sliding_window=64)}[width]
+        cfg_j, params_np = _random_llama({"num_layers": 2, "max_seq_len": 512, **extra})
+        cfg_t = tl.DecoderConfig(**{f.name: getattr(cfg_j, f.name)
+                                    for f in dataclasses.fields(tl.DecoderConfig)})
+        chunks = {"flash_from_zero": [_ids(128, 9)],
+                  "flash_kv_bucket": [_ids(128, 10), _ids(128, 11)]}[case]
+        kw = {"flash_from_zero": dict(use_flash=True),
+              "flash_kv_bucket": dict(use_flash=True, kv_bucket=256)}[case]
+        lg_j, ck_j = _run_jax(cfg_j, params_np, chunks, **kw)
+        lg_t, ck_t = _run_torch(cfg_t, params_from_jax(params_np), chunks, **kw)
+        np.testing.assert_allclose(lg_t, lg_j, atol=ATOL)
+        np.testing.assert_allclose(ck_t, ck_j, atol=ATOL)
+
     def test_int4_params_match_jax(self, model):
         cfg_j, cfg_t, params_np = model
         q_np = jl.quantize_params_int4(params_np)
