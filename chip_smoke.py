@@ -21,17 +21,17 @@ Phases, in order (all by default); any failure raises and exits non-zero:
    call computing the same function as a yardstick the port never calls:
    scaled_dot_product_attention for flash (library_kernel names the device
    kernel it ran), torch._weight_int4pack_mm (tinygemm, checked against the
-   plain version first) for int4. Each flash line also times the kernel at
-   both block sizes (kernel_ms_by_warps); the cache-reuse line times the
-   materialized attention that _run_stack runs below the score gate
+   plain version first) for int4. The cache-reuse lines also time the
+   materialized attention that _run_stack runs where flash is not taken
    (materialized_ms). At M = 1 the int4 line also has gemm_ms: the prefill
    GEMM on the same input, beside the GEMV that decode takes. `--phases
    env,flash` runs the flash cases alone.
 3. bf16: Generator over a Llama-3.2-1B-shaped checkpoint (full width, 16
    layers, random bf16 weights from a seeded generator on the card) answers
    three requests: a greedy generate on a ~700-token prompt (flash prefill), a
-   follow-up extending it (prefix reuse, plain attention under the 2 GB score
-   gate) and a 32-token generate_stream on another ~600-token prompt. Checks
+   follow-up extending it (prefix reuse: flash over the cache, or plain
+   attention in an older checkout under its 2 GB score gate) and a 32-token
+   generate_stream on another ~600-token prompt. Checks
    the flash launch count per request and the first prefill's logits against
    the same forward with the kernels' plain versions.
 4. int4: the same with quantize="int4"; checks 113 int4 launches per forward
@@ -234,16 +234,8 @@ def flash_case(name, B, H, Hkv, S, T, D, causal=True, window=None, q_offset=0,
     kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, **kw))
     eager_ms = host_ms(lambda: flash_attention(q, k, v, **kw))
     plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), iters=5)
-    by_warps = {}
-    if hasattr(fa, "launch_plan"):   # both block sizes, each checked first
-        for w in (4, 8):
-            def run(w=w):
-                return fa._launch(q, k, v, scale=None, warps=w, **kw)
-            e = (run().float() - ref.float()).abs().max().item()
-            check(e <= 3e-2, f"flash {name} at {w} warps: max_abs_err {e} <= 3e-2")
-            by_warps[w] = cuda_ms(run)
     materialized_ms = None
-    if cache_len:   # _run_stack below the score gate: attention over the cache
+    if cache_len:   # _run_stack without flash: attention over the whole cache
         from kjarni_tpu_torch.ops.attention import NEG_INF, attention
         qi = q_offset + torch.arange(S, device=dev)[:, None]
         kj = torch.arange(cache_len, device=dev)[None, :]
@@ -278,8 +270,6 @@ def flash_case(name, B, H, Hkv, S, T, D, causal=True, window=None, q_offset=0,
            "max_abs_err": err, "kernel_ms": kernel_ms,
            "eager_ms": eager_ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "library_kernel": library_kernel, "bound_ms": bound, "bound_by": bound_by}
-    if by_warps:
-        row["kernel_ms_by_warps"] = by_warps
     if materialized_ms is not None:
         row["materialized_ms"] = materialized_ms
     print(json.dumps(row))
@@ -424,6 +414,11 @@ def phase_flash() -> list:
         # kv_bucket 1792 of the 4096-slot cache
         flash_case("llama1b-reuse S=1024 q_offset=765 kv_len=1789 T=1792", B, H, Hkv,
                    1024, 1792, D, q_offset=765, kv_len=1789, poison=True, seed=8,
+                   cache_len=4096),
+        # the smallest cache-reuse flash prefill: a 512 bucket over the
+        # 16-token minimum reused prefix
+        flash_case("llama1b-reuse S=512 q_offset=16 kv_len=528 T=640", B, H, Hkv,
+                   512, 640, D, q_offset=16, kv_len=528, poison=True, seed=9,
                    cache_len=4096),
     ]
     return [r for r in flash if r is not None]
@@ -644,6 +639,7 @@ def profile_request(gen, text: str, new_tokens: int = 16) -> dict:
 def run_slice(model_dir: Path, quantize) -> dict:
     import torch
     from kjarni_tpu_torch import Generator
+    from kjarni_tpu_torch.models import decoder_lm
     from kjarni_tpu_torch.generate.sampling import GenerationConfig
     from kjarni_tpu_torch.ops.kernels.flash_attention import flash_attention
     from kjarni_tpu_torch.ops.kernels.int4_matvec import int4_matvec
@@ -695,7 +691,10 @@ def run_slice(model_dir: Path, quantize) -> dict:
 
     r1 = request("generate 700", generate, a, FLASH_PER_PREFILL)
     follow = f"{a} {out1['text']} {_prompt(600, 3)}"
-    r2 = request("follow-up reuse", generate, follow, 0)
+    # a checkout without the measured gate keeps the follow-up off flash
+    reuse_flash = hasattr(decoder_lm, "REUSE_FLASH_MIN_SCORE_BYTES")
+    r2 = request("follow-up reuse", generate, follow,
+                 FLASH_PER_PREFILL if reuse_flash else 0)
     check(r2["prefilled_tokens"] == r2["prompt_tokens"] - r1["prompt_tokens"]
           - r1["new_tokens"], "follow-up prefilled only its new suffix")
     stream_cfg = GenerationConfig.greedy(max_new_tokens=32, max_length=4096)

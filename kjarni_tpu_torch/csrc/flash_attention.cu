@@ -11,9 +11,11 @@
 // byte at S=T=1024, D=64 -- above the card's ~295 bf16 flops/byte ridge, so
 // the tensor cores (and the exp2 unit beside them) are the limit. The design
 // keeps the [S,T] scores out of device memory and keeps the tensor cores fed:
-//   * one block = NW warps (4 or 8, launch_plan in the wrapper) of 16 query
-//     rows each; each warp keeps its running max m, sum l and the [16, D]
-//     accumulator in registers, and its Q fragments for the whole loop;
+//   * one block = 4 warps of 16 query rows each; each warp keeps its running
+//     max m, sum l and the [16, D] accumulator in registers, and its Q
+//     fragments for the whole loop. At 121-247 registers (by D) 2-3 blocks
+//     share an SM; 8-warp blocks (one per SM) were slower at 7 of the 9
+//     phase-2 shapes;
 //   * GQA is folded into the rows: the G query heads of one KV head are rows
 //     s*G + g (position-major), so one K/V tile in shared memory serves all G
 //     heads, K/V are never repeated, and a block's causal band stays narrow;
@@ -35,6 +37,9 @@
 
 namespace {
 
+constexpr int kWarps = 4;
+constexpr int kBQ = 16 * kWarps;   // query rows per block
+constexpr int kThreads = 32 * kWarps;
 constexpr int kBK = 64;        // keys per K/V tile
 constexpr int kStages = 2;     // K/V ring depth
 constexpr float kNegInf = -1e30f;
@@ -178,10 +183,8 @@ __device__ __forceinline__ void attend_tile(const __nv_bfloat16* ks,
   }
 }
 
-template <int D, int NW>
-__global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const FlashParams p) {
-  constexpr int kBQ = 16 * NW;       // query rows per block
-  constexpr int kThreads = 32 * NW;
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p) {
   constexpr int KS = D / 16;         // k-steps of Q K^T
   constexpr int NT = D / 8;          // n-tiles of the output
   constexpr int LD = Tile<D>::kLD;
@@ -333,39 +336,28 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const FlashParams p)
   }
 }
 
-template <int D, int NW>
+template <int D>
 cudaError_t launch(const FlashParams& p, int B, cudaStream_t stream) {
-  constexpr int kBQ = 16 * NW;
   constexpr int kSmem = Tile<D>::kSmem;
   // above 48 KB a block's dynamic shared memory must be asked for, once
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (attr != cudaSuccess) return attr;
   const int rows = (p.H / p.Hkv) * p.S;
   const dim3 grid(B * p.Hkv, (rows + kBQ - 1) / kBQ);
-  flash_fwd_kernel<D, NW><<<grid, NW * 32, kSmem, stream>>>(p);
+  flash_fwd_kernel<D><<<grid, kThreads, kSmem, stream>>>(p);
   return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_warps(const FlashParams& p, int B, int warps, cudaStream_t stream) {
-  switch (warps) {
-    case 4: return launch<D, 4>(p, B, stream);
-    case 8: return launch<D, 8>(p, B, stream);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
 // strides: 12 int64 element strides (b, h, s) of q, k, v, o in that order.
-// warps: 4 or 8 per block (16 query rows each). Returns a cudaError_t; 0
-// means the launch was accepted.
+// Returns a cudaError_t; 0 means the launch was accepted.
 extern "C" int kj_flash_attention_bf16(const void* q, const void* k, const void* v,
                                        void* o, const int64_t* strides, int B, int H,
                                        int Hkv, int S, int T, int D, int q_offset,
                                        int kv_len, int causal, int window, float scale,
-                                       int warps, void* stream) {
+                                       void* stream) {
   FlashParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -381,10 +373,10 @@ extern "C" int kj_flash_attention_bf16(const void* q, const void* k, const void*
   p.scale_log2 = scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch_warps<32>(p, B, warps, st);
-    case 64: return launch_warps<64>(p, B, warps, st);
-    case 96: return launch_warps<96>(p, B, warps, st);
-    case 128: return launch_warps<128>(p, B, warps, st);
+    case 32: return launch<32>(p, B, st);
+    case 64: return launch<64>(p, B, st);
+    case 96: return launch<96>(p, B, st);
+    case 128: return launch<128>(p, B, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -35,6 +35,15 @@ from ..weights.safetensors_loader import ModelWeights
 from . import llama as kllama
 
 DEFAULT_MAX_CONTEXT = 4096
+# Cache-reuse prefill takes flash above this many bytes of f32 scores
+# (4 * heads * bucket * (reused + bucket)). The JAX package's 2 GB gate was
+# tuned on a TPU. On an H100 (chip_smoke.py phase 2, Llama-3.2-1B width, 4096
+# cache slots) flash wins at both ends of what reaches the gate: 0.060 ms
+# against 3.19 ms for the materialized attention at a 1024 bucket over 765
+# reused slots (234 MB of scores), 0.014 ms against 1.60 ms at a 512 bucket
+# over 16. The materialized path reads the whole cache, so no crossover lies
+# above the 512-token flash bucket, and every reuse prefill there takes flash.
+REUSE_FLASH_MIN_SCORE_BYTES = 0
 
 logger = logging.getLogger(__name__)
 
@@ -180,11 +189,10 @@ class DecoderLM:
         use_flash = self._flash_ok and bucket >= self._flash_min_seq
         kv_bucket = None
         if use_flash and common > 0:
-            # cache-reuse prefill: the materialized path is kept at moderate
-            # shapes; flash is taken only when the f32 score matrix would
-            # pass 2 GB (the JAX package's gate, not re-tuned for the card)
+            # cache-reuse prefill: flash where the f32 score matrix would
+            # pass REUSE_FLASH_MIN_SCORE_BYTES
             score_bytes = 4 * self.config.num_heads * bucket * (common + bucket)
-            use_flash = score_bytes > 2_000_000_000
+            use_flash = score_bytes > REUSE_FLASH_MIN_SCORE_BYTES
         if use_flash:
             kv_bucket = min(-(-(common + bucket) // 128) * 128, self.max_context)
         logits, ck, cv = kllama.forward(

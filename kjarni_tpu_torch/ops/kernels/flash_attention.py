@@ -3,7 +3,6 @@
 Replaces kjarni_tpu/ops/pallas/flash_attention.py::flash_attention. The CUDA
 source is csrc/flash_attention.cu; its header says what bounds it on the H100
 (tensor-core flops at long prefills) and what the design does about that.
-`launch_plan` sizes its blocks (4 or 8 warps of 16 query rows).
 
 `flash_attention` launches the kernel for CUDA tensors and raises on what the
 kernel does not take (`check_shapes` holds the shape rules); it runs the plain
@@ -21,7 +20,7 @@ from . import build
 
 NEG_INF = -1e30  # the kernel's mask value, as in the Pallas kernel
 HEAD_DIMS = (32, 64, 96, 128)
-_SMS = 132              # H100 SXM
+_BLOCK_ROWS = 64        # query rows per block (4 warps x 16)
 _MAX_GRID_Y = 65535     # row blocks per (batch, KV head)
 
 
@@ -72,17 +71,9 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     Hkv = k.shape[1]
     if D not in HEAD_DIMS or k.shape != v.shape or k.shape[0] != B \
             or k.shape[3] != D or Hkv < 1 or H % Hkv \
-            or -(-(H // Hkv) * S // 64) > _MAX_GRID_Y:
+            or -(-(H // Hkv) * S // _BLOCK_ROWS) > _MAX_GRID_Y:
         raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)}"
                          f" k {tuple(k.shape)} v {tuple(v.shape)} (D in {HEAD_DIMS})")
-
-
-def launch_plan(B: int, H: int, Hkv: int, S: int) -> int:
-    """Warps per block (16 query rows each): 8 where 128-row blocks still
-    give every SM of the H100 one, so each K/V tile feeds 128 rows; else 4,
-    so a small grid spreads over twice the blocks."""
-    blocks = B * Hkv * -(-(H // Hkv) * S // 128)
-    return 8 if blocks >= _SMS else 4
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -104,17 +95,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise TypeError(f"flash_attention kernel takes bf16, got {q.dtype}")
     check_shapes(q, k, v)
-    B, H, S, _ = q.shape
-    return _launch(q, k, v, causal=causal, scale=scale, window=window,
-                   q_offset=q_offset, kv_len=kv_len,
-                   warps=launch_plan(B, H, k.shape[1], S))
-
-
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
-            scale: Optional[float], window: Optional[int], q_offset: int,
-            kv_len: Optional[int], warps: int) -> torch.Tensor:
-    """One launch of the kernel with `warps` per block, on inputs
-    flash_attention has checked."""
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     if scale is None:
@@ -128,11 +108,11 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     fn = lib.kj_flash_attention_bf16
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int64)] + \
-            [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
              B, H, Hkv, S, T, D, int(q_offset), int(T if kv_len is None else kv_len),
-             int(causal), int(window or 0), float(scale), int(warps),
+             int(causal), int(window or 0), float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "flash_attention")
     flash_attention.launches += 1

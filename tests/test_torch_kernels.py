@@ -20,7 +20,6 @@ from kjarni_tpu.ops.pallas.int4_matvec import int4_matvec as jax_int4_matvec
 from kjarni_tpu_torch.models.llama import pack_int4
 from kjarni_tpu_torch.ops.kernels.flash_attention import (HEAD_DIMS, check_shapes,
                                                           flash_attention)
-from kjarni_tpu_torch.ops.kernels.flash_attention import launch_plan as flash_plan
 from kjarni_tpu_torch.ops.kernels.int4_matvec import int4_matvec, launch_plan
 
 
@@ -126,15 +125,6 @@ class TestFlashShapes:
         q, k, v = (torch.empty(s, device="meta") for s in (q_shape, k_shape, v_shape))
         with pytest.raises(ValueError):
             check_shapes(q, k, v)
-
-    @pytest.mark.parametrize("B,H,Hkv,S,warps", [
-        (1, 32, 8, 1024, 8),     # Llama-1B prefill: 256 blocks of 128 rows
-        (1, 32, 32, 1024, 8),    # Phi-3.5-mini prefill
-        (1, 32, 8, 128, 4),      # a short prefill: 32 blocks of 128 rows
-        (2, 8, 2, 256, 4),
-    ])
-    def test_launch_plan(self, B, H, Hkv, S, warps):
-        assert flash_plan(B, H, Hkv, S) == warps
 
 
 def make_int4_case(B, K, N, g, seed=0):
