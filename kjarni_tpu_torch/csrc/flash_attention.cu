@@ -40,7 +40,6 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kBQ = 16 * kWarps;   // query rows per block
 constexpr int kThreads = 32 * kWarps;
-constexpr int kBK = 64;        // keys per K/V tile
 constexpr int kStages = 2;     // K/V ring depth
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -60,12 +59,156 @@ struct FlashParams {
   float scale_log2;            // softmax scale * log2(e)
 };
 
-template <int D>
+// mma.sync tiles: rows of D + 8 bf16. wgmma tiles: 128-byte swizzled column
+// blocks of 64 bf16 (D rounded up to 64), each [kBK rows][64], with the 16-byte
+// chunk c of row r stored at chunk c ^ (r % 8)
+template <int D, bool kWg>
 struct Tile {
-  static constexpr int kLD = D + 8;                  // shared row stride (bf16)
-  static constexpr int kElems = kBK * kLD;           // one K or V tile
+  static constexpr int kBK = 64;                     // keys per K/V tile
+  static constexpr int kLD = D + 8;                  // mma.sync row stride (bf16)
+  static constexpr int kCols = (D + 63) / 64 * 64;   // wgmma: columns held
+  static constexpr int kElems = kBK * (kWg ? kCols : kLD);   // one K or V tile
   static constexpr int kSmem = kStages * 2 * kElems * 2;
 };
+
+// ---- wgmma (warpgroup products, A from registers, B from shared memory) ----
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep reads of wgmma accumulators after the wait that completes them
+template <int M>
+__device__ __forceinline__ void fence_regs(float (&d)[M][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
+  }
+}
+// cp.async's writes to shared memory, made visible to wgmma's (async proxy) reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// matrix descriptor, 128-byte swizzle: start address; lbo, the byte offset
+// between 64-column blocks (N-major B); sbo, between 8-row groups (1024)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+// d[64 x N] (+)= a[64 x 16] (registers, the mma.sync A layout per warp) *
+// B[16 x N] (descriptor; kTransB: B is N-major); accumulate = 0 overwrites d
+template <int kTransB>
+__device__ __forceinline__ void wgmma_n32(float (&d)[4][4], const uint32_t (&a)[4],
+                                      uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+        "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_n64(float (&d)[8][4], const uint32_t (&a)[4],
+                                      uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+        "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_n96(float (&d)[12][4], const uint32_t (&a)[4],
+                                      uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+        "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_n128(float (&d)[16][4], const uint32_t (&a)[4],
+                                      uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+        "n"(kTransB));
+}
+
+template <int N, int kTransB>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 8][4], const uint32_t (&a)[4],
+                                           uint64_t desc_b, int accumulate) {
+  if constexpr (N == 32) wgmma_n32<kTransB>(d, a, desc_b, accumulate);
+  else if constexpr (N == 64) wgmma_n64<kTransB>(d, a, desc_b, accumulate);
+  else if constexpr (N == 96) wgmma_n96<kTransB>(d, a, desc_b, accumulate);
+  else wgmma_n128<kTransB>(d, a, desc_b, accumulate);
+}
 
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
@@ -73,58 +216,32 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// One warp's 16 rows against one K/V tile [k0, k0 + kBK) in shared memory:
-// scores, the mask (edge tiles only), the online-softmax update and acc += P V.
-// m is the running max of the raw scores; l a per-thread partial sum.
-template <int D, bool kMask>
-__device__ __forceinline__ void attend_tile(const __nv_bfloat16* ks,
-                                            const __nv_bfloat16* vs,
-                                            const uint32_t (&qa)[D / 16][4],
-                                            float (&acc)[D / 8][4], float (&m)[2],
-                                            float (&l)[2], int k0, const int (&pos)[2],
-                                            int kv_end, int causal, int window,
-                                            float scale_log2, int lane) {
-  constexpr int LD = Tile<D>::kLD;
-  constexpr int KS = D / 16;
-  constexpr int NT = D / 8;
-  constexpr int NJ = kBK / 8;
-  const int tig = lane % 4;
-
-  // S = Q K^T: ldmatrix.x4 gives the B fragments of n-tiles j and j + 1
-  float s[NJ][4];
+// The per-element causal / window / kv_len mask of one warp's scores.
+template <int NJ>
+__device__ __forceinline__ void mask_scores(float (&s)[NJ][4], int k0, const int (&pos)[2],
+                                            int kv_end, int causal, int window, int tig) {
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-  }
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-    for (int j = 0; j < NJ; j += 2) {
-      uint32_t b[4];
-      kj::ldmatrix_x4(b, ks + (j * 8 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 +
-                             ((lane / 8) % 2) * 8);
-      kj::mma_bf16(s[j], qa[kk], b[0], b[1]);
-      kj::mma_bf16(s[j + 1], qa[kk], b[2], b[3]);
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      const int key = k0 + j * 8 + 2 * tig + (e & 1);
+      bool keep = key < kv_end;
+      if (causal) keep = keep && key <= pos[i];
+      if (window > 0) keep = keep && key > pos[i] - window;
+      if (!keep) s[j][e] = kNegInf;
     }
   }
+}
 
-  if (kMask) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int key = k0 + j * 8 + 2 * tig + (e & 1);
-        bool keep = key < kv_end;
-        if (causal) keep = keep && key <= pos[i];
-        if (window > 0) keep = keep && key > pos[i] - window;
-        if (!keep) s[j][e] = kNegInf;
-      }
-    }
-  }
-
-  // online softmax in log2 units: p = 2^(s * scale_log2 - m * scale_log2)
+// The online-softmax update of one warp's 16 rows in log2 units,
+// p = 2^(s * scale_log2 - m * scale_log2): m is the running max of the raw
+// scores, l a per-thread partial sum, acc rescaled; returns P as the A
+// fragments of P V (the score C fragments of two n-tiles form one).
+template <int NJ, int NT>
+__device__ __forceinline__ void softmax_step(float (&s)[NJ][4], float (&m)[2], float (&l)[2],
+                                             float (&acc)[NT][4], float scale_log2,
+                                             uint32_t (&pa)[NJ / 2][4]) {
   float mx[2] = {m[0], m[1]};
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
@@ -162,35 +279,126 @@ __device__ __forceinline__ void attend_tile(const __nv_bfloat16* ks,
     acc[n][2] *= corr[1];
     acc[n][3] *= corr[1];
   }
+#pragma unroll
+  for (int kt = 0; kt < NJ / 2; ++kt) {
+    pa[kt][0] = kj::pack_bf16(s[2 * kt][0], s[2 * kt][1]);
+    pa[kt][1] = kj::pack_bf16(s[2 * kt][2], s[2 * kt][3]);
+    pa[kt][2] = kj::pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]);
+    pa[kt][3] = kj::pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3]);
+  }
+}
 
-  // acc += P V: the score C fragments of two n-tiles form one A fragment;
-  // ldmatrix.x4.trans gives the B fragments of output n-tiles n and n + 1
+// One warp's 16 rows against one K/V tile [k0, k0 + kBK) in shared memory,
+// with mma.sync: scores, the mask (edge tiles only), the softmax update and
+// acc += P V.
+template <int D, bool kMask>
+__device__ __forceinline__ void attend_tile(const __nv_bfloat16* ks,
+                                            const __nv_bfloat16* vs,
+                                            const uint32_t (&qa)[D / 16][4],
+                                            float (&acc)[D / 8][4], float (&m)[2],
+                                            float (&l)[2], int k0, const int (&pos)[2],
+                                            int kv_end, int causal, int window,
+                                            float scale_log2, int lane) {
+  constexpr int kBK = Tile<D, false>::kBK;
+  constexpr int LD = Tile<D, false>::kLD;
+  constexpr int KS = D / 16;
+  constexpr int NT = D / 8;
+  constexpr int NJ = kBK / 8;
+
+  // S = Q K^T: ldmatrix.x4 gives the B fragments of n-tiles j and j + 1
+  float s[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  }
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+    for (int j = 0; j < NJ; j += 2) {
+      uint32_t b[4];
+      kj::ldmatrix_x4(b, ks + (j * 8 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 +
+                             ((lane / 8) % 2) * 8);
+      kj::mma_bf16(s[j], qa[kk], b[0], b[1]);
+      kj::mma_bf16(s[j + 1], qa[kk], b[2], b[3]);
+    }
+  }
+  if (kMask) mask_scores(s, k0, pos, kv_end, causal, window, lane % 4);
+  uint32_t pa[NJ / 2][4];
+  softmax_step(s, m, l, acc, scale_log2, pa);
+
+  // acc += P V: ldmatrix.x4.trans gives the B fragments of output n-tiles n
+  // and n + 1
 #pragma unroll
   for (int kt = 0; kt < kBK / 16; ++kt) {
-    uint32_t pa[4];
-    pa[0] = kj::pack_bf16(s[2 * kt][0], s[2 * kt][1]);
-    pa[1] = kj::pack_bf16(s[2 * kt][2], s[2 * kt][3]);
-    pa[2] = kj::pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]);
-    pa[3] = kj::pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3]);
 #pragma unroll
     for (int n = 0; n < NT; n += 2) {
       uint32_t b[4];
       kj::ldmatrix_x4_trans(b, vs + (kt * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD +
                                    (n + lane / 16) * 8);
-      kj::mma_bf16(acc[n], pa, b[0], b[1]);
-      kj::mma_bf16(acc[n + 1], pa, b[2], b[3]);
+      kj::mma_bf16(acc[n], pa[kt], b[0], b[1]);
+      kj::mma_bf16(acc[n + 1], pa[kt], b[2], b[3]);
     }
   }
 }
 
+// The same with wgmma, issued by the block's whole warpgroup: S = Q K^T in
+// D/16 products of m64n64k16 (K k-major), then acc += P V in kBK/16 products
+// of m64nDk16 (V n-major), both from the swizzled tiles. `mask` is the warp's
+// own.
 template <int D>
+__device__ __forceinline__ void attend_tile_wg(const __nv_bfloat16* ks,
+                                               const __nv_bfloat16* vs,
+                                               const uint32_t (&qa)[D / 16][4],
+                                               float (&acc)[D / 8][4], float (&m)[2],
+                                               float (&l)[2], bool mask, int k0,
+                                               const int (&pos)[2], int kv_end, int causal,
+                                               int window, float scale_log2, int lane) {
+  constexpr int kBK = Tile<D, true>::kBK;
+  constexpr int KS = D / 16;
+  constexpr int NJ = kBK / 8;
+  const uint32_t kb = kj::smem_addr(ks);
+  const uint32_t vb = kj::smem_addr(vs);
+  float s[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  }
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    // k-step kk: 32 bytes of column block kk / 4 (the swizzle is applied to
+    // the address, so the start moves by whole chunks)
+    wgmma_bf16<kBK, 0>(s, qa[kk], gmma_desc(kb + (kk / 4) * kBK * 128 + (kk % 4) * 32, 16,
+                                            1024), kk);
+  }
+  wg_commit_wait();
+  fence_regs(s);
+  if (mask) mask_scores(s, k0, pos, kv_end, causal, window, lane % 4);
+  uint32_t pa[NJ / 2][4];
+  softmax_step(s, m, l, acc, scale_log2, pa);
+  fence_regs(acc);
+  wg_fence();
+#pragma unroll
+  for (int kt = 0; kt < kBK / 16; ++kt) {
+    // keys 16 kt .. 16 kt + 15: two 8-row groups of every column block
+    wgmma_bf16<D, 1>(acc, pa[kt], gmma_desc(vb + kt * 2048, kBK * 128, 1024), 1);
+  }
+  wg_commit_wait();
+  fence_regs(acc);
+}
+
+template <int D, bool kWg>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p) {
   constexpr int KS = D / 16;         // k-steps of Q K^T
   constexpr int NT = D / 8;          // n-tiles of the output
-  constexpr int LD = Tile<D>::kLD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);   // [kStages][kBK][LD]
-  __nv_bfloat16* Vs = Ks + kStages * Tile<D>::kElems;
+  constexpr int kBK = Tile<D, kWg>::kBK;
+  constexpr int LD = Tile<D, kWg>::kLD;
+  constexpr int kElems = Tile<D, kWg>::kElems;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);   // [kStages][kElems]
+  __nv_bfloat16* Vs = Ks + kStages * kElems;
 
   const int G = p.H / p.Hkv;
   const int rows = G * p.S;
@@ -224,17 +432,19 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p
     constexpr int VPR = D / 8;
     static_assert(kBK * VPR % kThreads == 0, "whole copies per thread");
     const int k0 = k_lo + t * kBK;
-    __nv_bfloat16* ks = Ks + stage * Tile<D>::kElems;
-    __nv_bfloat16* vs = Vs + stage * Tile<D>::kElems;
+    __nv_bfloat16* ks = Ks + stage * kElems;
+    __nv_bfloat16* vs = Vs + stage * kElems;
 #pragma unroll
     for (int it = 0; it < kBK * VPR / kThreads; ++it) {
       const int idx = it * kThreads + threadIdx.x;
       const int rr = idx / VPR;
       const int cc = (idx % VPR) * 8;
+      const int dst = kWg ? (cc / 64) * kBK * 64 + rr * 64 + (((cc % 64) / 8) ^ (rr % 8)) * 8
+                          : rr * LD + cc;
       const bool in = k0 + rr < kv_end;
       const int64_t key = in ? k0 + rr : 0;
-      kj::cp_async16(ks + rr * LD + cc, kbase + key * k_ss + cc, in);
-      kj::cp_async16(vs + rr * LD + cc, vbase + key * v_ss + cc, in);
+      kj::cp_async16(ks + dst, kbase + key * k_ss + cc, in);
+      kj::cp_async16(vs + dst, vbase + key * v_ss + cc, in);
     }
   };
 #pragma unroll
@@ -300,15 +510,23 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p
     // tile t has landed for every thread, and every warp is done with the
     // stage that tile t + kStages - 1 overwrites
     kj::cp_async_wait<kStages - 2>();
+    if (kWg) fence_proxy_async();
     __syncthreads();
     if (t + kStages - 1 < ntiles) load_tile(t + kStages - 1, (t + kStages - 1) % kStages);
     kj::cp_async_commit();
 
     const int k0 = k_lo + t * kBK;
+    const __nv_bfloat16* ks = Ks + (t % kStages) * kElems;
+    const __nv_bfloat16* vs = Vs + (t % kStages) * kElems;
+    const bool interior = k0 >= full_lo && k0 + kBK <= full_hi;
+    if constexpr (kWg) {
+      // the warpgroup's products take every warp, whatever its rows need
+      attend_tile_wg<D>(ks, vs, qa, acc, m, l, !interior, k0, pos, kv_end, p.causal,
+                        p.window, p.scale_log2, lane);
+      continue;
+    }
     if (!wvalid || k0 >= w_hi || k0 + kBK <= w_lo) continue;
-    const __nv_bfloat16* ks = Ks + (t % kStages) * Tile<D>::kElems;
-    const __nv_bfloat16* vs = Vs + (t % kStages) * Tile<D>::kElems;
-    if (k0 >= full_lo && k0 + kBK <= full_hi) {
+    if (interior) {
       attend_tile<D, false>(ks, vs, qa, acc, m, l, k0, pos, kv_end, p.causal, p.window,
                             p.scale_log2, lane);
     } else {
@@ -336,28 +554,34 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p
   }
 }
 
-template <int D>
+template <int D, bool kWg>
 cudaError_t launch(const FlashParams& p, int B, cudaStream_t stream) {
-  constexpr int kSmem = Tile<D>::kSmem;
+  constexpr int kSmem = Tile<D, kWg>::kSmem;
   // above 48 KB a block's dynamic shared memory must be asked for, once
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      flash_fwd_kernel<D, kWg>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (attr != cudaSuccess) return attr;
   const int rows = (p.H / p.Hkv) * p.S;
   const dim3 grid(B * p.Hkv, (rows + kBQ - 1) / kBQ);
-  flash_fwd_kernel<D><<<grid, kThreads, kSmem, stream>>>(p);
+  flash_fwd_kernel<D, kWg><<<grid, kThreads, kSmem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_design(const FlashParams& p, int B, int wgmma, cudaStream_t stream) {
+  return wgmma ? launch<D, true>(p, B, stream) : launch<D, false>(p, B, stream);
 }
 
 }  // namespace
 
 // strides: 12 int64 element strides (b, h, s) of q, k, v, o in that order.
-// Returns a cudaError_t; 0 means the launch was accepted.
+// wgmma: 1 takes the warpgroup design, 0 the mma.sync one. Returns a
+// cudaError_t; 0 means the launch was accepted.
 extern "C" int kj_flash_attention_bf16(const void* q, const void* k, const void* v,
                                        void* o, const int64_t* strides, int B, int H,
                                        int Hkv, int S, int T, int D, int q_offset,
                                        int kv_len, int causal, int window, float scale,
-                                       void* stream) {
+                                       int wgmma, void* stream) {
   FlashParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -373,10 +597,10 @@ extern "C" int kj_flash_attention_bf16(const void* q, const void* k, const void*
   p.scale_log2 = scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch<32>(p, B, st);
-    case 64: return launch<64>(p, B, st);
-    case 96: return launch<96>(p, B, st);
-    case 128: return launch<128>(p, B, st);
+    case 32: return launch_design<32>(p, B, wgmma, st);
+    case 64: return launch_design<64>(p, B, wgmma, st);
+    case 96: return launch_design<96>(p, B, wgmma, st);
+    case 128: return launch_design<128>(p, B, wgmma, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
