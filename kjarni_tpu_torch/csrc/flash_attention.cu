@@ -11,11 +11,11 @@
 // byte at S=T=1024, D=64 -- above the card's ~295 bf16 flops/byte ridge, so
 // the tensor cores (and the exp2 unit beside them) are the limit. The design
 // keeps the [S,T] scores out of device memory and keeps the tensor cores fed:
-//   * one block = 4 warps of 16 query rows each; each warp keeps its running
-//     max m, sum l and the [16, D] accumulator in registers, and its Q
-//     fragments for the whole loop. At 121-247 registers (by D) 2-3 blocks
-//     share an SM; 8-warp blocks (one per SM) were slower at 7 of the 9
-//     phase-2 shapes;
+//   * one block = one warpgroup (4 warps) of 64 query rows, 16 per warp; each
+//     warp keeps its running max m, sum l and the [16, D] accumulator in
+//     registers, and its Q fragments for the whole loop. 2-3 blocks share an
+//     SM (96-217 registers by D; 4 blocks at D <= 64 under a 128-register cap
+//     spilled and lost at the Llama shapes);
 //   * GQA is folded into the rows: the G query heads of one KV head are rows
 //     s*G + g (position-major), so one K/V tile in shared memory serves all G
 //     heads, K/V are never repeated, and a block's causal band stays narrow;
@@ -23,13 +23,14 @@
 //     by cp.async: tile j+1 is in flight while tile j is in the tensor cores,
 //     behind one barrier per tile. Keys past kv_len (or T) are zero-filled by
 //     the copy, so nothing is padded in memory;
-//   * rows are padded to D + 8 bf16, so ldmatrix.x4 (K, the B operand of
-//     Q K^T) and ldmatrix.x4.trans (V, the B operand of P V) read them
-//     without bank conflicts: one instruction per two n-tiles;
-//   * each warp sorts its tiles: skipped (no row of the warp keeps a key),
-//     interior (every row keeps every key: no mask at all) or edge (the
-//     per-element causal / window / kv_len mask). The softmax scale is folded
-//     into the exp2 argument: one FFMA per score;
+//   * the warpgroup issues S = Q K^T and acc += P V as wgmma products, with Q
+//     and P as register operands and K/V read through descriptors from tiles
+//     stored in 128-byte-swizzled blocks of 64 columns, without bank
+//     conflicts;
+//   * each warp sorts its tiles into interior ones (every row keeps every key:
+//     no mask at all) and edge ones (the per-element causal / window / kv_len
+//     mask). The softmax scale is folded into the exp2 argument: one FFMA per
+//     score;
 //   * under causal the row blocks run heaviest first (the last rows, which
 //     attend the most keys), so the light blocks fill the tail.
 // Rows whose every key is masked (none on the generation path) give zeros.
@@ -37,9 +38,9 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kBQ = 16 * kWarps;   // query rows per block
-constexpr int kThreads = 32 * kWarps;
+constexpr int kBQ = 64;        // query rows per block: one warpgroup, 16 per warp
+constexpr int kThreads = 128;
+constexpr int kBK = 64;        // keys per K/V tile
 constexpr int kStages = 2;     // K/V ring depth
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -59,17 +60,21 @@ struct FlashParams {
   float scale_log2;            // softmax scale * log2(e)
 };
 
-// mma.sync tiles: rows of D + 8 bf16. wgmma tiles: 128-byte swizzled column
-// blocks of 64 bf16 (D rounded up to 64), each [kBK rows][64], with the 16-byte
-// chunk c of row r stored at chunk c ^ (r % 8)
-template <int D, bool kWg>
+// A K or V tile in shared memory: 128-byte swizzled column blocks of 64 bf16
+// (D rounded up to 64), each [kBK rows][64], with the 16-byte chunk c of row r
+// stored at chunk c ^ (r % 8), as wgmma's 128B swizzle mode reads it
+template <int D>
 struct Tile {
-  static constexpr int kBK = 64;                     // keys per K/V tile
-  static constexpr int kLD = D + 8;                  // mma.sync row stride (bf16)
-  static constexpr int kCols = (D + 63) / 64 * 64;   // wgmma: columns held
-  static constexpr int kElems = kBK * (kWg ? kCols : kLD);   // one K or V tile
+  static constexpr int kCols = (D + 63) / 64 * 64;
+  static constexpr int kElems = kBK * kCols;
   static constexpr int kSmem = kStages * 2 * kElems * 2;
 };
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // ---- wgmma (warpgroup products, A from registers, B from shared memory) ----
 
@@ -101,15 +106,16 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint3
          (1ull << 62);
 }
 
-// d[64 x N] (+)= a[64 x 16] (registers, the mma.sync A layout per warp) *
-// B[16 x N] (descriptor; kTransB: B is N-major); accumulate = 0 overwrites d
+// d[64 x N] (+)= a[64 x 16] * B[16 x N]: a in registers, each warp's 16 rows in
+// the mma.sync A layout; B through its descriptor (kTransB: B is N-major);
+// accumulate = 0 overwrites d, whose per-warp layout is mma.sync's C fragments
 template <int kTransB>
 __device__ __forceinline__ void wgmma_n32(float (&d)[4][4], const uint32_t (&a)[4],
                                       uint64_t desc_b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{" 
+      "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
       "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
@@ -126,7 +132,7 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[8][4], const uint32_t (&a)[
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{" 
+      "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
@@ -148,7 +154,7 @@ __device__ __forceinline__ void wgmma_n96(float (&d)[12][4], const uint32_t (&a)
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
-      "{" 
+      "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
@@ -175,7 +181,7 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[16][4], const uint32_t (&a
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{" 
+      "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
@@ -208,12 +214,6 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 8][4], const uint32_t 
   else if constexpr (N == 64) wgmma_n64<kTransB>(d, a, desc_b, accumulate);
   else if constexpr (N == 96) wgmma_n96<kTransB>(d, a, desc_b, accumulate);
   else wgmma_n128<kTransB>(d, a, desc_b, accumulate);
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // The per-element causal / window / kv_len mask of one warp's scores.
@@ -288,74 +288,17 @@ __device__ __forceinline__ void softmax_step(float (&s)[NJ][4], float (&m)[2], f
   }
 }
 
-// One warp's 16 rows against one K/V tile [k0, k0 + kBK) in shared memory,
-// with mma.sync: scores, the mask (edge tiles only), the softmax update and
-// acc += P V.
-template <int D, bool kMask>
-__device__ __forceinline__ void attend_tile(const __nv_bfloat16* ks,
-                                            const __nv_bfloat16* vs,
+// One tile [k0, k0 + kBK) of K/V in shared memory against the warpgroup's 64
+// rows: S = Q K^T as D/16 products of m64n64k16 (K k-major), the warp's mask
+// (edge tiles only), the softmax update, then acc += P V as kBK/16 products of
+// m64nDk16 (V n-major).
+template <int D>
+__device__ __forceinline__ void attend_tile(const __nv_bfloat16* ks, const __nv_bfloat16* vs,
                                             const uint32_t (&qa)[D / 16][4],
                                             float (&acc)[D / 8][4], float (&m)[2],
-                                            float (&l)[2], int k0, const int (&pos)[2],
-                                            int kv_end, int causal, int window,
-                                            float scale_log2, int lane) {
-  constexpr int kBK = Tile<D, false>::kBK;
-  constexpr int LD = Tile<D, false>::kLD;
-  constexpr int KS = D / 16;
-  constexpr int NT = D / 8;
-  constexpr int NJ = kBK / 8;
-
-  // S = Q K^T: ldmatrix.x4 gives the B fragments of n-tiles j and j + 1
-  float s[NJ][4];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-  }
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-    for (int j = 0; j < NJ; j += 2) {
-      uint32_t b[4];
-      kj::ldmatrix_x4(b, ks + (j * 8 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 +
-                             ((lane / 8) % 2) * 8);
-      kj::mma_bf16(s[j], qa[kk], b[0], b[1]);
-      kj::mma_bf16(s[j + 1], qa[kk], b[2], b[3]);
-    }
-  }
-  if (kMask) mask_scores(s, k0, pos, kv_end, causal, window, lane % 4);
-  uint32_t pa[NJ / 2][4];
-  softmax_step(s, m, l, acc, scale_log2, pa);
-
-  // acc += P V: ldmatrix.x4.trans gives the B fragments of output n-tiles n
-  // and n + 1
-#pragma unroll
-  for (int kt = 0; kt < kBK / 16; ++kt) {
-#pragma unroll
-    for (int n = 0; n < NT; n += 2) {
-      uint32_t b[4];
-      kj::ldmatrix_x4_trans(b, vs + (kt * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD +
-                                   (n + lane / 16) * 8);
-      kj::mma_bf16(acc[n], pa[kt], b[0], b[1]);
-      kj::mma_bf16(acc[n + 1], pa[kt], b[2], b[3]);
-    }
-  }
-}
-
-// The same with wgmma, issued by the block's whole warpgroup: S = Q K^T in
-// D/16 products of m64n64k16 (K k-major), then acc += P V in kBK/16 products
-// of m64nDk16 (V n-major), both from the swizzled tiles. `mask` is the warp's
-// own.
-template <int D>
-__device__ __forceinline__ void attend_tile_wg(const __nv_bfloat16* ks,
-                                               const __nv_bfloat16* vs,
-                                               const uint32_t (&qa)[D / 16][4],
-                                               float (&acc)[D / 8][4], float (&m)[2],
-                                               float (&l)[2], bool mask, int k0,
-                                               const int (&pos)[2], int kv_end, int causal,
-                                               int window, float scale_log2, int lane) {
-  constexpr int kBK = Tile<D, true>::kBK;
-  constexpr int KS = D / 16;
+                                            float (&l)[2], bool mask, int k0,
+                                            const int (&pos)[2], int kv_end, int causal,
+                                            int window, float scale_log2, int tig) {
   constexpr int NJ = kBK / 8;
   const uint32_t kb = kj::smem_addr(ks);
   const uint32_t vb = kj::smem_addr(vs);
@@ -367,7 +310,7 @@ __device__ __forceinline__ void attend_tile_wg(const __nv_bfloat16* ks,
   }
   wg_fence();
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
+  for (int kk = 0; kk < D / 16; ++kk) {
     // k-step kk: 32 bytes of column block kk / 4 (the swizzle is applied to
     // the address, so the start moves by whole chunks)
     wgmma_bf16<kBK, 0>(s, qa[kk], gmma_desc(kb + (kk / 4) * kBK * 128 + (kk % 4) * 32, 16,
@@ -375,7 +318,7 @@ __device__ __forceinline__ void attend_tile_wg(const __nv_bfloat16* ks,
   }
   wg_commit_wait();
   fence_regs(s);
-  if (mask) mask_scores(s, k0, pos, kv_end, causal, window, lane % 4);
+  if (mask) mask_scores(s, k0, pos, kv_end, causal, window, tig);
   uint32_t pa[NJ / 2][4];
   softmax_step(s, m, l, acc, scale_log2, pa);
   fence_regs(acc);
@@ -389,13 +332,13 @@ __device__ __forceinline__ void attend_tile_wg(const __nv_bfloat16* ks,
   fence_regs(acc);
 }
 
-template <int D, bool kWg>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p) {
+// at D = 96 the register cap (<= 170) lets a third block share the SM
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 96 ? 3 : 1)
+    flash_fwd_kernel(const FlashParams p) {
   constexpr int KS = D / 16;         // k-steps of Q K^T
   constexpr int NT = D / 8;          // n-tiles of the output
-  constexpr int kBK = Tile<D, kWg>::kBK;
-  constexpr int LD = Tile<D, kWg>::kLD;
-  constexpr int kElems = Tile<D, kWg>::kElems;
+  constexpr int kElems = Tile<D>::kElems;
   extern __shared__ __align__(1024) unsigned char smem[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);   // [kStages][kElems]
   __nv_bfloat16* Vs = Ks + kStages * kElems;
@@ -426,8 +369,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p
   const __nv_bfloat16* kbase = p.k + b * p.k_sb + hkv * p.k_sh;
   const __nv_bfloat16* vbase = p.v + b * p.v_sb + hkv * p.v_sh;
   const int64_t k_ss = p.k_ss, v_ss = p.v_ss;
-  // tile t of the range into ring stage `stage`, 16-byte copies; keys past
-  // kv_end are zero-filled from a valid address (row 0)
+  // tile t of the range into ring stage `stage`, 16-byte copies to their
+  // swizzled places; keys past kv_end are zero-filled from a valid address
+  // (row 0)
   auto load_tile = [&](int t, int stage) {
     constexpr int VPR = D / 8;
     static_assert(kBK * VPR % kThreads == 0, "whole copies per thread");
@@ -439,8 +383,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p
       const int idx = it * kThreads + threadIdx.x;
       const int rr = idx / VPR;
       const int cc = (idx % VPR) * 8;
-      const int dst = kWg ? (cc / 64) * kBK * 64 + rr * 64 + (((cc % 64) / 8) ^ (rr % 8)) * 8
-                          : rr * LD + cc;
+      const int dst = (cc / 64) * kBK * 64 + rr * 64 + (((cc % 64) / 8) ^ (rr % 8)) * 8;
       const bool in = k0 + rr < kv_end;
       const int64_t key = in ? k0 + rr : 0;
       kj::cp_async16(ks + dst, kbase + key * k_ss + cc, in);
@@ -484,17 +427,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p
     }
   }
 
-  // the warp's own key range [w_lo, w_hi), and the keys every one of its
-  // rows keeps, [full_lo, full_hi)
-  const bool wvalid = wr0 < rows;
+  // the keys every row of this warp keeps: [full_lo, full_hi)
   const int wpos_lo = p.q_offset + wr0 / G;
   const int wpos_hi = p.q_offset + (min(wr0 + 16, rows) - 1) / G;
-  int w_hi = kv_end, full_hi = kv_end;
-  if (p.causal) {
-    w_hi = min(w_hi, wpos_hi + 1);
-    full_hi = min(full_hi, wpos_lo + 1);
-  }
-  const int w_lo = p.window > 0 ? wpos_lo - p.window + 1 : 0;
+  int full_hi = kv_end;
+  if (p.causal) full_hi = min(full_hi, wpos_lo + 1);
   const int full_lo = p.window > 0 ? wpos_hi - p.window + 1 : 0;
 
   float m[2] = {kNegInf, kNegInf};
@@ -510,29 +447,16 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p
     // tile t has landed for every thread, and every warp is done with the
     // stage that tile t + kStages - 1 overwrites
     kj::cp_async_wait<kStages - 2>();
-    if (kWg) fence_proxy_async();
+    fence_proxy_async();
     __syncthreads();
     if (t + kStages - 1 < ntiles) load_tile(t + kStages - 1, (t + kStages - 1) % kStages);
     kj::cp_async_commit();
 
+    // the warpgroup's products take every warp, whatever its own rows need
     const int k0 = k_lo + t * kBK;
-    const __nv_bfloat16* ks = Ks + (t % kStages) * kElems;
-    const __nv_bfloat16* vs = Vs + (t % kStages) * kElems;
     const bool interior = k0 >= full_lo && k0 + kBK <= full_hi;
-    if constexpr (kWg) {
-      // the warpgroup's products take every warp, whatever its rows need
-      attend_tile_wg<D>(ks, vs, qa, acc, m, l, !interior, k0, pos, kv_end, p.causal,
-                        p.window, p.scale_log2, lane);
-      continue;
-    }
-    if (!wvalid || k0 >= w_hi || k0 + kBK <= w_lo) continue;
-    if (interior) {
-      attend_tile<D, false>(ks, vs, qa, acc, m, l, k0, pos, kv_end, p.causal, p.window,
-                            p.scale_log2, lane);
-    } else {
-      attend_tile<D, true>(ks, vs, qa, acc, m, l, k0, pos, kv_end, p.causal, p.window,
-                           p.scale_log2, lane);
-    }
+    attend_tile<D>(Ks + (t % kStages) * kElems, Vs + (t % kStages) * kElems, qa, acc, m, l,
+                   !interior, k0, pos, kv_end, p.causal, p.window, p.scale_log2, tig);
   }
   kj::cp_async_wait<0>();
 
@@ -554,34 +478,28 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashParams p
   }
 }
 
-template <int D, bool kWg>
+template <int D>
 cudaError_t launch(const FlashParams& p, int B, cudaStream_t stream) {
-  constexpr int kSmem = Tile<D, kWg>::kSmem;
+  constexpr int kSmem = Tile<D>::kSmem;
   // above 48 KB a block's dynamic shared memory must be asked for, once
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, kWg>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (attr != cudaSuccess) return attr;
   const int rows = (p.H / p.Hkv) * p.S;
   const dim3 grid(B * p.Hkv, (rows + kBQ - 1) / kBQ);
-  flash_fwd_kernel<D, kWg><<<grid, kThreads, kSmem, stream>>>(p);
+  flash_fwd_kernel<D><<<grid, kThreads, kSmem, stream>>>(p);
   return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_design(const FlashParams& p, int B, int wgmma, cudaStream_t stream) {
-  return wgmma ? launch<D, true>(p, B, stream) : launch<D, false>(p, B, stream);
 }
 
 }  // namespace
 
 // strides: 12 int64 element strides (b, h, s) of q, k, v, o in that order.
-// wgmma: 1 takes the warpgroup design, 0 the mma.sync one. Returns a
-// cudaError_t; 0 means the launch was accepted.
+// Returns a cudaError_t; 0 means the launch was accepted.
 extern "C" int kj_flash_attention_bf16(const void* q, const void* k, const void* v,
                                        void* o, const int64_t* strides, int B, int H,
                                        int Hkv, int S, int T, int D, int q_offset,
                                        int kv_len, int causal, int window, float scale,
-                                       int wgmma, void* stream) {
+                                       void* stream) {
   FlashParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -597,10 +515,10 @@ extern "C" int kj_flash_attention_bf16(const void* q, const void* k, const void*
   p.scale_log2 = scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch_design<32>(p, B, wgmma, st);
-    case 64: return launch_design<64>(p, B, wgmma, st);
-    case 96: return launch_design<96>(p, B, wgmma, st);
-    case 128: return launch_design<128>(p, B, wgmma, st);
+    case 32: return launch<32>(p, B, st);
+    case 64: return launch<64>(p, B, st);
+    case 96: return launch<96>(p, B, st);
+    case 128: return launch<128>(p, B, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

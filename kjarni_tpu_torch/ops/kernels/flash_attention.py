@@ -22,7 +22,6 @@ NEG_INF = -1e30  # the kernel's mask value, as in the Pallas kernel
 HEAD_DIMS = (32, 64, 96, 128)
 _BLOCK_ROWS = 64        # query rows per block (4 warps x 16)
 _MAX_GRID_Y = 65535     # row blocks per (batch, KV head)
-WGMMA = True            # the warpgroup design instead of the mma.sync one
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -109,11 +108,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fn = lib.kj_flash_attention_bf16
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int64)] + \
-            [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
              B, H, Hkv, S, T, D, int(q_offset), int(T if kv_len is None else kv_len),
-             int(causal), int(window or 0), float(scale), int(WGMMA),
+             int(causal), int(window or 0), float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "flash_attention")
     flash_attention.launches += 1
