@@ -251,12 +251,22 @@ struct GemmTile {
   static constexpr int kSmem = kStages * kStageBytes + 4 * kWTile * 2;  // + 2 decoded buffers
 };
 
-// cp.async and ldmatrix, shared with the flash kernel (mma.cuh)
+// cp.async, shared with the flash kernel (mma.cuh)
 using kj::cp_async16;
 using kj::cp_async_commit;
 using kj::cp_async_wait;
-using kj::ldmatrix_x4;
-using kj::ldmatrix_x4_trans;
+using kj::smem_addr;
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
 
 // one stage: x[m0.., rs..rs+kBKP) and x[m0.., K2+rs..) into Xlo / Xhi, the
 // packed rows [rs, rs+kBKP) x columns [n0, n0+kBN) into W4, and the scale rows

@@ -1,4 +1,4 @@
-// Warp-level bf16 tensor-core helpers shared by the port's kernels.
+// Warp-level bf16 tensor-core and cp.async helpers shared by the port's kernels.
 //
 // mma.sync m16n8k16 (bf16 in, f32 accumulate). Fragment layout, with
 // gid = lane / 4 and tig = lane % 4 (PTX ISA, "Matrix Fragments for mma.m16n8k16"):
@@ -53,20 +53,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8x8 b16 matrices from shared memory; lane l gives the address of row
-// l % 8 of matrix l / 8, and r[i] receives matrix i's fragment: row lane / 4,
-// columns 2 (lane % 4) .. +1 (with .trans: column lane / 4, rows 2 (lane % 4) .. +1)
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
 }
 
 }  // namespace kj
