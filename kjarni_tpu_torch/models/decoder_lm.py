@@ -38,9 +38,9 @@ DEFAULT_MAX_CONTEXT = 4096
 # Cache-reuse prefill takes flash above this many bytes of f32 scores
 # (4 * heads * bucket * (reused + bucket)). The JAX package's 2 GB gate was
 # tuned on a TPU. On an H100 (chip_smoke.py phase 2, Llama-3.2-1B width, 4096
-# cache slots) flash wins at both ends of what reaches the gate: 0.060 ms
+# cache slots) flash wins at both ends of what reaches the gate: 0.045 ms
 # against 3.19 ms for the materialized attention at a 1024 bucket over 765
-# reused slots (234 MB of scores), 0.014 ms against 1.60 ms at a 512 bucket
+# reused slots (234 MB of scores), 0.012 ms against 1.60 ms at a 512 bucket
 # over 16. The materialized path reads the whole cache, so no crossover lies
 # above the 512-token flash bucket, and every reuse prefill there takes flash.
 REUSE_FLASH_MIN_SCORE_BYTES = 0
