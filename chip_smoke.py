@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive kjarni_tpu_torch's generation path on one CUDA card and check it.
+"""Drive kjarni_tpu_torch's generation and embed paths on one CUDA card and
+check them.
 
-    python3 chip_smoke.py [--phases env,kernels,bf16,int4] [--root DIR]
+    python3 chip_smoke.py [--phases env,kernels,bf16,int4,embed] [--root DIR]
 
 --root DIR imports kjarni_tpu_torch from another checkout (an older commit,
 say) instead of this one, to time its kernels on these same cases.
@@ -36,8 +37,22 @@ Phases, in order (all by default); any failure raises and exits non-zero:
    the same forward with the kernels' plain versions.
 4. int4: the same with quantize="int4"; checks 113 int4 launches per forward
    (7 projections x 16 layers + the lm_head).
+5. embed: four encoder model dirs at the public config.json widths of the
+   registry's minilm-l6-v2, minilm-l6-v2-cross-encoder, distilbert-sentiment
+   and nomic-embed-text (random f32 weights from a seeded generator, a
+   BERT-template word tokenizer over the whole vocabulary), each driven
+   through its task API on the card (Embedder, Reranker, Classifier,
+   Embedder). Checks the bf16 task output against the same model in f32 on
+   the card, the f32 hidden states on the card against the f32 forward on
+   the CPU, and that neither hand-written kernel launched (the encoder runs
+   plain torch ops, as the JAX package runs XLA ones). One line per model:
+   the checks' errors, texts/s of 256 texts at seq 64 (tokenizer included,
+   median of 5 calls), device ms of one B256 S64 forward (CUDA-graph
+   replay), device busy share and top kernels of one profiled call, peak
+   memory; for MiniLM also plain against packed encode at S = 64 and 32.
+   `--phases env,embed` runs it alone.
 
-After phase 4 come three lines: a JSON object {"kernels": [...]} (per kernel
+At the end come three lines: a JSON object {"kernels": [...]} (per kernel
 the launches of phases 3-4, max_abs_err over its cases, and ms / plain_ms /
 bound_ms / library_ms -- for flash one launch at the Llama-1B prefill shape,
 for int4 the 113 launches of one decoded token; also printed before it: the 7
@@ -79,6 +94,45 @@ LLAMA_1B = {
 }
 INT4_PER_FORWARD = 7 * LLAMA_1B["num_hidden_layers"] + 1
 FLASH_PER_PREFILL = LLAMA_1B["num_hidden_layers"]
+
+# the public config.json values (the keys the loader reads) of the registry's
+# encoder models; all four use bert-base-uncased's 30,522-token vocabulary
+MINILM_L6 = {
+    "model_type": "bert", "architectures": ["BertModel"], "vocab_size": 30522,
+    "hidden_size": 384, "num_hidden_layers": 6, "num_attention_heads": 12,
+    "intermediate_size": 1536, "hidden_act": "gelu", "max_position_embeddings": 512,
+    "type_vocab_size": 2, "layer_norm_eps": 1e-12, "pad_token_id": 0,
+}
+MINILM_CROSS = {**MINILM_L6, "architectures": ["BertForSequenceClassification"],
+                "id2label": {"0": "LABEL_0"}, "label2id": {"LABEL_0": 0}}
+DISTILBERT_SST2 = {
+    "model_type": "distilbert", "architectures": ["DistilBertForSequenceClassification"],
+    "vocab_size": 30522, "dim": 768, "n_layers": 6, "n_heads": 12, "hidden_dim": 3072,
+    "activation": "gelu", "max_position_embeddings": 512, "pad_token_id": 0,
+    "finetuning_task": "sst-2", "id2label": {"0": "NEGATIVE", "1": "POSITIVE"},
+    "label2id": {"NEGATIVE": 0, "POSITIVE": 1},
+}
+NOMIC_V15 = {
+    "model_type": "nomic_bert", "architectures": ["NomicBertModel"], "vocab_size": 30528,
+    "n_embd": 768, "n_layer": 12, "n_head": 12, "n_inner": 3072, "n_positions": 8192,
+    "rotary_emb_base": 1000, "rotary_emb_fraction": 1.0, "activation_function": "swiglu",
+    "layer_norm_epsilon": 1e-12, "type_vocab_size": 2, "qkv_proj_bias": False,
+    "mlp_fc1_bias": False, "mlp_fc2_bias": False, "prenorm": False,
+}
+# (registry name, public source, config, task API)
+ENCODERS = (
+    ("minilm-l6-v2", "sentence-transformers/all-MiniLM-L6-v2", MINILM_L6, "embed"),
+    ("minilm-l6-v2-cross-encoder", "cross-encoder/ms-marco-MiniLM-L-6-v2", MINILM_CROSS,
+     "rerank"),
+    ("distilbert-sentiment", "distilbert/distilbert-base-uncased-finetuned-sst-2-english",
+     DISTILBERT_SST2, "classify"),
+    ("nomic-embed-text", "nomic-ai/nomic-embed-text-v1.5", NOMIC_V15, "embed"),
+)
+BERT_VOCAB = 30522
+EMBED_BATCH, EMBED_SEQ = 256, 64        # bench.py's embed geometry
+EMBED_COS_MIN = 0.999                   # BASELINE.json's parity bound
+CLASSIFY_PROB_ATOL = 2e-2
+RERANK_ATOL = 2e-2                      # on the raw relevance logits
 
 
 def check(cond: bool, what: str) -> None:
@@ -599,20 +653,28 @@ def _logits_vs_plain(lm, text: str) -> dict:
 
 
 def profile_request(gen, text: str, new_tokens: int = 16) -> dict:
-    """torch.profiler over one streamed request (prefill + `new_tokens`
-    decode steps): device busy share of the wall time, the kernels that take
-    the most device time, and the torch ops (with input shapes) that launch
-    the most device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """profile_call over one streamed request (prefill + `new_tokens` decode
+    steps)."""
     from kjarni_tpu_torch.generate.sampling import GenerationConfig
     cfg = GenerationConfig.greedy(max_new_tokens=new_tokens, max_length=4096)
+
+    def request():
+        for _ in gen.generate_stream(text, config=cfg):
+            pass
+    return profile_call(request)
+
+
+def profile_call(fn, top: int = 8) -> dict:
+    """torch.profiler over one call of `fn`: device busy share of the wall
+    time, the `top` kernels that take the most device time, and the torch
+    ops (with input shapes) that launch the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as p:
         t0 = time.perf_counter()
-        for _ in gen.generate_stream(text, config=cfg):
-            pass
+        fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
 
@@ -625,7 +687,7 @@ def profile_request(gen, text: str, new_tokens: int = 16) -> dict:
 
     kernels = [e for e in p.key_averages() if on_device(e) and dev_us(e) > 0]
     total = sum(dev_us(e) for e in kernels)
-    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    top_kernels = sorted(kernels, key=dev_us, reverse=True)[:top]
 
     def op_dev_us(e):   # device time of the kernels an op launched itself
         return getattr(e, "device_time_total", None) or \
@@ -633,11 +695,11 @@ def profile_request(gen, text: str, new_tokens: int = 16) -> dict:
 
     ops = [e for e in p.key_averages(group_by_input_shape=True)
            if not on_device(e) and e.key.startswith("aten::") and op_dev_us(e) > 0]
-    top_ops = sorted(ops, key=op_dev_us, reverse=True)[:8]
+    top_ops = sorted(ops, key=op_dev_us, reverse=True)[:top]
     return {"profile_wall_ms": wall_us / 1e3, "profile_kernel_ms": total / 1e3,
             "profile_device_busy": total / wall_us,
             "profile_top_kernels": [[e.key[:70], round(dev_us(e) / 1e3, 3), e.count]
-                                    for e in top],
+                                    for e in top_kernels],
             "profile_top_ops": [[e.key, str(e.input_shapes)[:90],
                                  round(op_dev_us(e) / 1e3, 3), e.count]
                                 for e in top_ops]}
@@ -745,9 +807,329 @@ def phase_slices(phases) -> None:
             run_slice(d, "int4")
 
 
+# ---------------------------------------------------------------------------
+# phase 5
+# ---------------------------------------------------------------------------
+
+def encoder_modules(c: dict) -> dict:
+    """module name -> (kind, shape) of the HF checkpoint layout of config c:
+    "emb" a table, "lin" a linear with bias, "w" one without, "norm" a
+    LayerNorm (ones and zeros)."""
+    mt = c["model_type"]
+    out = {}
+    if mt == "nomic_bert":
+        H, I = c["n_embd"], c["n_inner"]
+        out["embeddings.word_embeddings"] = ("emb", (c["vocab_size"], H))
+        out["embeddings.token_type_embeddings"] = ("emb", (c["type_vocab_size"], H))
+        out["emb_ln"] = ("norm", (H,))
+        for i in range(c["n_layer"]):
+            p = f"encoder.layers.{i}."
+            out.update({p + "attn.Wqkv": ("w", (3 * H, H)), p + "attn.out_proj": ("w", (H, H)),
+                        p + "norm1": ("norm", (H,)), p + "mlp.fc11": ("w", (I, H)),
+                        p + "mlp.fc12": ("w", (I, H)), p + "mlp.fc2": ("w", (H, I)),
+                        p + "norm2": ("norm", (H,))})
+        return out
+    if mt == "distilbert":
+        H, I, pre = c["dim"], c["hidden_dim"], "distilbert."
+        layers, n = [f"{pre}transformer.layer.{i}." for i in range(c["n_layers"])], {}
+        for p in layers:
+            n.update({p + f"attention.{x}": ("lin", (H, H))
+                      for x in ("q_lin", "k_lin", "v_lin", "out_lin")})
+            n.update({p + "sa_layer_norm": ("norm", (H,)), p + "ffn.lin1": ("lin", (I, H)),
+                      p + "ffn.lin2": ("lin", (H, I)), p + "output_layer_norm": ("norm", (H,))})
+        out = {pre + "embeddings.word_embeddings": ("emb", (c["vocab_size"], H)),
+               pre + "embeddings.position_embeddings":
+                   ("emb", (c["max_position_embeddings"], H)),
+               pre + "embeddings.LayerNorm": ("norm", (H,)), **n,
+               "pre_classifier": ("lin", (H, H)),
+               "classifier": ("lin", (len(c["id2label"]), H))}
+        return out
+    H, I = c["hidden_size"], c["intermediate_size"]
+    head = "id2label" in c                   # BertForSequenceClassification
+    pre = "bert." if head else ""
+    out = {pre + "embeddings.word_embeddings": ("emb", (c["vocab_size"], H)),
+           pre + "embeddings.position_embeddings": ("emb", (c["max_position_embeddings"], H)),
+           pre + "embeddings.token_type_embeddings": ("emb", (c["type_vocab_size"], H)),
+           pre + "embeddings.LayerNorm": ("norm", (H,))}
+    for i in range(c["num_hidden_layers"]):
+        p = f"{pre}encoder.layer.{i}."
+        out.update({p + f"attention.self.{x}": ("lin", (H, H))
+                    for x in ("query", "key", "value")})
+        out.update({p + "attention.output.dense": ("lin", (H, H)),
+                    p + "attention.output.LayerNorm": ("norm", (H,)),
+                    p + "intermediate.dense": ("lin", (I, H)),
+                    p + "output.dense": ("lin", (H, I)),
+                    p + "output.LayerNorm": ("norm", (H,))})
+    if head:
+        out["bert.pooler.dense"] = ("lin", (H, H))
+        out["classifier"] = ("lin", (len(c["id2label"]), H))
+    return out
+
+
+def write_encoder_dir(d: Path, c: dict, seed: int = 0) -> None:
+    """config.json, tokenizer.json and model.safetensors of random f32
+    weights (N(0, 0.02) from a seeded generator on the card; norms ones and
+    zeros) in config c's checkpoint layout."""
+    import torch
+    from kjarni_tpu_torch.weights.safetensors_loader import save_file
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return (torch.randn(*shape, generator=g, device="cuda") * 0.02).cpu()
+
+    tensors = {}
+    for name, (kind, shape) in encoder_modules(c).items():
+        if kind == "norm":
+            tensors[name + ".weight"] = torch.ones(shape)
+            tensors[name + ".bias"] = torch.zeros(shape)
+            continue
+        tensors[name + ".weight"] = rnd(*shape)
+        if kind == "lin":
+            tensors[name + ".bias"] = rnd(shape[0])
+    d.mkdir(parents=True, exist_ok=True)
+    save_file(tensors, d / "model.safetensors")
+    (d / "config.json").write_text(json.dumps(c))
+    write_bert_tokenizer(d / "tokenizer.json")
+
+
+def write_bert_tokenizer(path: Path) -> None:
+    """A word-level tokenizer.json with BERT's special ids ([PAD] 0, [UNK]
+    100, [CLS] 101, [SEP] 102, [MASK] 103), the words w<id> at every other
+    id, and BERT's single and pair templates."""
+    from tokenizers import Tokenizer, models, normalizers, pre_tokenizers, processors
+    special = {0: "[PAD]", 100: "[UNK]", 101: "[CLS]", 102: "[SEP]", 103: "[MASK]"}
+    vocab = {special.get(i, f"w{i}"): i for i in range(BERT_VOCAB)}
+    tk = Tokenizer(models.WordLevel(vocab, unk_token="[UNK]"))
+    tk.normalizer = normalizers.Lowercase()
+    tk.pre_tokenizer = pre_tokenizers.Whitespace()
+    tk.post_processor = processors.TemplateProcessing(
+        single="[CLS] $A [SEP]", pair="[CLS] $A [SEP] $B:1 [SEP]:1",
+        special_tokens=[("[CLS]", 101), ("[SEP]", 102)])
+    tk.save(str(path))
+
+
+def _sentences(n: int, lo: int, hi: int, seed: int) -> list:
+    """n texts of lo..hi random words w<id> (ids 1000..29999, one token each)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.randint(lo, hi + 1, (n,), generator=g).tolist()
+    return [" ".join(f"w{i}" for i in torch.randint(1000, 30000, (k,), generator=g).tolist())
+            for k in lens]
+
+
+def _forward_flops(cfg, B: int, S: int) -> float:
+    """Multiply-adds x 2 of one encoder forward: projections, FFN, attention."""
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    per_token = 2 * (4 * H * H + (3 if cfg.swiglu else 2) * H * I) + 4 * S * H
+    return float(per_token * B * S * cfg.num_layers)
+
+
+def run_encoder(name: str, source: str, d: Path, task: str, seed: int) -> dict:
+    """One registry encoder through its task API on the card: checks, then
+    throughput, device time, profile and memory (one JSON line)."""
+    import numpy as np
+    import torch
+    from kjarni_tpu_torch import Classifier, Embedder, Reranker
+    from kjarni_tpu_torch.models import bert as kbert
+    from kjarni_tpu_torch.models import encoder_models as em
+    from kjarni_tpu_torch.ops.pooling import pool
+    # [CLS] + 40..62 words + [SEP], and [CLS] query [SEP] doc [SEP]: seq bucket 64
+    texts = _sentences(EMBED_BATCH, 40, EMBED_SEQ - 2, seed)
+    query = _sentences(1, 8, 8, seed + 1)[0]
+    docs = _sentences(EMBED_BATCH, 30, EMBED_SEQ - 11, seed + 2)
+    row = {"model": name, "source": source, "task": task,
+           "allocated_before_gb": torch.cuda.memory_allocated() / 1e9}
+    t0 = time.perf_counter()
+    if task == "embed":
+        api = Embedder(str(d))
+        model, cls = api._encoder, em.SentenceEncoder
+
+        def call():
+            return api.embed_batch(texts)
+    elif task == "classify":
+        api = Classifier(str(d))
+        model, cls = api._clf, em.SequenceClassifier
+
+        def call():
+            return api.classify_batch(texts)
+    else:
+        api = Reranker(str(d))
+        model, cls = api._ce, em.CrossEncoder
+
+        def call():
+            return api.rerank(query, docs)
+    torch.cuda.synchronize()
+    row["load_s"] = time.perf_counter() - t0
+    check(model.device.type == "cuda"
+          and model.params["layers"]["q"]["w"].dtype == torch.bfloat16,
+          f"{name}: the task's model runs bf16 on the card")
+
+    # the task's bf16 output against the same model in f32 on the card
+    f32 = cls(d, dtype="f32")
+    got = call()
+    if task == "embed":
+        want = f32.encode_batch(texts, pooling=api.pooling, normalize=api.normalize)
+        cos = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1)
+                                      * np.linalg.norm(want, axis=-1))
+        norm_err = float(np.abs(np.linalg.norm(got, axis=-1) - 1.0).max())
+        row.update(min_cosine_bf16_vs_f32=float(cos.min()), max_norm_err=norm_err)
+        check(got.shape == (EMBED_BATCH, model.hidden_size) and np.isfinite(got).all(),
+              f"{name}: finite embeddings of shape {got.shape}")
+        check(cos.min() >= EMBED_COS_MIN,
+              f"{name}: bf16 vs f32 cosine {cos.min()} >= {EMBED_COS_MIN}")
+        check(norm_err <= 1e-3, f"{name}: |L2 norm - 1| {norm_err} <= 1e-3")
+    elif task == "classify":
+        labels = api.labels
+        probs = np.array([[dict(r.all_scores)[l] for l in labels] for r in got])
+        want = f32.classify_scores_batch(texts)
+        err = float(np.abs(probs - want).max())
+        sum_err = float(np.abs(probs.sum(-1) - 1.0).max())
+        row.update(max_prob_err_bf16_vs_f32=err, max_row_sum_err=sum_err,
+                   labels_equal=float(np.mean(probs.argmax(-1) == want.argmax(-1))))
+        check(probs.shape == (EMBED_BATCH, 2) and np.isfinite(probs).all(),
+              f"{name}: finite probabilities of shape {probs.shape}")
+        check(err <= CLASSIFY_PROB_ATOL, f"{name}: bf16 vs f32 max |dp| {err} <= "
+                                         f"{CLASSIFY_PROB_ATOL}")
+        check(sum_err <= 1e-5, f"{name}: rows sum to 1 ({sum_err})")
+    else:
+        scores = np.empty(len(docs), np.float32)
+        for r in got:
+            scores[r.index] = r.score
+        want = f32.predict_pairs([(query, doc) for doc in docs])
+        err = float(np.abs(scores - want).max())
+        # pairs whose f32 scores differ by RERANK_ATOL or more keep their order
+        gap = want[:, None] - want[None, :]
+        flipped = int(((gap >= RERANK_ATOL) & (scores[:, None] <= scores[None, :])).sum())
+        row.update(max_score_err_bf16_vs_f32=err, order_flips_beyond_atol=flipped)
+        check(len(got) == len(docs) and np.isfinite(scores).all(), f"{name}: scores")
+        check(err <= RERANK_ATOL, f"{name}: bf16 vs f32 max |ds| {err} <= {RERANK_ATOL}")
+        check(flipped == 0, f"{name}: {flipped} pairs apart by >= {RERANK_ATOL} reordered")
+
+    # f32 on the card against the f32 forward on the CPU, on a few rows
+    cpu = cls(d, dtype="f32", device="cpu")
+    pairs = [docs[:4]] if task == "rerank" else []
+    few = [query] * 4 if task == "rerank" else texts[:4]
+    h_card = f32.hidden_states(few, *pairs)[0].cpu().numpy()
+    h_cpu = cpu.hidden_states(few, *pairs)[0].numpy()
+    row["f32_card_vs_cpu_max_abs_err"] = float(np.abs(h_card - h_cpu).max())
+    check(bool(np.allclose(h_card, h_cpu, atol=2e-4, rtol=1e-3)),
+          f"{name}: f32 card vs CPU hidden states within atol 2e-4 rtol 1e-3 "
+          f"(max {row['f32_card_vs_cpu_max_abs_err']})")
+    del f32, cpu
+    torch.cuda.empty_cache()
+
+    # end to end, tokenizer included: the median of 5 calls
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(5):
+        t = time.perf_counter()
+        call()
+        runs.append(time.perf_counter() - t)
+    row["texts_per_s"] = EMBED_BATCH / statistics.median(runs)
+    row["call_ms_runs"] = [1e3 * r for r in runs]
+    # the model's weights and the calls' peak, above what was allocated before
+    row["peak_mem_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                          - row["allocated_before_gb"])
+
+    # a call's tokenization alone (as the model does it), median of 5
+    def tokenize():
+        if task == "rerank":
+            qs = [query] * len(docs)
+            ids, mask = model.tokenizer.encode_batch(qs, pairs=docs,
+                                                     max_len=model.max_seq_len,
+                                                     pad_batch=True)
+            return ids, mask, model._pair_type_ids(qs, docs, ids.shape[1], ids.shape[0])
+        ids, mask = model.tokenizer.encode_batch(texts, max_len=model.max_seq_len,
+                                                 pad_batch=True)
+        return ids, mask, np.zeros_like(ids)
+    tok_runs = []
+    for _ in range(5):
+        t = time.perf_counter()
+        ids, mask, tt = tokenize()
+        tok_runs.append(1e3 * (time.perf_counter() - t))
+    row["tokenize_ms"] = statistics.median(tok_runs)
+    check(ids.shape == (EMBED_BATCH, EMBED_SEQ), f"{name}: batch {ids.shape} is B256 S64")
+
+    # device time of one B256 S64 forward, from CUDA-graph replays, and the
+    # wall time of one eager forward (synchronised; launches from Python)
+    ids_d, mask_d, tt_d = model._device_batch(ids, mask, tt)
+    p = model.params
+    forward = {
+        "embed": lambda: pool(api.pooling, model._encode(p, ids_d, mask_d, tt_d), mask_d),
+        "classify": lambda: model._logits(p, model.head.params, ids_d, mask_d, tt_d),
+        "rerank": lambda: model._score(p, model.head.params, ids_d, mask_d, tt_d),
+    }[task]
+    with torch.inference_mode():
+        row["forward_ms"] = cuda_ms(forward, iters=5)
+        row["forward_eager_ms"] = host_ms(forward, iters=5)
+    flops = _forward_flops(model.config, EMBED_BATCH, EMBED_SEQ)
+    row["forward_tflop_per_s"] = flops / row["forward_ms"] / 1e9
+    row["forward_flop_bound_ms"] = bound_ms(0.0, flops)[0]
+
+    if name == "minilm-l6-v2":   # plain against packed rows, for _pack_plan
+        pack = {}
+        short = _sentences(EMBED_BATCH, 18, 30, seed + 3)
+        for S, batch, ns in ((EMBED_SEQ, texts, (1, 2)), (32, short, (1, 2, 4))):
+            ids, mask = model.tokenizer.encode_batch(batch, max_len=model.max_seq_len,
+                                                     pad_batch=True)
+            check(ids.shape == (EMBED_BATCH, S), f"pack batch {ids.shape} is B256 S{S}")
+            ids_d, mask_d, tt_d = model._device_batch(ids, mask, np.zeros_like(ids))
+            with torch.inference_mode():
+                plain = kbert.encode(p, model.config, ids_d, mask_d, tt_d).float()
+                for n in ns:
+                    def fwd(n=n):
+                        if n == 1:
+                            return kbert.encode(p, model.config, ids_d, mask_d, tt_d)
+                        return kbert.encode_packed_n(p, model.config, ids_d, mask_d, tt_d,
+                                                     n=n)
+                    if n > 1:
+                        out = fwd().float()
+                        cos = torch.nn.functional.cosine_similarity(
+                            out.reshape(-1), plain.reshape(-1), dim=0).item()
+                        check(cos > EMBED_COS_MIN, f"pack-{n} S{S} vs plain cosine {cos}")
+                        pack[f"S{S}_n{n}_max_abs_err"] = (out - plain).abs().max().item()
+                    pack[f"S{S}_n{n}_ms"] = cuda_ms(fwd, iters=5)
+        row["pack"] = pack
+        row["pack_plan"] = {f"B{EMBED_BATCH} S{S}": kbert._pack_plan(EMBED_BATCH, S)
+                            for S in (EMBED_SEQ, 32)}
+
+    prof = profile_call(call, top=5)
+    row.update({k: prof[k] for k in ("profile_wall_ms", "profile_kernel_ms",
+                                     "profile_device_busy", "profile_top_kernels",
+                                     "profile_top_ops")})
+    # the profiler slows the host: the busy share against an unprofiled call
+    row["device_busy_share"] = prof["profile_kernel_ms"] / statistics.median(
+        row["call_ms_runs"])
+    print(json.dumps(row))
+    del api, model
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_embed() -> list:
+    import torch
+    from kjarni_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from kjarni_tpu_torch.ops.kernels.int4_matvec import int4_matvec
+    counts = flash_attention.launches, int4_matvec.launches
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="kjarni_embed_") as tmp:
+        for i, (name, source, cfg, task) in enumerate(ENCODERS):
+            d = Path(tmp) / name
+            t0 = time.perf_counter()
+            write_encoder_dir(d, cfg, seed=20 + i)
+            print(f"{name}: model dir written: {time.perf_counter() - t0:.1f} s, "
+                  f"{(d / 'model.safetensors').stat().st_size / 1e9:.2f} GB")
+            rows.append(run_encoder(name, source, d, task, seed=30 + 10 * i))
+            torch.cuda.empty_cache()
+    now = flash_attention.launches, int4_matvec.launches
+    check(now == counts, f"the embed phase launched neither hand-written kernel "
+                         f"(flash, int4 launches {counts} -> {now})")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="env,kernels,bf16,int4")
+    ap.add_argument("--phases", default="env,kernels,bf16,int4,embed")
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="the checkout whose kjarni_tpu_torch is imported")
     args = ap.parse_args()
@@ -775,6 +1157,8 @@ def main() -> int:
         check(launches["flash"] > 0, "the main path launched the flash kernel")
     if "int4" in phases:
         check(launches["int4"] > 0, "the main path launched the int4 kernel")
+    if "embed" in phases:
+        phase_embed()
     if kern is not None:
         f0 = kern["flash"][0]
         tok = kern["int4_token"]

@@ -18,7 +18,16 @@ def __getattr__(name):
     if name == "Generator":
         from .tasks.generator import Generator
         return Generator
+    if name == "Embedder":
+        from .tasks.embedder import Embedder
+        return Embedder
+    if name == "Classifier":
+        from .tasks.classifier import Classifier
+        return Classifier
+    if name == "Reranker":
+        from .tasks.reranker import Reranker
+        return Reranker
     raise AttributeError(f"module 'kjarni_tpu_torch' has no attribute '{name}'")
 
 
-__all__ = ["Generator", "Device", "KjarniError"]
+__all__ = ["Generator", "Embedder", "Classifier", "Reranker", "Device", "KjarniError"]

@@ -36,6 +36,11 @@ class Device(str, enum.Enum):
             return Device.AUTO
         raise ValueError(f"Unknown device '{value}' (expected auto/cpu/cuda)")
 
+    @property
+    def torch_name(self) -> str:
+        """The torch device: the CPU only when asked for, else the card."""
+        return "cpu" if self is Device.CPU else "cuda"
+
 
 class NormStrategy(str, enum.Enum):
     LAYER_NORM = "layer_norm"

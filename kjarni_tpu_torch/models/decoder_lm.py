@@ -65,14 +65,21 @@ def resolve_device(device) -> torch.device:
     return d
 
 
-def resolve_dtype(dtype, device: torch.device) -> torch.dtype:
+def auto_dtype(dtype, device: torch.device) -> torch.dtype:
     """"auto" -> bf16 on the card, f32 on the CPU (as the JAX package's
-    resolve_dtype). The card's kernels take bf16, so the card runs bf16."""
+    resolve_dtype); names and torch dtypes pass through."""
     if dtype in ("auto", None):
         return torch.bfloat16 if device.type == "cuda" else torch.float32
     if isinstance(dtype, str):
-        dtype = {"f32": torch.float32, "float32": torch.float32,
-                 "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}[dtype]
+        return {"f32": torch.float32, "float32": torch.float32,
+                "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}[dtype]
+    return dtype
+
+
+def resolve_dtype(dtype, device: torch.device) -> torch.dtype:
+    """The decoder's dtype: auto_dtype, and the card's kernels take bf16, so
+    the card runs bf16."""
+    dtype = auto_dtype(dtype, device)
     if device.type == "cuda" and dtype != torch.bfloat16:
         raise not_ported(f"dtype {dtype} on the card (its kernels take bf16)",
                           "queue 1, item 3")
@@ -110,7 +117,7 @@ class DecoderLM:
         has_safetensors = (model_dir / "model.safetensors").exists() or \
             (model_dir / "model.safetensors.index.json").exists()
         if not has_safetensors and (model_dir / "model.gguf").exists():
-            raise not_ported("GGUF weights", "queue 1, item 1")
+            raise not_ported("GGUF weights", "queue 1, item 2")
         ws = ModelWeights(model_dir)  # raises with a clear error
         hf_cfg = json.loads((model_dir / "config.json").read_text())
         self.hf_config = hf_cfg
@@ -130,7 +137,7 @@ class DecoderLM:
         tok_path = model_dir / "tokenizer.json"
         if not tok_path.exists():
             raise not_ported(f"a model dir without tokenizer.json ({model_dir}; "
-                              "the GGUF-embedded tokenizer)", "queue 1, item 1")
+                              "the GGUF-embedded tokenizer)", "queue 1, item 2")
         self.tokenizer = KjarniTokenizer.from_file(tok_path)
         self.chat_template: ChatTemplate = template_for_arch(cfg.arch)
 

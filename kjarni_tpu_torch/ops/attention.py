@@ -12,9 +12,8 @@ from typing import Optional
 
 import torch
 
-# finite "minus infinity" of the additive masks (kjarni_tpu/ops/masks.py);
-# the flash kernel keeps its own -1e30
-NEG_INF = -1e9
+# the masks' finite "minus infinity"; the flash kernel keeps its own -1e30
+from .masks import NEG_INF  # noqa: F401
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -43,6 +42,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = probs / probs.sum(dim=-1, keepdim=True).to(prob_dtype)
     out = torch.matmul(probs.to(q.dtype).reshape(B, Hkv, G * S, -1), v)
     return out.reshape(B, Hq, S, D)
+
+
+def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B, S, H*D] -> [B, H, S, D]"""
+    B, S, HD = x.shape
+    return x.reshape(B, S, num_heads, HD // num_heads).transpose(1, 2)
 
 
 def merge_heads(x: torch.Tensor) -> torch.Tensor:

@@ -5,6 +5,7 @@ load; the rotation is torch."""
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -36,6 +37,23 @@ def llama3_inv_freq(head_dim: int, theta: float, scaling: RopeScaling) -> np.nda
         ),
     )
     return scaled.astype(np.float32)
+
+
+def rope_tables(head_dim: int, max_seq_len: int, theta: float = 10000.0,
+                scaling: Optional[RopeScaling] = None) -> tuple[np.ndarray, np.ndarray]:
+    """(cos, sin) f32 tables [max_seq_len, head_dim], the half-dim frequencies
+    duplicated into both halves (the rotate-half convention). Positions are
+    f32, as in the JAX package's rope_tables (llama.rope_cache takes f64), so
+    the angles round the same way."""
+    if scaling is not None and scaling.rope_type == "llama3":
+        inv = llama3_inv_freq(head_dim, theta, scaling)
+    else:
+        inv = base_inv_freq(head_dim, theta)
+    pos = np.arange(max_seq_len, dtype=np.float32)
+    angles = np.outer(pos, inv)  # [S, D/2]
+    cos = np.concatenate([np.cos(angles), np.cos(angles)], axis=-1)
+    sin = np.concatenate([np.sin(angles), np.sin(angles)], axis=-1)
+    return cos.astype(np.float32), sin.astype(np.float32)
 
 
 def rotate_half(x: torch.Tensor) -> torch.Tensor:

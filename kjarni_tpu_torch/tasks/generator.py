@@ -72,10 +72,9 @@ class Generator:
             model, cache_dir, policy, quiet, _GENERATOR_TASKS, "generation")
         self.model_info = info
         self.model_id = info.cli_name if info else str(model)
-        torch_device = "cpu" if self.device == Device.CPU else "cuda"
         self._lm = DecoderLM(model_dir, dtype=dtype, max_context=max_context,
                              quantize=quantize, execution_plan=execution_plan,
-                             tp=tp, kv_cache=kv_cache, device=torch_device)
+                             tp=tp, kv_cache=kv_cache, device=self.device.torch_name)
 
     @property
     def lm(self) -> DecoderLM:

@@ -113,6 +113,13 @@ class ModelWeights:
                 f"(have {len(self._tensor_to_file)} tensors)")
         return self._files[shard].get(name)
 
+    def get_f32(self, name: str) -> np.ndarray:
+        """The tensor as a host numpy f32 array, as the JAX package's get_f32."""
+        return self.get(name).float().numpy()
+
+    def has_any(self, *names: str) -> bool:
+        return any(n in self for n in names)
+
 
 def save_file(tensors: dict[str, torch.Tensor], path: Path) -> None:
     """Write CPU tensors as one .safetensors file (the inverse of the parser

@@ -6,8 +6,10 @@ and not, and bit-identical repeat calls; flash at D = 32, 64, 96 and 128 and G =
 and 8, with batch > 1, S and T across several 64-key tiles with ragged edges,
 every tile class (interior, causal diagonal, window left edge, kv_len edge
 with a poisoned tail), q in the [B, S, H, D] storage that the model passes,
-and bit-identical repeat calls. Skipped without a card; on
-the machine with the card (which has no jax, hence --noconftest):
+and bit-identical repeat calls. Also the encoder (the embed path, which has no
+hand-written kernel): its bf16 embeddings against f32 on the card, and that it
+launches neither kernel. Skipped without a card; on the machine with the card
+(which has no jax, hence --noconftest):
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
@@ -158,3 +160,52 @@ def test_kernels_refuse_f32_on_the_card(card):
         int4_matvec(torch.zeros(1, 256, device=card),
                     torch.zeros(128, 64, dtype=torch.int8, device=card),
                     torch.ones(2, 64, device=card))
+
+
+# a two-layer MiniLM-shaped BERT (chip_smoke.py writes the full-width one)
+_TINY_BERT = {"model_type": "bert", "vocab_size": 30522, "hidden_size": 128,
+              "num_hidden_layers": 2, "num_attention_heads": 4, "intermediate_size": 512,
+              "hidden_act": "gelu", "max_position_embeddings": 512, "type_vocab_size": 2,
+              "layer_norm_eps": 1e-12, "pad_token_id": 0}
+
+
+@pytest.fixture(scope="module")
+def encoder_dir(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the encoder's entry points run on it")
+    import chip_smoke
+    d = tmp_path_factory.mktemp("tiny_bert")
+    chip_smoke.write_encoder_dir(d, _TINY_BERT, seed=3)
+    return d, chip_smoke._sentences(16, 5, 40, seed=4)
+
+
+def test_embedder_bf16_matches_f32_on_the_card(encoder_dir):
+    """Cosine >= 0.999 per row (BASELINE.json's parity bound) and unit norms."""
+    import numpy as np
+    from kjarni_tpu_torch import Embedder
+    from kjarni_tpu_torch.models.encoder_models import SentenceEncoder
+    d, texts = encoder_dir
+    emb = Embedder(str(d))
+    assert emb._encoder.params["layers"]["q"]["w"].dtype == torch.bfloat16
+    got = emb.embed_batch(texts)
+    want = SentenceEncoder(d, dtype="f32").encode_batch(texts)
+    cos = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1) * np.linalg.norm(want, axis=-1))
+    assert np.isfinite(got).all() and cos.min() >= 0.999, cos.min()
+    assert np.abs(np.linalg.norm(got, axis=-1) - 1).max() <= 1e-3
+
+
+def test_encoder_launches_no_hand_written_kernel(encoder_dir):
+    from kjarni_tpu_torch.models.encoder_models import SentenceEncoder
+    d, texts = encoder_dir
+    before = flash_attention.launches, int4_matvec.launches
+    SentenceEncoder(d).encode_batch(texts)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, int4_matvec.launches) == before
+
+
+def test_encoder_device_none_is_the_card(encoder_dir):
+    from kjarni_tpu_torch.models.encoder_models import SentenceEncoder
+    enc = SentenceEncoder(encoder_dir[0], device=None)
+    assert enc.device == torch.device("cuda")
+    assert enc.params["layers"]["q"]["w"].device == torch.device("cuda", 0)
+    assert enc.params["embeddings"]["word"].dtype == torch.bfloat16

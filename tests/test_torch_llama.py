@@ -7,6 +7,7 @@ atol 1e-3 on the logits (f32; the sums run in other orders).
 """
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -16,10 +17,14 @@ import torch
 
 import kjarni_tpu.ops.pallas.flash_attention as jax_fa
 from __graft_entry__ import _random_llama
+from helpers import save_torch_model
+from test_phi3_parity import phi3_checkpoint
 from kjarni_tpu.models import llama as jl
+from kjarni_tpu.weights.safetensors_loader import ModelWeights as JaxWeights
 from kjarni_tpu_torch.core.errors import GenerationError
 from kjarni_tpu_torch.models import llama as tl
 from kjarni_tpu_torch.weights.convert import params_from_jax
+from kjarni_tpu_torch.weights.safetensors_loader import ModelWeights
 
 ATOL = 1e-3
 
@@ -145,3 +150,70 @@ def test_cache_write_past_end_is_refused(model):
     with pytest.raises(GenerationError):
         tl.forward(params_from_jax(params_np), cfg_t,
                    torch.zeros(1, 8, dtype=torch.long), ck, cv, 60)
+
+
+@pytest.fixture(scope="module")
+def phi3_longrope(tmp_path_factory):
+    """tests/test_phi3_parity.py's longrope checkpoint (original window 32,
+    max positions 64), its JAX config and the port's."""
+    d = tmp_path_factory.mktemp("phi3_longrope")
+    rs = {"type": "longrope",
+          "short_factor": [1.0 + 0.1 * i for i in range(8)],
+          "long_factor": [2.0 + 0.2 * i for i in range(8)]}
+    _, cfg_j, _ = phi3_checkpoint(d, seed=1, rope_scaling=rs, max_pos=64)
+    cfg_t = tl.DecoderConfig.from_hf(json.loads((d / "config.json").read_text()))
+    return cfg_j, cfg_t
+
+
+@pytest.mark.parametrize("length", [16, 32, 33, 64])
+def test_phi3_longrope_rope_cache_is_exact(phi3_longrope, length):
+    """Short factors up to the original window (32), long factors and the
+    attention factor past it: the port's tables equal the JAX package's."""
+    cfg_j, cfg_t = phi3_longrope
+    # every field the port has (the JAX config adds host-placement flags)
+    assert dataclasses.asdict(cfg_t) == {f.name: getattr(cfg_j, f.name)
+                                         for f in dataclasses.fields(cfg_t)}
+    cos_j, sin_j = jl.rope_cache(cfg_j, length)
+    cos_t, sin_t = tl.rope_cache(cfg_t, length)
+    np.testing.assert_array_equal(cos_t, cos_j)
+    np.testing.assert_array_equal(sin_t, sin_j)
+    short = tl.rope_cache(cfg_t, 16)[0]
+    # past the window the long factors (and the attention factor) take over
+    assert np.array_equal(cos_t[:16], short) == (length <= 32)
+
+
+@pytest.fixture(scope="module")
+def qwen2(tmp_path_factory):
+    """A tiny Qwen2 checkpoint (q/k/v with bias, GQA) loaded by both packages."""
+    from transformers import Qwen2Config, Qwen2ForCausalLM
+    d = tmp_path_factory.mktemp("qwen2")
+    config = Qwen2Config(vocab_size=120, hidden_size=64, intermediate_size=128,
+                         num_hidden_layers=2, num_attention_heads=4,
+                         num_key_value_heads=2, max_position_embeddings=128,
+                         tie_word_embeddings=False)
+    torch.manual_seed(4)
+    model = Qwen2ForCausalLM(config).eval()
+    with torch.no_grad():   # HF zero-initialises biases; make them count
+        for layer in model.model.layers:
+            for proj in (layer.self_attn.q_proj, layer.self_attn.k_proj,
+                         layer.self_attn.v_proj):
+                proj.bias.normal_(0.0, 0.5)
+    save_torch_model(d, model, config)
+    hf = json.loads((d / "config.json").read_text())
+    cfg_j, cfg_t = jl.DecoderConfig.from_hf(hf), tl.DecoderConfig.from_hf(hf)
+    return (cfg_j, jl.load_params(JaxWeights(d), cfg_j, rope_cache_len=64),
+            cfg_t, tl.load_params(ModelWeights(d), cfg_t, rope_cache_len=64))
+
+
+@pytest.mark.parametrize("case", ["prefill", "prefill_then_decode"])
+def test_qwen2_qkv_bias_forward_matches_jax(qwen2, case):
+    cfg_j, p_j, cfg_t, p_t = qwen2
+    assert cfg_t.qkv_bias and "b" in p_t["layers"]["q"] and "b" in p_t["layers"]["v"]
+    np.testing.assert_array_equal(p_t["layers"]["k"]["b"].numpy(),
+                                  np.asarray(p_j["layers"]["k"]["b"]))
+    chunks = {"prefill": [_ids(20, 12, vocab=120)],
+              "prefill_then_decode": [_ids(20, 13, vocab=120), _ids(1, 14, vocab=120)]}[case]
+    lg_j, ck_j = _run_jax(cfg_j, p_j, chunks)
+    lg_t, ck_t = _run_torch(cfg_t, p_t, chunks)
+    np.testing.assert_allclose(lg_t, lg_j, atol=ATOL)
+    np.testing.assert_allclose(ck_t, ck_j, atol=ATOL)
