@@ -2,7 +2,8 @@
 """Drive kjarni_tpu_torch's generation and embed paths on one CUDA card and
 check them.
 
-    python3 chip_smoke.py [--phases env,kernels,bf16,int4,embed] [--root DIR]
+    python3 chip_smoke.py [--phases env,kernels,bf16,int4,int8,batch,chat,gpt2,embed]
+                          [--root DIR]
 
 --root DIR imports kjarni_tpu_torch from another checkout (an older commit,
 say) instead of this one, to time its kernels on these same cases.
@@ -15,8 +16,10 @@ Phases, in order (all by default); any failure raises and exits non-zero:
    card, in bf16, at the generation path's shapes (flash: Llama-1B prefill at
    1024 and 512, Phi-3.5-mini's D = 96 prefill, the follow-up request's
    cache-reuse shape and smaller cases for the other features; int4: every
-   projection at M = 1 for decode and M = 8, 32, 128 and 1024 for prefill
-   buckets, and the head at M = 1; two calls must give bit-identical
+   projection at M = 1 for decode, M = 8, 32, 64, 128 and 1024 for prefill
+   buckets, M = 8192 for a batched prefill (8 rows at bucket 1024) and M = 8
+   for a batched decode step, and the head at M = 1 and at M = 8 (the
+   batch's prefill and decode steps); two calls must give bit-identical
    outputs); one line per case with the launches the case made,
    max_abs_err, kernel_ms, plain_ms and library_ms, the time of one PyTorch
    call computing the same function as a yardstick the port never calls:
@@ -37,7 +40,43 @@ Phases, in order (all by default); any failure raises and exits non-zero:
    the same forward with the kernels' plain versions.
 4. int4: the same with quantize="int4"; checks 113 int4 launches per forward
    (7 projections x 16 layers + the lm_head).
-5. embed: four encoder model dirs at the public config.json widths of the
+5. int8: the phase-3 requests with quantize="int8" (16 flash launches per
+   prefill bucket >= 512, no int4), the first prefill's logits against the
+   bf16 weights' (cosine >= 0.999 over the first 2 layers, the JAX test's
+   depth and bound; at full depth within twice the f32 quantization's own
+   distance plus bf16's, which the same weights truncated instead of
+   rounded must exceed, see int8_accuracy), prefill ms,
+   decode tok/s and peak memory beside bf16; _mm's int8 branch against bf16
+   matmuls per decoded token (device ms); then one kv_cache="int8" follow-up
+   that prefills only its suffix with 16 flash launches over the dequantized
+   cache slice, and the share of its 64 greedy ids that agree with the
+   bf16-KV follow-up (a number, not a check: int8 KV is lossy).
+6. batch: Generator.generate_batch on B = 8 ragged prompts of 300-700 tokens
+   sharing a 64-token prefix, 64 new tokens, in bf16 and in int4: the shared
+   prefix is found (64), each row's batch-prefill logits are held against
+   the single-stream prefill of its prompt (cosine >= 0.998 in bf16, and
+   >= 0.99999 in f32 with the plain kernels), and two faults planted in the
+   batch prefill (RoPE at slot indices, the pad mask dropped) must read
+   below each bound; no flash launches and, in int4, 113 per forward
+   (prefix fill, prefill, decode steps); aggregate tok/s beside the single
+   stream's, peak memory. Then B = 8 prompts of ~1,800 tokens (bucket 2048)
+   with the bf16 and the int8 KV cache: the bf16-KV rows held against the
+   single stream, the int8-KV rows against the bf16-KV rows (cosine >=
+   0.995), each with the same planted faults; decode tok/s and peak
+   memory. Then seeded sampled decoding,
+   single-stream and batched: each seed repeats its stream, and every draw
+   lies in its row's top-k / top-p / min-p set (computed apart, in numpy).
+7. chat: Chat over the same weights (a tokenizer holding the llama3
+   template's specials, <|eot_id|> a stop id), max_context 2048: three
+   turns of ~700, +~600 and ~700 tokens; each prefills only what follows
+   the cached prefix with 16 flash launches, and the third drops the
+   oldest turn. Time to first token and tok/s per turn.
+8. gpt2: a model dir at GPT-2's public config.json widths (12 layers, 768,
+   12 heads, vocab 50,257, 1,024 positions; random f32 weights): a greedy
+   generate on a 700-token prompt and a B = 8 generate_batch, with no flash
+   and no int4 launch, and the card's bf16 logits against the f32 forward on
+   the CPU at cosine >= 0.999.
+9. embed: four encoder model dirs at the public config.json widths of the
    registry's minilm-l6-v2, minilm-l6-v2-cross-encoder, distilbert-sentiment
    and nomic-embed-text (random f32 weights from a seeded generator, a
    BERT-template word tokenizer over the whole vocabulary), each driven
@@ -53,7 +92,7 @@ Phases, in order (all by default); any failure raises and exits non-zero:
    `--phases env,embed` runs it alone.
 
 At the end come three lines: a JSON object {"kernels": [...]} (per kernel
-the launches of phases 3-4, max_abs_err over its cases, and ms / plain_ms /
+the launches of phases 3-8, max_abs_err over its cases, and ms / plain_ms /
 bound_ms / library_ms -- for flash one launch at the Llama-1B prefill shape,
 for int4 the 113 launches of one decoded token; also printed before it: the 7
 launches of one layer of an M-token prefill, for each prefill M), then
@@ -66,6 +105,8 @@ operations over 989 TFLOP/s (H100 SXM data sheet). The last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import importlib
 import json
 import math
@@ -93,6 +134,9 @@ LLAMA_1B = {
     "bos_token_id": 128000, "eos_token_id": 128001, "torch_dtype": "bfloat16",
 }
 INT4_PER_FORWARD = 7 * LLAMA_1B["num_hidden_layers"] + 1
+# the phases that drive generation (3-8), between the launch counts' reset
+# and their reading
+GENERATION = ("bf16", "int4", "int8", "batch", "chat", "gpt2")
 FLASH_PER_PREFILL = LLAMA_1B["num_hidden_layers"]
 
 # the public config.json values (the keys the loader reads) of the registry's
@@ -495,9 +539,15 @@ def phase_kernels() -> dict:
     int4 = {name: int4_case(f"M=1 {name}", 1, K, N, seed=i)
             for i, (name, (K, N)) in enumerate(shapes.items())}
     layer = [n for n in shapes if n != "lm_head 2048x128256"]
-    # prefill buckets: short prompts and prefix-reuse suffixes (8-128), and long
+    # prefill buckets: short prompts and prefix-reuse suffixes (8-128), the
+    # batch phase's 64-token shared prefix, long prompts (1024), and a
+    # batched prefill of 8 rows at bucket 1024 (8192); M = 8 is also a
+    # batched decode step of 8 rows
     prefill = {M: {name: int4_case(f"M={M} {name}", M, *shapes[name], seed=9 + i)
-                   for i, name in enumerate(layer)} for M in (8, 32, 128, 1024)}
+                   for i, name in enumerate(layer)} for M in (8, 32, 64, 128, 1024, 8192)}
+    # the head of the batch prefill and of each batched decode step: 8 rows
+    head8 = int4_case("M=8 lm_head 2048x128256", 8, *shapes["lm_head 2048x128256"],
+                      seed=20)
 
     def total(rows, counts, what):
         keys = ["kernel_ms", "eager_ms", "plain_ms", "bound_ms"]
@@ -516,9 +566,11 @@ def phase_kernels() -> dict:
     per_layer = {n: per_token[n] // LLAMA_1B["num_hidden_layers"] for n in layer}
     for M, rows in prefill.items():
         total(rows, per_layer, f"int4 one layer of a {M}-token prefill (7 launches)")
+    total({**prefill[8], "lm_head 2048x128256": head8}, per_token,
+          "int4 one batched decode step of 8 rows (113 launches)")
     return {"flash": flash,
-            "int4": list(int4.values()) + [r for rows in prefill.values()
-                                           for r in rows.values()],
+            "int4": list(int4.values()) + [head8] + [r for rows in prefill.values()
+                                                     for r in rows.values()],
             "int4_token": tok}
 
 
@@ -526,12 +578,12 @@ def phase_kernels() -> dict:
 # phases 3 and 4
 # ---------------------------------------------------------------------------
 
-def write_model_dir(d: Path, seed: int = 0) -> None:
-    """config.json + model.safetensors of random bf16 weights, generated on
-    the card from a seeded generator (N(0, 0.02); norms are ones)."""
+def write_model_dir(d: Path, seed: int = 0, c: dict = LLAMA_1B) -> None:
+    """config.json + model.safetensors of random bf16 weights for llama
+    config c, generated on the card from a seeded generator (N(0, 0.02);
+    norms are ones)."""
     import torch
     from kjarni_tpu_torch.weights.safetensors_loader import save_file
-    c = LLAMA_1B
     hid, inter, V = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
     qd = c["num_attention_heads"] * c["head_dim"]
     kvd = c["num_key_value_heads"] * c["head_dim"]
@@ -543,6 +595,8 @@ def write_model_dir(d: Path, seed: int = 0) -> None:
 
     ones = torch.ones(hid, dtype=torch.bfloat16)
     tensors = {"model.embed_tokens.weight": rnd(V, hid), "model.norm.weight": ones}
+    if not c["tie_word_embeddings"]:
+        tensors["lm_head.weight"] = rnd(V, hid)
     for i in range(c["num_hidden_layers"]):
         p = f"model.layers.{i}."
         tensors.update({
@@ -561,51 +615,93 @@ def write_model_dir(d: Path, seed: int = 0) -> None:
     (d / "config.json").write_text(json.dumps(c))
 
 
-def write_tokenizer(path: Path, vocab_size: int) -> None:
+def write_tokenizer(path: Path, vocab_size: int, specials: dict | None = None) -> None:
     """A word-level tokenizer.json over the whole vocabulary: [PAD], [UNK]
-    and the words w0, w1, ... (whitespace split), so every id decodes."""
-    from tokenizers import Tokenizer, models, normalizers, pre_tokenizers
+    and the words w0, w1, ... (whitespace split), so every id decodes.
+    `specials` {text: id} puts special tokens at those ids (in place of
+    their words), split out of the text before the words."""
+    from tokenizers import AddedToken, Tokenizer, models, normalizers, pre_tokenizers
     words = ["[PAD]", "[UNK]"] + [f"w{i}" for i in range(vocab_size - 2)]
+    for text, i in (specials or {}).items():
+        words[i] = text
     tk = Tokenizer(models.WordLevel({w: i for i, w in enumerate(words)},
                                     unk_token="[UNK]"))
     tk.normalizer = normalizers.Lowercase()
     tk.pre_tokenizer = pre_tokenizers.Whitespace()
+    if specials:
+        tk.add_special_tokens([AddedToken(t, special=True, normalized=False)
+                               for t in specials])
     tk.save(str(path))
 
 
-def _prompt(n: int, seed: int) -> str:
-    """n random words of the tokenizer's vocabulary (ids 1000..120000)."""
+def _prompt(n: int, seed: int, hi: int = 120000) -> str:
+    """n random words of the tokenizer's vocabulary (ids 1000..hi)."""
     import torch
     g = torch.Generator().manual_seed(seed)
     return " ".join(f"w{i - 2}" for i in
-                    torch.randint(1000, 120000, (n,), generator=g).tolist())
+                    torch.randint(1000, hi, (n,), generator=g).tolist())
 
 
-def _logits_vs_plain(lm, text: str) -> dict:
-    """The first prefill's logits through the kernels vs the same forward
-    with the kernels' plain versions, on the card, both in bf16; and both
-    against that forward in f32 (plain versions, f32 copies of the params)."""
+def prefill_logits(lm, ids: list, params=None, dtype=None, device="cuda"):
+    """Logits [1, V] (f32) of one from-zero prefill of `ids`, padded to its
+    seq bucket, over a fresh cache: the forward a single-stream request
+    runs first (flash where the model takes it, at a bucket >= 512)."""
     import torch
     from kjarni_tpu_torch.core.bucketing import seq_bucket
+    bucket = seq_bucket(len(ids), lm.max_context)
+    x = torch.zeros(1, bucket, dtype=torch.long, device=device)
+    x[0, :len(ids)] = torch.tensor(ids, device=device)
+    # an older checkout (--root) has the llama family alone
+    family = getattr(lm, "family", None) or importlib.import_module(
+        "kjarni_tpu_torch.models.llama")
+    ck, cv = family.init_cache(lm.config, 1, bucket, dtype or lm._cache_dtype, device)
+    with torch.inference_mode():
+        return family.forward(
+            lm.params if params is None else params, lm.config, x, ck, cv, 0,
+            len(ids) - 1, use_flash=lm._flash_ok and bucket >= lm._flash_min_seq
+        )[0].float()
+
+
+def _cosine(a, b) -> float:
+    import torch
+    return torch.nn.functional.cosine_similarity(
+        a.float().reshape(-1), b.float().reshape(-1).to(a.device), dim=0).item()
+
+
+def f32_params(p: dict) -> dict:
+    """f32 copies of a param dict's float tensors (int8/int4 stay)."""
+    return {k: f32_params(v) if isinstance(v, dict) else
+            (v.float() if v.is_floating_point() else v) for k, v in p.items()}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Within the block the llama forward runs both kernels' plain versions
+    (for f32 forwards, and as the reference the kernels are held to)."""
     from kjarni_tpu_torch.models import llama as kllama
     from kjarni_tpu_torch.ops.kernels import flash_attention as fa
     from kjarni_tpu_torch.ops.kernels import int4_matvec as i4
+    saved = kllama.flash_attention, kllama.int4_matvec
+    kllama.flash_attention, kllama.int4_matvec = (fa.flash_attention_plain,
+                                                  i4.int4_matvec_plain)
+    try:
+        yield
+    finally:
+        kllama.flash_attention, kllama.int4_matvec = saved
+
+
+def _logits_vs_plain(lm, text: str) -> tuple[dict, object]:
+    """The first prefill's logits through the kernels vs the same forward
+    with the kernels' plain versions, on the card, both in bf16; and both
+    against that forward in f32 (plain versions, f32 copies of the params).
+    Returns the stats and the kernels' logits."""
+    import torch
     ids = lm.encode_prompt(text)
-    bucket = seq_bucket(len(ids), lm.max_context)
-    x = torch.zeros(1, bucket, dtype=torch.long, device="cuda")
-    x[0, :len(ids)] = torch.tensor(ids, device="cuda")
 
     def fwd(params, dtype):
-        ck, cv = kllama.init_cache(lm.config, 1, bucket, dtype, "cuda")
-        with torch.inference_mode():
-            return kllama.forward(params, lm.config, x, ck, cv, 0, len(ids) - 1,
-                                  use_flash=True)[0].float()
+        return prefill_logits(lm, ids, params, dtype)
 
-    def f32(p):
-        return {k: f32(v) if isinstance(v, dict) else
-                (v.float() if v.is_floating_point() else v) for k, v in p.items()}
-
-    counts = fa.flash_attention.launches, i4.int4_matvec.launches
+    counts = _counts()
     got = fwd(lm.params, lm._cache_dtype)
     # one call's wall time moves with the shared host: take the median of 5
     runs = []
@@ -616,15 +712,10 @@ def _logits_vs_plain(lm, text: str) -> dict:
         torch.cuda.synchronize()
         runs.append(1e3 * (time.perf_counter() - t0))
     # comparison launches are not the main path's: restore the counts
-    fa.flash_attention.launches, i4.int4_matvec.launches = counts
-    saved = kllama.flash_attention, kllama.int4_matvec
-    kllama.flash_attention, kllama.int4_matvec = (fa.flash_attention_plain,
-                                                  i4.int4_matvec_plain)
-    try:
+    _restore(counts)
+    with plain_kernels():
         ref = fwd(lm.params, lm._cache_dtype)
-        ref32 = fwd(f32(lm.params), torch.float32)
-    finally:
-        kllama.flash_attention, kllama.int4_matvec = saved
+        ref32 = fwd(f32_params(lm.params), torch.float32)
     torch.cuda.empty_cache()
 
     def cmp(a, b):
@@ -649,7 +740,8 @@ def _logits_vs_plain(lm, text: str) -> dict:
     return {"logits_max_abs_err": err, "logits_rel_err": rel, "logits_cosine": cos,
             "kernels_vs_f32_max_abs_err": err32, "kernels_vs_f32_cosine": cos32,
             "plain_bf16_vs_f32_max_abs_err": plain32,
-            "prefill_ms_1024": statistics.median(runs), "prefill_ms_1024_runs": runs}
+            "prefill_ms_1024": statistics.median(runs), "prefill_ms_1024_runs": runs
+            }, got.cpu()
 
 
 def profile_request(gen, text: str, new_tokens: int = 16) -> dict:
@@ -706,6 +798,10 @@ def profile_call(fn, top: int = 8) -> dict:
 
 
 def run_slice(model_dir: Path, quantize) -> dict:
+    """Three requests through Generator (see the module docstring), checked
+    and timed; prints one line per request and a summary line. Returns the
+    summary, with the first prefill's logits ("logits", not printed) and the
+    follow-up's prompt and generated ids ("follow_ids", "follow_out")."""
     import torch
     from kjarni_tpu_torch import Generator
     from kjarni_tpu_torch.models import decoder_lm
@@ -720,7 +816,7 @@ def run_slice(model_dir: Path, quantize) -> dict:
     load_s = time.perf_counter() - t0
     check(lm.device.type == "cuda" and lm._flash_ok, "model on the card")
     a, b = _prompt(700, 1), _prompt(600, 2)
-    stats = _logits_vs_plain(lm, a)
+    stats, logits = _logits_vs_plain(lm, a)
     torch.cuda.reset_peak_memory_stats()
 
     def request(name, fn, text, expect_flash):
@@ -764,6 +860,8 @@ def run_slice(model_dir: Path, quantize) -> dict:
     reuse_flash = hasattr(decoder_lm, "REUSE_FLASH_MIN_SCORE_BYTES")
     r2 = request("follow-up reuse", generate, follow,
                  FLASH_PER_PREFILL if reuse_flash else 0)
+    follow_ids = lm.encode_prompt(follow)
+    follow_out = lm._session_ids[len(follow_ids):]
     check(r2["prefilled_tokens"] == r2["prompt_tokens"] - r1["prompt_tokens"]
           - r1["new_tokens"], "follow-up prefilled only its new suffix")
     stream_cfg = GenerationConfig.greedy(max_new_tokens=32, max_length=4096)
@@ -790,10 +888,12 @@ def run_slice(model_dir: Path, quantize) -> dict:
     print(json.dumps(summary))
     del gen, lm
     torch.cuda.empty_cache()
-    return summary
+    return {**summary, "logits": logits, "follow_ids": follow_ids,
+            "follow_out": follow_out}
 
 
 def phase_slices(phases) -> None:
+    """Phases 3-8 over one Llama-3.2-1B-width model dir (and GPT-2's)."""
     with tempfile.TemporaryDirectory(prefix="kjarni_smoke_") as tmp:
         d = Path(tmp) / "llama-3.2-1b-random"
         t0 = time.perf_counter()
@@ -801,14 +901,672 @@ def phase_slices(phases) -> None:
         write_tokenizer(d / "tokenizer.json", LLAMA_1B["vocab_size"])
         print(f"model dir written: {time.perf_counter() - t0:.1f} s, "
               f"{(d / 'model.safetensors').stat().st_size / 1e9:.2f} GB")
+        ran = {}
         if "bf16" in phases:
-            run_slice(d, None)
+            ran["bf16"] = run_slice(d, None)
         if "int4" in phases:
-            run_slice(d, "int4")
+            ran["int4"] = run_slice(d, "int4")
+        if "int8" in phases:
+            phase_int8(d, ran.get("bf16"))
+        if "batch" in phases:
+            phase_batch(d, ran)
+        if "chat" in phases:
+            phase_chat(d, Path(tmp) / "llama-3.2-1b-chat")
+        if "gpt2" in phases:
+            phase_gpt2(Path(tmp) / "gpt2-random")
+
+
+def _counts() -> tuple[int, int]:
+    """(flash, int4) launches so far."""
+    from kjarni_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from kjarni_tpu_torch.ops.kernels.int4_matvec import int4_matvec
+    return flash_attention.launches, int4_matvec.launches
+
+
+def _restore(counts: tuple[int, int]) -> None:
+    """Put the launch counts back: launches made to compare or to build a
+    reference are not the main path's."""
+    from kjarni_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from kjarni_tpu_torch.ops.kernels.int4_matvec import int4_matvec
+    flash_attention.launches, int4_matvec.launches = counts
+
+
+def _common_prefix(a: list, b: list) -> int:
+    n = 0
+    while n < min(len(a), len(b)) and a[n] == b[n]:
+        n += 1
+    return n
 
 
 # ---------------------------------------------------------------------------
-# phase 5
+# phase 5: int8 weights and the int8 KV cache
+# ---------------------------------------------------------------------------
+
+def int8_mm_case(name: str, M: int, K: int, N: int, seed: int) -> dict:
+    """_mm's int8 branch ((x @ w.to(bf16)) * scale, one torch matmul and a
+    bf16 copy of the weight per call) against x @ w in bf16, device ms per
+    call, weights cycled through copies filling > 2x L2 as int4_case does."""
+    import torch
+    from kjarni_tpu_torch.models.llama import _mm, _quant_int8
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = (torch.randn(K, N, generator=g, device="cuda") * 0.02).to(torch.bfloat16)
+    q, scale = _quant_int8(w)
+    x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+    err = (_mm(x, {"w": q, "scale": scale}).float() - (x @ w).float()).abs().max().item()
+    copies = max(1, min(32, math.ceil(100e6 / (K * N))))
+    q8 = [({"w": q.clone(), "scale": scale.clone()}) for _ in range(copies)]
+    bf = [w.clone() for _ in range(copies)]
+    it = [0]
+
+    def int8():
+        it[0] += 1
+        _mm(x, q8[it[0] % copies])
+
+    def bf16():
+        it[0] += 1
+        return x @ bf[it[0] % copies]
+    iters = max(20, copies)
+    row = {"case": f"int8 {name}", "M": M, "K": K, "N": N,
+           "int8_ms": cuda_ms(int8, iters=iters), "bf16_ms": cuda_ms(bf16, iters=iters),
+           "int8_bound_ms": bound_ms(K * N + 4 * N + 2 * M * (K + N), 2 * M * K * N)[0],
+           "max_abs_err_vs_bf16": err}
+    print(json.dumps(row))
+    del q8, bf
+    torch.cuda.empty_cache()
+    return row
+
+
+def _layers_cut(lm, n: int):
+    """A stand-in for lm with its first n layers alone (what prefill_logits
+    reads of a DecoderLM)."""
+    import types
+    p = lm.params
+    layers = {k: ({kk: t[:n] for kk, t in v.items()} if isinstance(v, dict) else v[:n])
+              for k, v in p["layers"].items()}
+    return types.SimpleNamespace(
+        family=lm.family, config=dataclasses.replace(lm.config, num_layers=n),
+        params={**p, "layers": layers}, max_context=lm.max_context,
+        _cache_dtype=lm._cache_dtype, _flash_ok=lm._flash_ok,
+        _flash_min_seq=lm._flash_min_seq)
+
+
+def int8_accuracy(d: Path, text: str) -> dict:
+    """The first prefill's logits with int8 weights against the bf16
+    weights': on the path (bf16, kernels), and in f32 (f32 copies of both,
+    the quantization's own effect as the JAX package computes it in f32),
+    at full depth and over the first 2 layers.
+
+    Checks: over 2 layers, the depth of the JAX test that set the bound
+    (tests/test_generation.py, a 2-layer model), cosine >= 0.999. At full
+    depth the quantization's own f32 cosine falls below 0.999 on these
+    random weights (0.9968 on the H100, PERF.md), so the path is held to it
+    as the kernels are held to the plain path: its distance from 1 at most
+    twice that of the f32 quantization and the bf16 path's own rounding. A
+    control must fall outside that margin: the same weights truncated
+    toward zero instead of rounded (_quant_int8_truncated)."""
+    import torch
+    from kjarni_tpu_torch import Generator
+    from kjarni_tpu_torch.models import llama as kllama
+    counts = _counts()
+    lm_b, lm_8 = Generator(str(d)).lm, Generator(str(d), quantize="int8").lm
+    ids = lm_b.encode_prompt(text)
+    f32 = f32_params
+    out = {}
+    for depth, (b, q) in {16: (lm_b, lm_8), 2: (_layers_cut(lm_b, 2), _layers_cut(lm_8, 2))
+                          }.items():
+        out[f"cos_int8_vs_bf16_weights_L{depth}"] = _cosine(prefill_logits(q, ids),
+                                                           prefill_logits(b, ids))
+        with plain_kernels():
+            out[f"cos_int8_vs_bf16_weights_L{depth}_f32"] = _cosine(
+                prefill_logits(q, ids, f32(q.params), torch.float32),
+                prefill_logits(b, ids, f32(b.params), torch.float32))
+            if depth == 16:
+                out["cos_bf16_vs_f32_L16"] = _cosine(
+                    prefill_logits(b, ids),
+                    prefill_logits(b, ids, f32(b.params), torch.float32))
+    # a control the full-depth margin must reject: the same int8 weights
+    # truncated toward zero (a bare .to(torch.int8) cast) instead of rounded
+    out["cos_int8_truncated_vs_bf16_weights_L16"] = _cosine(
+        prefill_logits(lm_8, ids, kllama._quantize_params(lm_b.params, _quant_int8_truncated,
+                                                          "w")),
+        prefill_logits(lm_b, ids))
+    _restore(counts)
+    del lm_b, lm_8
+    torch.cuda.empty_cache()
+    allowed = 2 * ((1 - out["cos_int8_vs_bf16_weights_L16_f32"])
+                   + (1 - out["cos_bf16_vs_f32_L16"]))
+    print(json.dumps({"case": "int8 accuracy", **out, "allowed_1_minus_cosine_L16": allowed}))
+    check(out["cos_int8_vs_bf16_weights_L2"] >= 0.999,
+          f"int8 vs bf16 weights over 2 layers: cosine "
+          f"{out['cos_int8_vs_bf16_weights_L2']} >= 0.999")
+    check(1 - out["cos_int8_vs_bf16_weights_L16"] <= allowed,
+          f"int8 vs bf16 weights at full depth: 1 - cosine "
+          f"{1 - out['cos_int8_vs_bf16_weights_L16']} <= {allowed}")
+    check(1 - out["cos_int8_truncated_vs_bf16_weights_L16"] > allowed,
+          f"the truncated int8 control at full depth: 1 - cosine "
+          f"{1 - out['cos_int8_truncated_vs_bf16_weights_L16']} > {allowed}")
+    return out
+
+
+def _quant_int8_truncated(w):
+    """llama._quant_int8 with a fault: w / scale truncated toward zero."""
+    import torch
+    w32 = w.float()
+    scale = w32.abs().amax(dim=-2, keepdim=True).clamp_min(1e-8) / 127.0
+    return torch.trunc(w32 / scale).to(torch.int8), scale.squeeze(-2)
+
+
+def phase_int8(d: Path, bf16: dict | None) -> None:
+    """run_slice with quantize="int8", held against the bf16 weights; the
+    int8 matmul against bf16 per decoded token; one kv_cache="int8"
+    follow-up against the bf16-KV one."""
+    import torch
+    from kjarni_tpu_torch import Generator
+    from kjarni_tpu_torch.generate.sampling import GenerationConfig
+    s8 = run_slice(d, "int8")
+    acc = int8_accuracy(d, _prompt(700, 1))
+    keys = ("prefill_ms_1024", "stream_decode_tok_per_s", "peak_mem_gb")
+    print(json.dumps({"case": "int8 weights beside bf16", **acc,
+                      **{f"int8_{k}": s8[k] for k in keys},
+                      **{f"bf16_{k}": (bf16 or {}).get(k) for k in keys}}))
+
+    shapes = {"q/o 2048x2048": (2048, 2048, 32), "k/v 2048x512": (2048, 512, 32),
+              "gate/up 2048x8192": (2048, 8192, 32), "down 8192x2048": (8192, 2048, 16),
+              "lm_head 2048x128256": (2048, 128256, 1)}
+    rows = {n: int8_mm_case(f"M=1 {n}", 1, K, N, seed=40 + i)
+            for i, (n, (K, N, _)) in enumerate(shapes.items())}
+    print(json.dumps({"case": "int8 one decoded token (113 matmuls)", **{
+        k: sum(shapes[n][2] * rows[n][k] for n in rows)
+        for k in ("int8_ms", "bf16_ms", "int8_bound_ms")}}))
+
+    # the follow-up over the int8 cache, after its own first request
+    gen = Generator(str(d), quantize="int8", kv_cache="int8")
+    lm = gen.lm
+    check(lm._ensure_cache()[0]["q"].dtype == torch.int8, "int8 KV cache")
+    greedy = GenerationConfig.greedy(max_new_tokens=64, max_length=4096)
+    torch.cuda.reset_peak_memory_stats()
+    lm.generate(token_ids=lm.encode_prompt(_prompt(700, 1)), config=greedy)
+    common = _common_prefix(lm._session_ids, s8["follow_ids"])
+    f0, i0 = _counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lm.generate(token_ids=s8["follow_ids"], config=greedy)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    flash_n, int4_n = _counts()[0] - f0, _counts()[1] - i0
+    out = lm._session_ids[len(s8["follow_ids"]):]
+    check(flash_n == FLASH_PER_PREFILL,
+          f"int8 KV follow-up: {flash_n} flash launches, expected {FLASH_PER_PREFILL}")
+    check(int4_n == 0, "int8 KV follow-up: no int4 launches")
+    check(common >= 16 and lm.last_prefill_tokens == len(s8["follow_ids"]) - common,
+          f"int8 KV follow-up prefilled only its suffix ({lm.last_prefill_tokens} of "
+          f"{len(s8['follow_ids'])}, {common} cached)")
+    ref = s8["follow_out"]
+    agree = sum(a == b for a, b in zip(out, ref)) / max(len(ref), 1)
+    print(json.dumps({"request": "int8 weights, int8 KV follow-up reuse",
+                      "prompt_tokens": len(s8["follow_ids"]), "reused_tokens": common,
+                      "prefilled_tokens": lm.last_prefill_tokens, "new_tokens": len(out),
+                      "seconds": secs, "tok_per_s": len(out) / secs,
+                      "flash_launches": flash_n,
+                      "greedy_ids_agreeing_with_bf16_kv": agree,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    del gen, lm
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 6: batched generation and sampled decoding
+# ---------------------------------------------------------------------------
+
+BATCH_PREFIX = 64       # a shared system prefix: BOS + 63 words
+SAMPLING = dict(temperature=0.9, top_k=40, top_p=0.9, min_p=0.05)
+
+
+def _batch_prompts(totals: list, seed: int, hi: int = 120000,
+                   prefix_words: int = BATCH_PREFIX - 1) -> list:
+    """Prompts of totals[r] tokens (with the llama BOS) that share a
+    `prefix_words`-word prefix and then differ from their first word on."""
+    prefix = _prompt(prefix_words, seed, hi)
+    return [f"{prefix} w{9 + r} {_prompt(n - prefix_words - 2, seed + 1 + r, hi)}"
+            for r, n in enumerate(totals)]
+
+
+def _keep_mask(row, sp):
+    """What the top-k, top-p and min-p filters keep of one row of logits
+    (numpy f32 [V]), computed here in numpy apart from the port's torch code.
+    Masked logits have probability 0 in the later filters, so each filter
+    works over what the one before kept. The top-p and min-p cutoffs get
+    1e-5 of slack for the other order of the sums on the card."""
+    import numpy as np
+    keep = np.ones(row.shape, dtype=bool)
+    V = row.shape[0]
+    if sp.top_k and sp.top_k < V:
+        keep &= row >= np.partition(row, V - sp.top_k)[V - sp.top_k]
+    if sp.top_p is not None:
+        vals = np.sort(row[keep])[::-1]
+        e = np.exp(vals - vals[0])
+        probs = e / e.sum()
+        kept = (np.cumsum(probs) - probs) <= sp.top_p + 1e-5
+        keep &= row >= vals[kept].min()
+    if sp.min_p is not None:
+        idx = np.flatnonzero(keep)
+        e = np.exp(row[idx] - row[idx].max())
+        probs = e / e.sum()
+        keep[idx[probs < probs.max() * sp.min_p * (1 - 1e-5)]] = False
+    return keep
+
+
+class DrawCheck:
+    """Within the block, every sampled draw of DecoderLM (single-stream and
+    batched) is checked to lie in its row's top-k / top-p / min-p set
+    (_keep_mask over the same processed logits)."""
+
+    def __init__(self):
+        self.draws = 0
+
+    def __enter__(self):
+        from kjarni_tpu_torch.models import decoder_lm
+        self._orig = orig = decoder_lm.sample_token
+
+        def checked(logits, generator, params, greedy):
+            tok = orig(logits, generator, params, greedy)
+            if not greedy:
+                lg = logits.float().reshape(-1, logits.shape[-1]).cpu().numpy()
+                for r, v in enumerate(tok.reshape(-1).tolist()):
+                    check(bool(_keep_mask(lg[r], params)[v]),
+                          f"sampled token {v} lies in its row's top-k/top-p/min-p set")
+                self.draws += tok.numel()
+            return tok
+        decoder_lm.sample_token = checked
+        return self
+
+    def __exit__(self, *exc):
+        from kjarni_tpu_torch.models import decoder_lm
+        decoder_lm.sample_token = self._orig
+
+
+def run_batch(gen, prompts: list, cfg, tag: str) -> dict:
+    """One Generator.generate_batch call, timed (prefill to its end, then
+    decode) and checked: no flash (the padded batch takes the plain
+    attention), and in int4 113 launches per forward."""
+    import torch
+    lm = gen.lm
+    c0 = _counts()
+    marks = {}
+    prefill = lm._batch_prefill
+
+    def timed(*args):
+        out = prefill(*args)
+        torch.cuda.synchronize()
+        marks["prefill_end"] = time.perf_counter()
+        return out
+    lm._batch_prefill = timed
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        texts = gen.generate_batch(prompts, config=cfg)
+        torch.cuda.synchronize()
+    finally:
+        del lm._batch_prefill
+    t1 = time.perf_counter()
+    flash_n, int4_n = (a - b for a, b in zip(_counts(), c0))
+    new = sum(len(t.split()) for t in texts)
+    forwards = int(lm._batch_prefix_len > 0) + 1 + lm.last_batch_steps
+    check(flash_n == 0, f"{tag}: no flash launches in the padded batch ({flash_n})")
+    want = INT4_PER_FORWARD * forwards if "int4" in tag else 0
+    check(int4_n == want, f"{tag}: {int4_n} int4 launches, expected {want}")
+    check(new > 0, f"{tag}: generated tokens")
+    row = {"batch": tag, "B": len(prompts), "prefix_len": lm._batch_prefix_len,
+           "new_tokens": new, "steps": lm.last_batch_steps + 1, "forwards": forwards,
+           "seconds": t1 - t0, "prefill_s": marks["prefill_end"] - t0,
+           "decode_s": t1 - marks["prefill_end"], "tok_per_s": new / (t1 - t0),
+           "decode_tok_per_s": new / (t1 - marks["prefill_end"]),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "flash_launches": flash_n, "int4_launches": int4_n}
+    print(json.dumps(row))
+    return {**row, "texts": texts}
+
+
+# Faults planted in the batch prefill, each a keyword that the family's
+# forward is not given: per-row RoPE positions (each row then rotates by
+# cache slot, off by its left padding) and the pad mask (rows attend their
+# padding). Every bound on the batch rows must reject both.
+BATCH_FAULTS = {"rope_at_slot_indices": "positions", "pad_mask_ignored": "pad_mask"}
+# Batch rows against the single-stream prefill of each prompt: in bf16 on
+# the path (flash in the single stream, bf16 rounded in other places), and
+# in f32 with the plain kernels, where the two agree but for the order of
+# sums. Each bound lies between the sound and the faulty readings on the
+# H100 (PERF.md): bf16 sound >= 0.99935, f32 sound 0.9999999, every fault
+# <= 0.915.
+BATCH_COS_MIN = {"bf16": 0.998, "f32": 0.99999}
+# int8-KV batch rows against the bf16-KV batch rows of the same prompts
+# (sound 0.9988, faults <= 0.915)
+KV8_COS_MIN = 0.995
+
+
+@contextlib.contextmanager
+def as_f32(lm):
+    """Within the block lm runs f32 copies of its params with an f32 cache
+    and both kernels' plain versions."""
+    import torch
+    saved = lm.params, lm._cache_dtype
+    lm.params, lm._cache_dtype = f32_params(lm.params), torch.float32
+    try:
+        with plain_kernels():
+            yield
+    finally:
+        lm.params, lm._cache_dtype = saved
+        torch.cuda.empty_cache()
+
+
+def _batch_ids(lm, prompts: list) -> list:
+    return [lm._bound_prompt(lm.encode_prompt(p)) for p in prompts]
+
+
+def batch_prefill_logits(lm, prompts: list, drop: str | None = None):
+    """Each row's logits (f32 [B, V], on the CPU) from the batch prefill of
+    `prompts` (left-padded, plain attention with the pad mask, the shared
+    prefix broadcast), as generate_batch runs it. `drop` names a keyword
+    that the family's forward is not given (a planted fault)."""
+    import types
+    from kjarni_tpu_torch.core.bucketing import seq_bucket
+    ids_list = _batch_ids(lm, prompts)
+    P = lm._shared_batch_prefix(ids_list)
+    bucket = seq_bucket(max(len(r) - P for r in ids_list), lm.max_context - P)
+    family = lm.family
+    if drop is not None:
+        def forward(*args, **kw):
+            kw.pop(drop, None)
+            return family.forward(*args, **kw)
+        lm.family = types.SimpleNamespace(forward=forward, init_cache=family.init_cache)
+    try:
+        return lm._batch_prefill(ids_list, P, bucket, P + bucket)[0].float().cpu()
+    finally:
+        lm.family = family
+
+
+def single_prefill_logits(lm, prompts: list):
+    """Each prompt's logits (f32 [B, V], on the CPU) from its single-stream
+    prefill (flash at buckets >= 512 where lm takes it)."""
+    import torch
+    return torch.cat([prefill_logits(lm, ids).cpu() for ids in _batch_ids(lm, prompts)])
+
+
+def hold_batch_rows(lm, prompts: list, ref, bound: float, what: str):
+    """Hold each row of the batch prefill against ref [B, V] at cosine >=
+    bound, and check that every planted fault (BATCH_FAULTS) reads below
+    it. Prints one line; returns the sound rows' logits. Launches made here
+    are not the main path's."""
+    import torch
+    counts = _counts()
+
+    def min_cos(logits):
+        return torch.nn.functional.cosine_similarity(logits, ref, dim=-1).min().item()
+    got = batch_prefill_logits(lm, prompts)
+    faults = {name: min_cos(batch_prefill_logits(lm, prompts, kw))
+              for name, kw in BATCH_FAULTS.items()}
+    _restore(counts)
+    torch.cuda.empty_cache()
+    sound = min_cos(got)
+    print(json.dumps({"case": what, "min_cosine": sound,
+                      "max_abs_err": (got - ref).abs().max().item(),
+                      "bound": f"cosine >= {bound}",
+                      **{f"min_cosine_{n}": c for n, c in faults.items()}}))
+    check(sound >= bound, f"{what}: cosine {sound} >= {bound}")
+    for name, c in faults.items():
+        check(c < bound, f"{what}: the planted fault {name} reads {c} < {bound}")
+    return got
+
+
+def batch_rows_vs_single(lm, prompts: list, tag: str, precisions=("bf16", "f32")):
+    """hold_batch_rows against the single-stream prefill of each prompt, in
+    each of `precisions` (BATCH_COS_MIN). Returns the bf16 rows' logits."""
+    out = None
+    for prec in precisions:
+        with as_f32(lm) if prec == "f32" else contextlib.nullcontext():
+            counts = _counts()
+            ref = single_prefill_logits(lm, prompts)
+            _restore(counts)
+            got = hold_batch_rows(lm, prompts, ref, BATCH_COS_MIN[prec],
+                                  f"{tag}: batch prefill rows vs single-stream "
+                                  f"prefill, {prec}")
+        out = got if prec == "bf16" else out
+    return out
+
+
+def phase_batch(d: Path, ran: dict) -> None:
+    """B = 8 ragged prompts (300-700 tokens, a 64-token shared prefix) in
+    bf16 and int4; B = 8 prompts of ~1,800 tokens with the bf16 and the int8
+    KV cache; seeded sampled decoding, single-stream and batched."""
+    import torch
+    from kjarni_tpu_torch import Generator
+    from kjarni_tpu_torch.generate.sampling import GenerationConfig
+    greedy = GenerationConfig.greedy(max_new_tokens=64, max_length=4096)
+    short = _batch_prompts([300 + 57 * r for r in range(7)] + [700], seed=50)
+    long = _batch_prompts([1764 + 10 * r for r in range(8)], seed=60)
+    rows = {}
+    for quantize in (None, "int4"):
+        tag = f"batch {quantize or 'bf16'} B8 300-700"
+        gen = Generator(str(d), quantize=quantize)
+        rows[tag] = run_batch(gen, short, greedy, tag)
+        check(gen.lm._batch_prefix_len == BATCH_PREFIX,
+              f"{tag}: shared prefix {gen.lm._batch_prefix_len} == {BATCH_PREFIX}")
+        batch_rows_vs_single(gen.lm, short, tag)
+        single = ran.get(quantize or "bf16", {}).get("stream_decode_tok_per_s")
+        print(json.dumps({"case": f"{tag}: aggregate beside single-stream",
+                          "batch_decode_tok_per_s": rows[tag]["decode_tok_per_s"],
+                          "single_stream_decode_tok_per_s": single,
+                          "peak_mem_gb": rows[tag]["peak_mem_gb"]}))
+        if quantize is None:
+            tag = "batch bf16 B8 ~1800, bf16 KV"
+            rows["long bf16"] = run_batch(gen, long, greedy, tag)
+            long_rows = batch_rows_vs_single(gen.lm, long, tag, ("bf16",))
+            sampled(gen, short)
+        del gen
+        torch.cuda.empty_cache()
+    gen = Generator(str(d), kv_cache="int8")
+    tag = "batch bf16 B8 ~1800, int8 KV"
+    rows["long int8"] = run_batch(gen, long, greedy, tag)
+    hold_batch_rows(gen.lm, long, long_rows, KV8_COS_MIN,
+                    f"{tag}: batch prefill rows vs the bf16-KV batch rows")
+    del gen
+    torch.cuda.empty_cache()
+    print(json.dumps({"case": "batch B8 ~1800 tokens: int8 KV beside bf16 KV",
+                      **{f"{k}_{m}": rows[f"long {k}"][m] for k in ("bf16", "int8")
+                         for m in ("decode_tok_per_s", "peak_mem_gb", "prefill_s")}}))
+
+
+def sampled(gen, prompts: list) -> None:
+    """Seeded sampled decoding on the card: each seed repeats its stream,
+    single-stream and batched, and every draw lies in its filter set."""
+    from kjarni_tpu_torch.generate.sampling import GenerationConfig, SamplingParams
+    cfg = GenerationConfig(max_new_tokens=64, max_length=4096, strategy="sample",
+                           sampling=SamplingParams(**SAMPLING), seed=3)
+    one = []
+    with DrawCheck() as dc:
+        for _ in range(2):
+            gen.lm._session_ids = []    # the same prefill both times, no reuse
+            one.append(gen.generate(prompts[0], config=cfg))
+        single_draws = dc.draws
+        many = [gen.generate_batch(prompts, config=cfg) for _ in range(2)]
+    check(one[0] == one[1] and one[0], "sampled single stream: the seed repeats it")
+    check(many[0] == many[1], "sampled batch: the seed repeats it")
+    print(json.dumps({"case": "sampled decoding on the card", "sampling": SAMPLING,
+                      "seed": cfg.seed, "single_draws": single_draws,
+                      "batch_draws": dc.draws - single_draws,
+                      "all_draws_in_filter_sets": True}))
+
+
+# ---------------------------------------------------------------------------
+# phase 7: Chat
+# ---------------------------------------------------------------------------
+
+# Llama 3's special tokens at their ids in its 128,256-token vocabulary
+LLAMA3_SPECIALS = {"<|begin_of_text|>": 128000, "<|end_of_text|>": 128001,
+                   "<|start_header_id|>": 128006, "<|end_header_id|>": 128007,
+                   "<|eot_id|>": 128009}
+
+
+def phase_chat(src: Path, d: Path) -> None:
+    """Chat over the phase-3 weights with a tokenizer holding the llama3
+    template's specials and <|eot_id|> among the stop ids: three turns of
+    ~700, +~600 and ~700 tokens in a 2,048-token context, so the third drops
+    the oldest turn."""
+    import torch
+    from kjarni_tpu_torch import Chat
+    d.mkdir()
+    for name in ("model.safetensors", "config.json"):
+        (d / name).symlink_to(src / name)
+    write_tokenizer(d / "tokenizer.json", LLAMA_1B["vocab_size"], LLAMA3_SPECIALS)
+    (d / "generation_config.json").write_text(json.dumps(
+        {"eos_token_id": [128001, 128008, 128009]}))
+    chat = Chat(str(d), system_prompt=_prompt(24, 70), max_context=2048)
+    lm = chat.lm
+    check(lm.device.type == "cuda" and 128009 in lm.stop_token_ids, "chat on the card")
+    msgs = [_prompt(680, 71), _prompt(600, 72), _prompt(700, 73)]
+    prev_prompt = 0
+    torch.cuda.reset_peak_memory_stats()
+    for turn, msg in enumerate(msgs, 1):
+        before = list(lm._session_ids)
+        f0, i0 = _counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n, t_first = 0, None
+        for _ in chat.stream(msg, preset="greedy", max_new_tokens=64, max_length=4096):
+            if n == 0:
+                torch.cuda.synchronize()
+                t_first = time.perf_counter()
+            n += 1
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        flash_n, int4_n = (a - b for a, b in zip(_counts(), (f0, i0)))
+        prompt = lm._session_ids[:len(lm._session_ids) - n]
+        common = _common_prefix(before, prompt)
+        reused = common if common >= lm._min_reuse_prefix else 0
+        check(n > 0, f"chat turn {turn}: a reply")
+        check(flash_n == FLASH_PER_PREFILL and int4_n == 0,
+              f"chat turn {turn}: {flash_n} flash launches, expected {FLASH_PER_PREFILL}")
+        check(lm.last_prefill_tokens == len(prompt) - reused,
+              f"chat turn {turn}: prefilled {lm.last_prefill_tokens} of {len(prompt)} "
+              f"with {reused} cached")
+        if turn == 2:
+            check(reused >= prev_prompt, f"chat turn 2 reuses turn 1's prompt ({reused})")
+        if turn == 3:
+            check(all(m.content != msgs[0] for m in chat.conversation.messages),
+                  "chat turn 3 dropped the oldest turn")
+        prev_prompt = len(prompt)
+        print(json.dumps({"chat_turn": turn, "prompt_tokens": len(prompt),
+                          "reused_tokens": reused, "prefilled_tokens": lm.last_prefill_tokens,
+                          "new_tokens": n, "ttft_ms": 1e3 * (t_first - t0),
+                          "decode_tok_per_s": (n - 1) / (t_end - t_first) if n > 1 else None,
+                          "messages": len(chat.conversation.messages),
+                          "flash_launches": flash_n}))
+    print(json.dumps({"case": "chat", "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    del chat, lm
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 8: GPT-2
+# ---------------------------------------------------------------------------
+
+# GPT-2's public config.json values (openai-community/gpt2)
+GPT2 = {"model_type": "gpt2", "architectures": ["GPT2LMHeadModel"], "vocab_size": 50257,
+        "n_embd": 768, "n_layer": 12, "n_head": 12, "n_positions": 1024, "n_ctx": 1024,
+        "activation_function": "gelu_new", "layer_norm_epsilon": 1e-5,
+        "bos_token_id": 50256, "eos_token_id": 50256}
+
+
+def write_gpt2_dir(d: Path, seed: int = 0) -> None:
+    """config.json, tokenizer.json and model.safetensors of random f32
+    weights (N(0, 0.02), biases too; norms ones) in GPT-2's checkpoint
+    layout (Conv1D weights [in, out])."""
+    import torch
+    from kjarni_tpu_torch.weights.safetensors_loader import save_file
+    c = GPT2
+    H, V = c["n_embd"], c["vocab_size"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return (torch.randn(*shape, generator=g, device="cuda") * 0.02).cpu()
+
+    t = {"transformer.wte.weight": rnd(V, H), "transformer.wpe.weight": rnd(c["n_positions"], H),
+         "transformer.ln_f.weight": torch.ones(H), "transformer.ln_f.bias": rnd(H)}
+    for i in range(c["n_layer"]):
+        p = f"transformer.h.{i}."
+        t.update({p + "ln_1.weight": torch.ones(H), p + "ln_1.bias": rnd(H),
+                  p + "ln_2.weight": torch.ones(H), p + "ln_2.bias": rnd(H),
+                  p + "attn.c_attn.weight": rnd(H, 3 * H), p + "attn.c_attn.bias": rnd(3 * H),
+                  p + "attn.c_proj.weight": rnd(H, H), p + "attn.c_proj.bias": rnd(H),
+                  p + "mlp.c_fc.weight": rnd(H, 4 * H), p + "mlp.c_fc.bias": rnd(4 * H),
+                  p + "mlp.c_proj.weight": rnd(4 * H, H), p + "mlp.c_proj.bias": rnd(H)})
+    d.mkdir(parents=True, exist_ok=True)
+    save_file(t, d / "model.safetensors")
+    (d / "config.json").write_text(json.dumps(c))
+    write_tokenizer(d / "tokenizer.json", V)
+
+
+def phase_gpt2(d: Path) -> None:
+    """GPT-2 at its public widths: a greedy generate on a 700-token prompt
+    and a B = 8 generate_batch on the card, neither launching a kernel; the
+    card's bf16 logits against the f32 forward on the CPU."""
+    import torch
+    from kjarni_tpu_torch import Generator
+    from kjarni_tpu_torch.generate.sampling import GenerationConfig
+    from kjarni_tpu_torch.models.decoder_lm import DecoderLM
+    t0 = time.perf_counter()
+    write_gpt2_dir(d, seed=80)
+    print(f"gpt2 dir written: {time.perf_counter() - t0:.1f} s")
+    gen = Generator(str(d))
+    lm = gen.lm
+    check(lm.device.type == "cuda" and lm.config.arch == "gpt2" and not lm._flash_ok,
+          "gpt2 on the card, no flash")
+    greedy = GenerationConfig.greedy(max_new_tokens=64, max_length=1024)
+    text = _prompt(700, 81, hi=50000)
+    c0 = _counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    first = {}
+    for st in gen.generate_stream(text, config=greedy):
+        if "t" not in first:
+            torch.cuda.synchronize()
+            first["t"] = time.perf_counter()
+        first["n"] = first.get("n", 0) + 1
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    check(first.get("n", 0) > 0, "gpt2 generate: tokens")
+    ids = lm.encode_prompt(text)
+    gen_row = {"gpt2": "generate 700", "prompt_tokens": len(ids), "new_tokens": first["n"],
+               "ttft_ms": 1e3 * (first["t"] - t),
+               "decode_tok_per_s": (first["n"] - 1) / (t_end - first["t"]),
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(json.dumps(gen_row))
+    prompts = _batch_prompts([200 + 36 * r for r in range(8)], seed=82, hi=50000,
+                             prefix_words=BATCH_PREFIX)
+    run_batch(gen, prompts, greedy, "gpt2 batch B8 200-452")
+    check(lm._batch_prefix_len == BATCH_PREFIX, f"gpt2 batch prefix {lm._batch_prefix_len}")
+    check(_counts() == c0, f"gpt2 launched no kernel ({c0} -> {_counts()})")
+    # the card's bf16 logits against the same weights' f32 forward on the CPU
+    got = prefill_logits(lm, ids)[0].cpu()
+    cpu = DecoderLM(d, device="cpu")
+    want = prefill_logits(cpu, ids, device="cpu")[0]
+    cos = _cosine(got, want)
+    err = (got - want).abs().max().item()
+    check(bool(torch.isfinite(got).all()) and got.shape == (GPT2["vocab_size"],),
+          "gpt2 logits finite, of the vocab's shape")
+    check(cos >= 0.999, f"gpt2 bf16 card vs f32 CPU logits: cosine {cos} >= 0.999")
+    print(json.dumps({"case": "gpt2 bf16 card vs f32 CPU, first prefill logits",
+                      "cosine": cos, "max_abs_err": err,
+                      "max_abs_ref": want.abs().max().item(), "bound": "cosine >= 0.999"}))
+    del gen, lm, cpu
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 9
 # ---------------------------------------------------------------------------
 
 def encoder_modules(c: dict) -> dict:
@@ -1129,7 +1887,7 @@ def phase_embed() -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="env,kernels,bf16,int4,embed")
+    ap.add_argument("--phases", default=",".join(["env", "kernels", *GENERATION, "embed"]))
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="the checkout whose kjarni_tpu_torch is imported")
     args = ap.parse_args()
@@ -1150,12 +1908,12 @@ def main() -> int:
         phase_flash()
     flash_attention.launches = 0
     int4_matvec.launches = 0
-    if "bf16" in phases or "int4" in phases:
+    if set(GENERATION) & set(phases):
         phase_slices(phases)
     launches = {"flash": flash_attention.launches, "int4": int4_matvec.launches}
-    if "bf16" in phases or "int4" in phases:
+    if {"bf16", "int4", "int8", "chat"} & set(phases):
         check(launches["flash"] > 0, "the main path launched the flash kernel")
-    if "int4" in phases:
+    if {"int4", "batch"} & set(phases):
         check(launches["int4"] > 0, "the main path launched the int4 kernel")
     if "embed" in phases:
         phase_embed()

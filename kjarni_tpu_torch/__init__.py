@@ -18,6 +18,9 @@ def __getattr__(name):
     if name == "Generator":
         from .tasks.generator import Generator
         return Generator
+    if name in ("Chat", "chat_send"):
+        from .tasks import chat
+        return getattr(chat, name)
     if name == "Embedder":
         from .tasks.embedder import Embedder
         return Embedder
@@ -30,4 +33,4 @@ def __getattr__(name):
     raise AttributeError(f"module 'kjarni_tpu_torch' has no attribute '{name}'")
 
 
-__all__ = ["Generator", "Embedder", "Classifier", "Reranker", "Device", "KjarniError"]
+__all__ = ["Generator", "Chat", "chat_send", "Embedder", "Classifier", "Reranker", "Device", "KjarniError"]

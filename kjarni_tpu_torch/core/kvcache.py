@@ -12,6 +12,10 @@ from __future__ import annotations
 import torch
 
 
-def slice_working(cache: torch.Tensor, kb: int, axis: int) -> torch.Tensor:
-    """View of the first `kb` positions along the position axis."""
+def slice_working(cache, kb: int, axis: int):
+    """View of the first `kb` positions along the position axis; for the
+    int8 cache ({"q": [..., T, D], "s": [..., T]}) a dict of such views,
+    the position axis being `axis` in both."""
+    if isinstance(cache, dict):
+        return {k: t.narrow(axis, 0, kb) for k, t in cache.items()}
     return cache.narrow(axis, 0, kb)

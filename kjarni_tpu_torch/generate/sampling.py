@@ -61,57 +61,69 @@ class GenerationConfig:
 
 def _scatter_add(dst: torch.Tensor, index: torch.Tensor,
                  src: torch.Tensor) -> torch.Tensor:
-    """dst.at[index].add(src, mode="drop"): out-of-range indices are dropped."""
-    ok = (index >= 0) & (index < dst.shape[0])
-    return dst.index_add(0, index.clamp(0, dst.shape[0] - 1),
-                         torch.where(ok, src, torch.zeros_like(src)))
+    """dst.at[r, index].add(src, mode="drop") per row of dst [B, V]:
+    out-of-range indices are dropped."""
+    V = dst.shape[-1]
+    ok = (index >= 0) & (index < V)
+    return dst.scatter_add(-1, index.clamp(0, V - 1),
+                           torch.where(ok, src, torch.zeros_like(src)))
+
+
+def _lengths(length, rows: int, device) -> torch.Tensor:
+    """`length` (an int, or a tensor of one per row) as a [B, 1] tensor."""
+    return torch.as_tensor(length, device=device).reshape(-1, 1).expand(rows, 1)
 
 
 def apply_repetition_penalty(logits: torch.Tensor, tokens: torch.Tensor,
                              valid: torch.Tensor, penalty: float) -> torch.Tensor:
-    """logits [V]; tokens [T] history buffer; valid [T] 0/1 mask.
+    """logits [V]; tokens [T] history buffer; valid [T] 0/1 mask; or the
+    same with a leading batch axis, row by row.
 
     Per-occurrence compounding, sign-dependent divide/multiply (sampling.rs:8).
     """
-    V = logits.shape[-1]
-    counts = _scatter_add(torch.zeros(V, dtype=torch.float32, device=logits.device),
-                          tokens.long(), valid.float())
+    lg = logits.reshape(-1, logits.shape[-1])
+    counts = _scatter_add(torch.zeros(lg.shape, dtype=torch.float32, device=lg.device),
+                          tokens.long().reshape(lg.shape[0], -1),
+                          valid.float().reshape(lg.shape[0], -1))
     factor = torch.pow(torch.tensor(penalty, dtype=torch.float32,
                                     device=logits.device), counts)
-    return torch.where(logits < 0, logits * factor, logits / factor)
+    return torch.where(lg < 0, lg * factor, lg / factor).reshape(logits.shape)
 
 
 def apply_no_repeat_ngram(logits: torch.Tensor, tokens: torch.Tensor,
-                          length: int, ngram_size: int) -> torch.Tensor:
+                          length, ngram_size: int) -> torch.Tensor:
     """Ban tokens that would complete a repeated n-gram (sampling.rs:32).
 
-    tokens: [T] fixed buffer holding `length` tokens. The current prefix is
-    the last n-1 valid tokens; every historical window matching that prefix
-    bans its completing token.
+    tokens: [T] fixed buffer holding `length` tokens, or [B, T] with one
+    length per row. The current prefix is the last n-1 valid tokens; every
+    historical window matching that prefix bans its completing token.
     """
     n = ngram_size
-    T = tokens.shape[0]
+    T = tokens.shape[-1]
     if n <= 1 or T < n:
         return logits
     dev = tokens.device
-    tokens = tokens.long()
+    lg = logits.reshape(-1, logits.shape[-1])
+    tokens = tokens.long().reshape(lg.shape[0], T)
+    length = _lengths(length, lg.shape[0], dev)
     prefix_idx = length - (n - 1) + torch.arange(n - 1, device=dev)
-    prefix = tokens[prefix_idx.clamp(0, T - 1)]
+    prefix = tokens.gather(1, prefix_idx.clamp(0, T - 1))
     starts = torch.arange(T - n + 1, device=dev)
-    windows = tokens[starts[:, None] + torch.arange(n - 1, device=dev)[None, :]]
-    match = (windows == prefix[None, :]).all(dim=1)
+    windows = tokens[:, starts[:, None] + torch.arange(n - 1, device=dev)[None, :]]
+    match = (windows == prefix[:, None, :]).all(dim=-1)
     valid = (starts + n <= length) & (length >= n - 1)
-    banned = tokens[starts + n - 1]
-    delta = _scatter_add(torch.zeros_like(logits), banned,
-                         torch.where(match & valid, NEG_INF, 0.0).to(logits.dtype))
-    return logits + delta
+    banned = tokens[:, starts + n - 1]
+    delta = _scatter_add(torch.zeros_like(lg), banned,
+                         torch.where(match & valid, NEG_INF, 0.0).to(lg.dtype))
+    return (lg + delta).reshape(logits.shape)
 
 
 def top_k_filter(logits: torch.Tensor, k: int) -> torch.Tensor:
-    """Keep the top-k logits (ties at the cutoff kept), NEG_INF the rest."""
+    """Keep the top-k logits of each row (ties at the cutoff kept), NEG_INF
+    the rest."""
     if k <= 0 or k >= logits.shape[-1]:
         return logits
-    cutoff = torch.topk(logits, k).values[..., -1]
+    cutoff = torch.topk(logits, k).values[..., -1:]
     return torch.where(logits >= cutoff, logits, NEG_INF)
 
 
@@ -124,23 +136,26 @@ def top_p_filter(logits: torch.Tensor, p: float) -> torch.Tensor:
     cum = torch.cumsum(probs, dim=-1)
     keep_sorted = (cum - probs) <= p
     cutoff = torch.where(keep_sorted, sorted_logits,
-                         torch.full_like(sorted_logits, float("inf"))).min()
+                         torch.full_like(sorted_logits, float("inf"))
+                         ).amin(dim=-1, keepdim=True)
     return torch.where(logits >= cutoff, logits, NEG_INF)
 
 
 def min_p_filter(logits: torch.Tensor, min_p: float) -> torch.Tensor:
     """Drop tokens with prob < min_p * max_prob (sampling.rs:131)."""
     probs = torch.softmax(logits, dim=-1)
-    cutoff = probs.max() * min_p
+    cutoff = probs.amax(dim=-1, keepdim=True) * min_p
     return torch.where(probs >= cutoff, logits, NEG_INF)
 
 
 def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
                  params: SamplingParams, greedy: bool) -> torch.Tensor:
-    """Full sampling chain (sampling.rs:81). logits [V] -> 0-d int64 tensor.
-    Greedy takes the first maximum, as the JAX package's fast_argmax does."""
+    """Full sampling chain (sampling.rs:81). logits [V] -> 0-d int64 tensor,
+    or [B, V] -> [B], one draw per row from the one generator (the JAX
+    package vmaps the [V] form). Greedy takes the first maximum of each row,
+    as the JAX package's fast_argmax does."""
     if greedy:
-        return torch.argmax(logits)
+        return torch.argmax(logits, dim=-1)
     if params.top_k is not None:
         logits = top_k_filter(logits, params.top_k)
     if params.top_p is not None:
@@ -149,16 +164,20 @@ def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
         logits = min_p_filter(logits, params.min_p)
     temp = 1.0 if params.temperature < 1e-5 else params.temperature
     probs = torch.softmax(logits / temp, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[0]
+    return torch.multinomial(probs, 1, generator=generator)[..., 0]
 
 
-def process_logits(logits: torch.Tensor, tokens: torch.Tensor, length: int,
+def process_logits(logits: torch.Tensor, tokens: torch.Tensor, length,
                    cfg_penalty: float, ngram_size: int) -> torch.Tensor:
     """Penalty + ngram chain applied before sampling, in f32
-    (generator.rs:330-376)."""
+    (generator.rs:330-376). logits [V] with tokens [T] holding `length`
+    tokens, or logits [B, V] with tokens [B, T] and a length per row (the
+    JAX package vmaps the [V] form)."""
     logits = logits.float()
     if cfg_penalty != 1.0:
-        valid = torch.arange(tokens.shape[0], device=tokens.device) < length
+        rows = logits.reshape(-1, logits.shape[-1]).shape[0]
+        valid = (torch.arange(tokens.shape[-1], device=tokens.device)
+                 < _lengths(length, rows, tokens.device)).reshape(tokens.shape)
         logits = apply_repetition_penalty(logits, tokens, valid, cfg_penalty)
     if ngram_size > 0:
         logits = apply_no_repeat_ngram(logits, tokens, length, ngram_size)

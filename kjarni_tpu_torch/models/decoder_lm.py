@@ -1,5 +1,6 @@
-"""DecoderLM: a loaded llama-family language model with a streaming generator
-(port of kjarni_tpu/models/decoder_lm.py, llama family).
+"""DecoderLM: a loaded decoder language model (llama family or GPT-2) with a
+streaming generator and batched generation (port of
+kjarni_tpu/models/decoder_lm.py).
 
 Per request: one prefill forward over the prompt bucket, writing the KV cache
 in place and skipping a prefix that is still in the cache from the previous
@@ -7,7 +8,9 @@ request; then a host loop, one forward and one host sync (the sampled id) per
 token. The JAX package fuses that loop into a `lax.while_loop` with an
 on-device stop exit; here the loop is on the host and keeps the same
 semantics: the stop token is dropped, and decode attention reads the cache
-only up to the current 512-slot bucket.
+only up to the current 512-slot bucket. `generate_batch` runs ragged prompts
+left-padded in one per-call cache, with a shared prompt prefix prefilled
+once and broadcast into every row.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from ..generate.sampling import (GenerationConfig, SamplingParams, process_logit
 from ..generate.stream import StreamDecoder, StreamedToken, TokenType
 from ..tokenizer import KjarniTokenizer
 from ..weights.safetensors_loader import ModelWeights
+from . import gpt2 as kgpt2
 from . import llama as kllama
 
 DEFAULT_MAX_CONTEXT = 4096
@@ -82,7 +86,7 @@ def resolve_dtype(dtype, device: torch.device) -> torch.dtype:
     dtype = auto_dtype(dtype, device)
     if device.type == "cuda" and dtype != torch.bfloat16:
         raise not_ported(f"dtype {dtype} on the card (its kernels take bf16)",
-                          "queue 1, item 3")
+                          "queue 1, item 3.6")
     return dtype
 
 
@@ -96,15 +100,11 @@ class DecoderLM:
                  execution_plan=None,
                  tp: Optional[int] = None,
                  device=None):
-        # options of the JAX DecoderLM that this slice does not port
-        if quantize == "int8":
-            raise not_ported("quantize='int8'", "queue 1, item 3")
-        if quantize not in (None, "int4"):
+        if quantize not in (None, "int8", "int4"):
             raise InvalidConfigError(f"unknown quantize mode '{quantize}'")
-        if kv_cache == "int8":
-            raise not_ported("kv_cache='int8'", "queue 1, item 3")
-        if kv_cache is not None:
+        if kv_cache not in (None, "int8"):
             raise InvalidConfigError(f"unknown kv_cache mode '{kv_cache}'")
+        # options of the JAX DecoderLM that the port does not have yet
         if tp is not None and tp > 1:
             raise not_ported("tensor parallelism (tp>1)", "queue 1, item 9")
         if execution_plan is not None:
@@ -122,14 +122,28 @@ class DecoderLM:
         hf_cfg = json.loads((model_dir / "config.json").read_text())
         self.hf_config = hf_cfg
         if hf_cfg.get("model_type", "llama") == "gpt2":
-            raise not_ported("the gpt2 family", "queue 1, item 3")
-        self.config = cfg = kllama.DecoderConfig.from_hf(hf_cfg)
+            self.family = kgpt2
+            self.config = cfg = kgpt2.Gpt2Config.from_hf(hf_cfg)
+        else:
+            self.family = kllama
+            self.config = cfg = kllama.DecoderConfig.from_hf(hf_cfg)
+        if kv_cache == "int8" and self.family is not kllama:
+            raise InvalidConfigError(
+                "kv_cache='int8' supports llama-family models only "
+                "(llama/qwen2/mistral/phi3)")
+        self._kv_quantized = kv_cache == "int8"
 
         self.max_context = min(cfg.max_seq_len, max_context or DEFAULT_MAX_CONTEXT)
-        params = kllama.load_params(ws, cfg, dtype, rope_cache_len=self.max_context,
-                                    device=self.device)
-        if quantize == "int4":
-            params = kllama.quantize_params_int4(params)
+        if self.family is kllama:
+            params = kllama.load_params(ws, cfg, dtype, rope_cache_len=self.max_context,
+                                        device=self.device)
+            # quantize is ignored for gpt2, as in the JAX package
+            if quantize == "int8":
+                params = kllama.quantize_params_int8(params)
+            elif quantize == "int4":
+                params = kllama.quantize_params_int4(params)
+        else:
+            params = kgpt2.load_params(ws, cfg, dtype, device=self.device)
         self.params = params
         self._cache_dtype = dtype
         self._cache = None  # allocated lazily, reused across generations
@@ -153,9 +167,9 @@ class DecoderLM:
         self.stop_token_ids = set(eos)
         self.bos_token_id = cfg.bos_token_id
 
-        # flash prefill: on the card, for long prompts
+        # flash prefill: on the card, llama family, for long prompts
         self._flash_min_seq = 512
-        self._flash_ok = self.device.type == "cuda"
+        self._flash_ok = self.device.type == "cuda" and self.family is kllama
         # decode attention reads only the current ceil-to-bucket slice of the
         # cache; contexts at or below one bucket read the whole cache
         self._kv_bucket_step = 512
@@ -167,10 +181,17 @@ class DecoderLM:
     # internals
     # ------------------------------------------------------------------
 
+    def _new_cache(self, batch: int, slots: int):
+        """A zeroed KV cache of the model's form: int8 under kv_cache="int8"."""
+        if self._kv_quantized:
+            return kllama.init_cache(self.config, batch, slots, self._cache_dtype,
+                                     self.device, quantized=True)
+        return self.family.init_cache(self.config, batch, slots, self._cache_dtype,
+                                      self.device)
+
     def _ensure_cache(self):
         if self._cache is None:
-            self._cache = kllama.init_cache(self.config, 1, self.max_context,
-                                            self._cache_dtype, self.device)
+            self._cache = self._new_cache(1, self.max_context)
         return self._cache
 
     @torch.inference_mode()
@@ -202,17 +223,18 @@ class DecoderLM:
             use_flash = score_bytes > REUSE_FLASH_MIN_SCORE_BYTES
         if use_flash:
             kv_bucket = min(-(-(common + bucket) // 128) * 128, self.max_context)
-        logits, ck, cv = kllama.forward(
+        logits, ck, cv = self.family.forward(
             self.params, self.config, padded.to(self.device), ck, cv, common,
             len(suffix) - 1, use_flash=use_flash, kv_bucket=kv_bucket)
         self.last_prefill_tokens = len(suffix)  # observability for tests/stats
         return logits[0], ck, cv, common
 
-    def _kv_bucket(self, pos: int) -> Optional[int]:
+    def _kv_bucket(self, pos: int, slots: Optional[int] = None) -> Optional[int]:
         """Cache slots decode attention reads when writing slot `pos`: the
-        ceil-to-bucket fill, or None (the whole cache) once that covers it."""
+        ceil-to-bucket fill, or None (the whole cache of `slots`, default
+        max_context) once that covers it."""
         kb = -(-(pos + 1) // self._kv_bucket_step) * self._kv_bucket_step
-        return None if kb >= self.max_context else kb
+        return None if kb >= (slots or self.max_context) else kb
 
     @torch.inference_mode()
     def _decode(self, logits, ck, cv, history: torch.Tensor, pos: int,
@@ -243,8 +265,8 @@ class DecoderLM:
             kb = self._kv_bucket(pos)
             wk = ck if kb is None else slice_working(ck, kb, axis=3)
             wv = cv if kb is None else slice_working(cv, kb, axis=3)
-            logits, _, _ = kllama.forward(self.params, self.config,
-                                          tok.view(1, 1), wk, wv, pos)
+            logits, _, _ = self.family.forward(self.params, self.config,
+                                               tok.view(1, 1), wk, wv, pos)
             logits = logits[0]
             pos += 1
             yield t
@@ -348,8 +370,136 @@ class DecoderLM:
         self._session_ids = ids + toks
         return self.tokenizer.decode(toks, skip_special_tokens=True)
 
-    def generate_batch(self, prompts, *, config=None):
-        raise not_ported("generate_batch", "queue 1, item 3")
+    def _shared_batch_prefix(self, ids_list: list) -> int:
+        """Longest token prefix common to every row (each row keeps at least
+        one suffix token); 0 below _min_reuse_prefix tokens."""
+        if len(ids_list) < 2:
+            return 0
+        first = ids_list[0]
+        limit = min(len(r) for r in ids_list) - 1
+        p = 0
+        while p < limit and all(r[p] == first[p] for r in ids_list):
+            p += 1
+        return p if p >= self._min_reuse_prefix else 0
+
+    def _prefix_fill(self, ids_p: list):
+        """Prefill a shared prompt prefix once at B = 1, padded to its seq
+        bucket (the padding's K/V lies past the prefix and is never copied),
+        and return that cache for broadcast into the batch cache."""
+        pb = seq_bucket(len(ids_p), self.max_context)
+        ck, cv = self._new_cache(1, pb)
+        ids = torch.zeros((1, pb), dtype=torch.long)
+        ids[0, :len(ids_p)] = torch.tensor(ids_p, dtype=torch.long)
+        self.family.forward(self.params, self.config, ids.to(self.device), ck, cv, 0,
+                            pb - 1)
+        return ck, cv
+
+    @torch.inference_mode()
+    def _batch_prefill(self, ids_list: list, P: int, bucket: int, slots: int):
+        """The batch's prefill over a fresh [B, slots] cache: each row's
+        suffix after the shared P-token prefix, left-padded to `bucket` at
+        cache slots P..P+bucket, with per-row RoPE positions and a pad mask
+        over the slots. Returns (logits [B, V], ck, cv, pad_mask [B, slots])."""
+        B = len(ids_list)
+        ids = torch.zeros((B, bucket), dtype=torch.long)
+        positions = torch.zeros((B, bucket), dtype=torch.long)
+        pad_mask = torch.zeros((B, slots), dtype=torch.long)
+        pad_mask[:, :P] = 1       # shared-prefix slots are real for all rows
+        for r, row in enumerate(ids_list):
+            sfx = row[P:]
+            pad = bucket - len(sfx)
+            ids[r, pad:] = torch.tensor(sfx, dtype=torch.long)
+            positions[r, pad:] = P + torch.arange(len(sfx))
+            pad_mask[r, P + pad:P + bucket] = 1
+        pad_mask[:, P + bucket:] = 1  # decode slots are always real
+        pad_mask = pad_mask.to(self.device)
+        ck, cv = self._new_cache(B, slots)
+        if P:
+            # the prefix's first P slots into every row; the int8 cache's
+            # "s" keeps the position axis at 3 too
+            for dst, src in zip((ck, cv), self._prefix_fill(ids_list[0][:P])):
+                pairs = zip(dst.values(), src.values()) if isinstance(dst, dict) \
+                    else [(dst, src)]
+                for d, s_ in pairs:
+                    d[:, :, :, :P].copy_(s_[:, :, :, :P])
+        logits, _, _ = self.family.forward(
+            self.params, self.config, ids.to(self.device), ck, cv, P, bucket - 1,
+            positions=positions.to(self.device), pad_mask=pad_mask)
+        return logits, ck, cv, pad_mask
+
+    @torch.inference_mode()
+    def generate_batch(self, prompts: Sequence[str], *,
+                       config: Optional[GenerationConfig] = None) -> list[str]:
+        """Batched generation over ragged prompts (left-padded).
+
+        Greedy output per row equals the unbatched generate() for the same
+        prompt. Rows sharing a leading token prefix of >= _min_reuse_prefix
+        tokens (a system prompt) prefill it once at B = 1 and broadcast its
+        K/V into every row; the batch prefill then computes only the
+        suffixes. Decode runs one forward for the whole batch per step,
+        reading the cache up to the current _kv_bucket_step bucket; a row
+        that samples a stop token is done (it emits nothing more), and the
+        loop ends when every row is done. No flash: the padded batch takes
+        the plain attention with the pad mask, as in the JAX package.
+        """
+        gen = config or GenerationConfig()
+        if not prompts:
+            return []
+        ids_list = [self._bound_prompt(self.encode_prompt(p, gen.add_bos_token))
+                    for p in prompts]
+        B = len(ids_list)
+        max_len = max(len(i) for i in ids_list)
+        P = self._shared_batch_prefix(ids_list)
+        self._batch_prefix_len = P    # observability for tests/stats
+        bucket = seq_bucket(max(len(r) - P for r in ids_list), self.max_context - P)
+        max_new = gen.max_new_tokens if gen.max_new_tokens is not None else \
+            max(gen.max_length - max_len, 0)
+        max_steps = int(max(min(max_new, self.max_context - P - bucket - 1), 0))
+        self.last_batch_steps = 0     # decode forwards of the last call
+        if max_steps == 0:
+            return ["" for _ in prompts]
+        # the cache lives for this call only: prompt + generation, rounded to
+        # 256 slots, not max_context
+        slots = min(self.max_context, -(-(P + bucket + max_steps + 1) // 256) * 256)
+        logits, ck, cv, pad_mask = self._batch_prefill(ids_list, P, bucket, slots)
+
+        dev = self.device
+        history = torch.zeros((B, self.max_context), dtype=torch.long)
+        for r, row in enumerate(ids_list):
+            history[r, :len(row)] = torch.tensor(row, dtype=torch.long)
+        history = history.to(dev)
+        lens0_d = torch.tensor([len(r) for r in ids_list], dtype=torch.long, device=dev)
+        rows = torch.arange(B, device=dev)
+        seed = gen.seed if gen.seed is not None else _random.getrandbits(31)
+        generator = torch.Generator(device=dev).manual_seed(seed)
+        stop = torch.tensor(sorted(self.stop_token_ids) or [-1], device=dev)
+        greedy = gen.strategy == "greedy"
+        pen, ngram = gen.repetition_penalty, gen.no_repeat_ngram_size
+        done = torch.zeros(B, dtype=torch.bool, device=dev)
+        out = []
+        slot0 = P + bucket       # the first decode write slot
+        for i in range(max_steps):
+            lg = process_logits(logits, history, lens0_d + i, pen, ngram)
+            toks = sample_token(lg, generator, gen.sampling, greedy)
+            done = done | torch.isin(toks, stop)
+            out.append(torch.where(done, -1, toks))
+            # lens0 + i < max_context: bucket and max_steps leave room
+            history[rows, lens0_d + i] = toks
+            if i == max_steps - 1 or bool(done.all()):
+                break
+            slot = slot0 + i
+            kb = self._kv_bucket(slot, slots)
+            wk, wv, pm = ck, cv, pad_mask
+            if kb is not None:
+                wk, wv = slice_working(ck, kb, axis=3), slice_working(cv, kb, axis=3)
+                pm = pad_mask[:, :kb]
+            logits, _, _ = self.family.forward(
+                self.params, self.config, toks[:, None], wk, wv, slot,
+                positions=(lens0_d + i)[:, None], pad_mask=pm)
+            self.last_batch_steps += 1
+        toks_all = torch.stack(out, dim=1).cpu().tolist()
+        return [self.tokenizer.decode([t for t in row if t >= 0],
+                                      skip_special_tokens=True) for row in toks_all]
 
     def default_generation_config(self) -> GenerationConfig:
         """Defaults from the model's generation_config.json: temperature /

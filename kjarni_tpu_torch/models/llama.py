@@ -3,9 +3,12 @@
 
 Params keep the JAX package's layout: a dict whose per-layer weights are
 stacked [L, ...], linear weights [K, N] for x @ w, int4 weights as
-{"w4": [.., K/2, N] int8, "scale": [.., G, N] f32}. The layer loop is a Python
+{"w4": [.., K/2, N] int8, "scale": [.., G, N] f32}, int8 weights as
+{"w": [.., K, N] int8, "scale": [.., N] f32}. The layer loop is a Python
 loop over views of the stacked tensors. The KV cache [L, B, Hkv, T, D] is
-written in place; a write past T is refused, not clamped.
+written in place; a write past T is refused, not clamped. The int8 cache is
+{"q": int8 [L, B, Hkv, T, D], "s": f32 [L, B, Hkv, T]}, and attention
+dequantizes only the slots it reads.
 """
 
 from __future__ import annotations
@@ -256,33 +259,62 @@ def _quant_int4(w: torch.Tensor, group_size: int) -> tuple[torch.Tensor, torch.T
     return pack_int4(q.reshape(w32.shape).to(torch.int8)), scale
 
 
-def quantize_params_int4(params: dict, group_size: int = 128) -> dict:
-    """Group-wise int4 weight-only quantization of every projection and the
-    lm_head ({"w4": [.., K/2, N] int8, "scale": [.., K/g, N] f32}), on the
-    params' own device, one layer at a time. Same arithmetic as the JAX
-    package's quantize_params_int4, so both give the same w4 and scales."""
+def _quantize_params(params: dict, quant, key: str) -> dict:
+    """Every projection and the lm_head as {key: quantized, "scale": f32} by
+    `quant(w) -> (quantized, scale)`, on the params' own device, one layer
+    at a time."""
     out = dict(params)
     layers = dict(params["layers"])
     for name in ("q", "k", "v", "o", "gate", "up", "down"):
         entry = dict(layers[name])
         w = entry.pop("w")
-        parts = [_quant_int4(w[i], group_size) for i in range(w.shape[0])]
-        entry["w4"] = torch.stack([p[0] for p in parts])
+        parts = [quant(w[i]) for i in range(w.shape[0])]
+        entry[key] = torch.stack([p[0] for p in parts])
         entry["scale"] = torch.stack([p[1] for p in parts])
         layers[name] = entry
     out["layers"] = layers
-    w4, scale = _quant_int4(params["lm_head"], group_size)
-    out["lm_head"] = {"w4": w4, "scale": scale}
+    w, scale = quant(params["lm_head"])
+    out["lm_head"] = {key: w, "scale": scale}
     return out
+
+
+def quantize_params_int4(params: dict, group_size: int = 128) -> dict:
+    """Group-wise int4 weight-only quantization of every projection and the
+    lm_head ({"w4": [.., K/2, N] int8, "scale": [.., K/g, N] f32}). Same
+    arithmetic as the JAX package's quantize_params_int4, so both give the
+    same w4 and scales."""
+    return _quantize_params(params, lambda w: _quant_int4(w, group_size), "w4")
+
+
+def _quant_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[..., K, N] -> (int8 [..., K, N], f32 scale [..., N]): per output
+    channel absmax / 127, rounded half to even, as the JAX package's
+    quantize_params_int8."""
+    w32 = w.float().contiguous()
+    scale = w32.abs().amax(dim=-2, keepdim=True).clamp_min(1e-8) / 127.0
+    q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
+    return q, scale.squeeze(-2)
+
+
+def quantize_params_int8(params: dict) -> dict:
+    """Per-output-channel int8 weight-only quantization of every projection
+    and the lm_head ({"w": int8 [.., K, N], "scale": [.., N] f32});
+    embeddings and norms keep their dtype."""
+    return _quantize_params(params, _quant_int8, "w")
 
 
 def _mm(x: torch.Tensor, p: dict) -> torch.Tensor:
     """Linear apply over a param dict. The "w4" branch is the int4 kernel
-    (ops/kernels/int4_matvec.py) for decode and prefill alike."""
+    (ops/kernels/int4_matvec.py) for decode and prefill alike. An int8 "w"
+    is converted to x's dtype and the product scaled per column, as the JAX
+    package computes it (plain XLA there, no Pallas kernel): torch writes
+    the converted weight out on every call, where XLA fuses the convert."""
     if "w4" in p:
         lead = x.shape[:-1]
         y = int4_matvec(x.reshape(-1, x.shape[-1]), p["w4"], p["scale"])
         y = y.reshape(*lead, y.shape[-1])
+    elif p["w"].dtype == torch.int8:
+        y = (x @ p["w"].to(x.dtype)) * p["scale"].to(x.dtype)
     else:
         y = x @ p["w"]
     if "b" in p:
@@ -299,23 +331,52 @@ def _head_mm(x: torch.Tensor, head) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: DecoderConfig, batch: int, max_len: int,
-               dtype=torch.float32, device: torch.device | str = "cpu"):
-    """Fixed-shape KV cache [L, B, Hkv, T, D], written in place."""
+               dtype=torch.float32, device: torch.device | str = "cpu",
+               quantized: bool = False):
+    """Fixed-shape KV cache [L, B, Hkv, T, D], written in place. quantized:
+    int8 K/V with one f32 scale per (head, position), {"q", "s"} dicts."""
     shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
-    return (torch.zeros(shape, dtype=dtype, device=device),
-            torch.zeros(shape, dtype=dtype, device=device))
+    if not quantized:
+        return (torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device))
+    return tuple({"q": torch.zeros(shape, dtype=torch.int8, device=device),
+                  "s": torch.zeros(shape[:-1], dtype=torch.float32, device=device)}
+                 for _ in range(2))
 
 
-def _cache_write(cache: torch.Tensor, new: torch.Tensor, pos_start: int) -> None:
+def cache_slots(cache) -> int:
+    """T of a cache [L, B, H, T, D] or of one layer's [B, H, T, D], in
+    either form."""
+    c = cache["q"] if isinstance(cache, dict) else cache
+    return c.shape[-2]
+
+
+def _cache_write(cache, new: torch.Tensor, pos_start: int) -> None:
     """Write [B, H, S, D] into one layer's cache [B, H, T, D] at pos_start.
     XLA's dynamic_update_slice would clamp the start so the update fits; a
-    write past T here is a caller error and is refused."""
-    S, T = new.shape[2], cache.shape[2]
+    write past T here is a caller error and is refused. The int8 cache takes
+    absmax / 127 per (head, position), computed in new's dtype, as the JAX
+    package's _cache_write."""
+    S, T = new.shape[2], cache_slots(cache)
     if pos_start < 0 or pos_start + S > T:
         raise GenerationError(
             f"KV cache write of {S} positions at {pos_start} exceeds its "
             f"{T} slots")
+    if isinstance(cache, dict):
+        scale = new.abs().amax(dim=-1).clamp_min(1e-6) / 127.0
+        q = torch.clamp(torch.round(new / scale[..., None]), -127, 127)
+        cache["q"][:, :, pos_start:pos_start + S].copy_(q)
+        cache["s"][:, :, pos_start:pos_start + S].copy_(scale)
+        return
     cache[:, :, pos_start:pos_start + S].copy_(new)
+
+
+def _cache_read(cache, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """One layer's first n slots [B, H, n, D] in `dtype`: a view of the plain
+    cache, or the int8 cache dequantized (q * s, both cast to dtype first)."""
+    if not isinstance(cache, dict):
+        return cache[:, :, :n]
+    return cache["q"][:, :, :n].to(dtype) * cache["s"][:, :, :n, None].to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -323,22 +384,32 @@ def _cache_write(cache: torch.Tensor, new: torch.Tensor, pos_start: int) -> None
 # ---------------------------------------------------------------------------
 
 def _run_stack(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
-               cache_k: torch.Tensor, cache_v: torch.Tensor, pos_start: int,
-               use_flash: bool = False, kv_bucket: Optional[int] = None
-               ) -> torch.Tensor:
+               cache_k, cache_v, pos_start: int, use_flash: bool = False,
+               positions: Optional[torch.Tensor] = None,
+               pad_mask: Optional[torch.Tensor] = None,
+               kv_bucket: Optional[int] = None) -> torch.Tensor:
     """Embed -> layer loop -> final norm, shared by prefill and decode.
 
     `use_flash` routes attention through the flash kernel: from-zero
     prefills attend the fresh K/V block, cache-reuse prefills (pos_start > 0)
-    the first `kv_bucket` cache slots at q_offset = pos_start.
+    the first `kv_bucket` cache slots at q_offset = pos_start (dequantized
+    into act dtype first when the cache is int8).
+
+    Batched generation over ragged prompts passes `positions` [B, S] (each
+    row's RoPE positions under left padding; cache slots stay shared) and
+    `pad_mask` [B, T] (1 = a real kv slot), added to the causal bias.
     """
     B, S = ids.shape
-    T = cache_k.shape[3]
+    T = cache_slots(cache_k)
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     pos_start = int(pos_start)
     x = F.embedding(ids, params["embed"])
-    cos = params["rope_cos"][pos_start:pos_start + S]
-    sin = params["rope_sin"][pos_start:pos_start + S]
+    if positions is None:
+        cos = params["rope_cos"][pos_start:pos_start + S]
+        sin = params["rope_sin"][pos_start:pos_start + S]
+    else:   # per-row tables [B, 1, S, D]
+        cos = params["rope_cos"][positions][:, None]
+        sin = params["rope_sin"][positions][:, None]
 
     bias = None
     if not use_flash:
@@ -349,12 +420,19 @@ def _run_stack(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
         if cfg.sliding_window:
             keep = keep & (kj > qi - cfg.sliding_window)
         bias = torch.where(keep, 0.0, NEG_INF)[None, None]      # [1, 1, S, T]
+        if pad_mask is not None:
+            bias = bias + torch.where(pad_mask.bool(), 0.0,
+                                      NEG_INF)[:, None, None, :]   # [B, 1, S, T]
+
+    def layer(cache, i):
+        return ({n: t[i] for n, t in cache.items()} if isinstance(cache, dict)
+                else cache[i])
 
     lp_all = params["layers"]
     for i in range(cfg.num_layers):
         lp = {n: ({k: t[i] for k, t in e.items()} if isinstance(e, dict) else e[i])
               for n, e in lp_all.items()}
-        kc, vc = cache_k[i], cache_v[i]
+        kc, vc = layer(cache_k, i), layer(cache_v, i)
         hn = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
         q = _mm(hn, lp["q"]).reshape(B, S, H, D).transpose(1, 2)
         k = _mm(hn, lp["k"]).reshape(B, S, Hkv, D).transpose(1, 2)
@@ -368,11 +446,13 @@ def _run_stack(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
                 # from-zero prefill: the fresh block is the whole valid cache
                 ctx = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
             else:
-                ctx = flash_attention(q, kc[:, :, :kb], vc[:, :, :kb], causal=True,
+                ctx = flash_attention(q, _cache_read(kc, kb, x.dtype),
+                                      _cache_read(vc, kb, x.dtype), causal=True,
                                       window=cfg.sliding_window, q_offset=pos_start,
                                       kv_len=pos_start + S)
         else:
-            ctx = attention(q, kc, vc, bias)
+            ctx = attention(q, _cache_read(kc, T, x.dtype), _cache_read(vc, T, x.dtype),
+                            bias)
         x = x + _mm(merge_heads(ctx), lp["o"])
         hn = rms_norm(x, lp["ffn_norm"], cfg.rms_norm_eps)
         x = x + _mm(F.silu(_mm(hn, lp["gate"])) * _mm(hn, lp["up"]), lp["down"])
@@ -380,18 +460,21 @@ def _run_stack(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
 
 
 def forward(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
-            cache_k: torch.Tensor, cache_v: torch.Tensor, pos_start: int,
+            cache_k, cache_v, pos_start: int,
             last_idx: Optional[int] = None, use_flash: bool = False,
+            positions: Optional[torch.Tensor] = None,
+            pad_mask: Optional[torch.Tensor] = None,
             kv_bucket: Optional[int] = None):
     """One decoder pass, shared by prefill and decode.
 
-    ids: [B, S] tokens at absolute positions pos_start + arange(S). Their K/V
+    ids: [B, S] tokens at cache slots pos_start + arange(S). Their K/V
     are written into the cache in place; queries attend causally over
-    cache[0 .. pos_start+S). Returns (logits at `last_idx` (default S-1),
-    cache_k, cache_v), the caches being the same tensors that were passed.
+    cache[0 .. pos_start+S). Returns (logits [B, V] at `last_idx` (default
+    S-1), cache_k, cache_v), the caches being the same objects that were
+    passed.
     """
     x = _run_stack(params, cfg, ids, cache_k, cache_v, pos_start, use_flash,
-                   kv_bucket)
+                   positions, pad_mask, kv_bucket)
     if last_idx is None:
         last_idx = ids.shape[1] - 1
     logits = _head_mm(x[:, int(last_idx)], params["lm_head"])

@@ -63,8 +63,8 @@ def rotate_half(x: torch.Tensor) -> torch.Tensor:
 
 def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Rotate q/k [B, H, S, D] by tables already gathered at their positions
-    ([S, D], shared across the batch)."""
+    """Rotate q/k [B, H, S, D] by tables already gathered at their positions:
+    [S, D] shared across the batch, or [B, 1, S, D] per row."""
     c = cos.to(q.dtype)
     s = sin.to(q.dtype)
     return q * c + rotate_half(q) * s, k * c + rotate_half(k) * s

@@ -92,7 +92,8 @@ class Generator:
                        preset: Optional[str] = None,
                        config: Optional[GenerationConfig] = None,
                        **overrides) -> list[str]:
-        """Batched decode for aggregate throughput (not ported yet: raises)."""
+        """Batched generation over ragged prompts for aggregate throughput
+        (DecoderLM.generate_batch); greedy rows equal generate()'s."""
         cfg = resolve_generation_config(
             preset, config, self._lm.default_generation_config(), **overrides)
         return self._lm.generate_batch(prompts, config=cfg)

@@ -74,6 +74,12 @@ def test_int4_kernel_matches_plain(card, M, K, N, group):
     assert cos.item() > 0.999
 
 
+# a batched prefill: B = 8 rows at bucket 1024, every Llama-1B projection
+@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)])
+def test_int4_kernel_at_batch_times_bucket(card, K, N):
+    test_int4_kernel_matches_plain(card, 8 * 1024, K, N, 128)
+
+
 @pytest.mark.parametrize("M,K,N,group", [(1, 8192, 2048, 128), (1, 2048, 512, 2048),
                                          (8, 8192, 1000, 128), (1024, 2048, 8192, 128),
                                          (1024, 2048, 512, 128)])
@@ -209,3 +215,52 @@ def test_encoder_device_none_is_the_card(encoder_dir):
     assert enc.device == torch.device("cuda")
     assert enc.params["layers"]["q"]["w"].device == torch.device("cuda", 0)
     assert enc.params["embeddings"]["word"].dtype == torch.bfloat16
+
+
+# a two-layer Llama-shaped decoder (chip_smoke.py writes the full-width one)
+_TINY_LLAMA = {"model_type": "llama", "vocab_size": 4096, "hidden_size": 256,
+               "intermediate_size": 512, "num_hidden_layers": 2, "num_attention_heads": 4,
+               "num_key_value_heads": 2, "head_dim": 64, "max_position_embeddings": 2048,
+               "rope_theta": 10000.0, "rms_norm_eps": 1e-5, "tie_word_embeddings": False,
+               "bos_token_id": 1, "eos_token_id": 2, "torch_dtype": "bfloat16"}
+
+
+@pytest.fixture(scope="module")
+def decoder_dir(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the decoder's entry points run on it")
+    import chip_smoke
+    d = tmp_path_factory.mktemp("tiny_llama")
+    chip_smoke.write_model_dir(d, seed=5, c=_TINY_LLAMA)
+    chip_smoke.write_tokenizer(d / "tokenizer.json", _TINY_LLAMA["vocab_size"])
+    prompts = [chip_smoke._prompt(n, seed=6 + n, hi=4000) for n in (40, 90, 300, 600)]
+    return d, prompts
+
+
+def test_sampled_decoding_on_the_card(decoder_dir):
+    """Seeded sampling, single-stream and batched: a seed repeats its
+    stream, and every draw lies in its row's top-k / top-p / min-p set."""
+    import chip_smoke
+    from kjarni_tpu_torch import Generator
+    d, prompts = decoder_dir
+    gen = Generator(str(d))
+    assert gen.lm.device.type == "cuda"
+    with chip_smoke.DrawCheck() as dc:
+        chip_smoke.sampled(gen, prompts)
+    assert dc.draws > 0
+
+
+@pytest.mark.parametrize("kw", [{}, dict(quantize="int4"), dict(quantize="int8"),
+                                dict(kv_cache="int8")])
+def test_generate_batch_on_the_card(decoder_dir, kw):
+    """Greedy generate_batch on the card: one row per prompt, no flash (the
+    padded batch takes the plain attention), int4 launches only under
+    quantize="int4"."""
+    from kjarni_tpu_torch import Generator
+    d, prompts = decoder_dir
+    gen = Generator(str(d), **kw)
+    before = flash_attention.launches, int4_matvec.launches
+    out = gen.generate_batch(prompts, preset="greedy", max_new_tokens=8, max_length=2048)
+    assert len(out) == len(prompts) and all(isinstance(t, str) for t in out)
+    assert flash_attention.launches == before[0]
+    assert (int4_matvec.launches > before[1]) == (kw.get("quantize") == "int4")

@@ -101,8 +101,7 @@ def test_no_card_and_no_cpu_request_raises(llama_dir):
         Generator(str(llama_dir))
 
 
-@pytest.mark.parametrize("kw", [dict(quantize="int8"), dict(kv_cache="int8"),
-                                dict(tp=2), dict(execution_plan="balanced"),
+@pytest.mark.parametrize("kw", [dict(tp=2), dict(execution_plan="balanced"),
                                 dict(draft_model="x")])
 def test_options_outside_the_slice_raise(llama_dir, kw):
     with pytest.raises(InvalidConfigError, match="ROADMAP.md"):
@@ -115,12 +114,6 @@ def test_card_dtype_is_bf16():
     assert resolve_dtype("auto", torch.device("cpu")) == torch.float32
     with pytest.raises(InvalidConfigError, match="ROADMAP.md"):
         resolve_dtype("f32", cuda)
-
-
-def test_generate_batch_raises(llama_dir):
-    g = Generator(str(llama_dir), device="cpu")
-    with pytest.raises(InvalidConfigError, match="ROADMAP.md"):
-        g.generate_batch([PROMPT])
 
 
 def test_safetensors_roundtrip_matches_jax_loader(tmp_path):

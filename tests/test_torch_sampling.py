@@ -78,6 +78,25 @@ class TestPenalties:
         t = ts.process_logits(torch.from_numpy(x), torch.from_numpy(h), 50, 1.2, 3)
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6)
 
+    @pytest.mark.parametrize("penalty,n", [(1.2, 3), (0.8, 0), (1.0, 2)])
+    def test_process_logits_batched_matches_jax_vmap(self, penalty, n):
+        """[B, V] logits over [B, T] histories with a length per row, as
+        generate_batch calls it, against the JAX package's vmap of the [V] form."""
+        import jax
+        h = np.stack([self._history(s)[0] for s in range(4)])
+        h[2] = np.tile(np.array([5, 6, 7, 5, 6], np.int32), 13)[:64]
+        x = np.stack([logits(10 + s) for s in range(4)])
+        lengths = np.array([1, 17, 40, 64], np.int32)
+        j = jax.vmap(lambda lg, t, k: js.process_logits(lg, t, k, penalty, n))(
+            jnp.asarray(x), jnp.asarray(h), jnp.asarray(lengths))
+        t = ts.process_logits(torch.from_numpy(x), torch.from_numpy(h),
+                              torch.from_numpy(lengths).long(), penalty, n)
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6)
+        for r in range(4):   # each row as the [V] form alone
+            one = ts.process_logits(torch.from_numpy(x[r]), torch.from_numpy(h[r]),
+                                    int(lengths[r]), penalty, n)
+            np.testing.assert_array_equal(t[r].numpy(), one.numpy())
+
 
 class TestGreedy:
     @pytest.mark.parametrize("case", ["random", "ties", "all_equal", "last",
