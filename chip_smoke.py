@@ -2,7 +2,7 @@
 """Drive kjarni_tpu_torch's generation and embed paths on one CUDA card and
 check them.
 
-    python3 chip_smoke.py [--phases env,kernels,bf16,int4,int8,batch,chat,gpt2,embed]
+    python3 chip_smoke.py [--phases env,kernels,bf16,int4,int8,batch,chat,gpt2,serve,embed]
                           [--root DIR]
 
 --root DIR imports kjarni_tpu_torch from another checkout (an older commit,
@@ -18,8 +18,12 @@ Phases, in order (all by default); any failure raises and exits non-zero:
    cache-reuse shape and smaller cases for the other features; int4: every
    projection at M = 1 for decode, M = 8, 32, 64, 128 and 1024 for prefill
    buckets, M = 8192 for a batched prefill (8 rows at bucket 1024) and M = 8
-   for a batched decode step, and the head at M = 1 and at M = 8 (the
-   batch's prefill and decode steps); two calls must give bit-identical
+   for a batched decode step, M = 5 for the speculative target pass, M = 256
+   and 512 for the continuous engine's system prompt and single-lane
+   admission waves and M = 16,384 for its 8-lane admission wave at bucket
+   2048, and the head at M = 1 and at M = 8 (the batch's prefill and decode
+   steps); flash also at that admission wave (B 8, S 2048 after a 256-token
+   prefix, over 2,304 slots); two calls must give bit-identical
    outputs); one line per case with the launches the case made,
    max_abs_err, kernel_ms, plain_ms and library_ms, the time of one PyTorch
    call computing the same function as a yardstick the port never calls:
@@ -76,7 +80,37 @@ Phases, in order (all by default); any failure raises and exits non-zero:
    generate on a 700-token prompt and a B = 8 generate_batch, with no flash
    and no int4 launch, and the card's bf16 logits against the f32 forward on
    the CPU at cosine >= 0.999.
-9. embed: four encoder model dirs at the public config.json widths of the
+9. serve: over the phase-3 weights in bf16 and in int4, a ContinuousEngine
+   (8 slots of 4,096, windows of up to 8 steps, a 256-token system prompt
+   registered once) serves 24 requests in three bursts (the later two join
+   mid-flight): suffixes of 1,100-1,800 tokens in the first (one 8-lane
+   admission wave at bucket 2048, the flash plan) and 100-1,000 in the
+   others (plain plans), 32-128 new tokens, one in three sampled
+   (temperature 0.8, top-k 50, top-p 0.9, seeded). One run is timed
+   (aggregate tok/s, time to first token p50/p95, waves by plan, flash and
+   int4 launches, int4 launches by M, peak memory); a second run of the same
+   schedule must repeat every stream, each sampled draw must lie in its
+   filter set, and every greedy token must lie within a bf16 tie band of
+   0.5 logits of the maximum of a teacher-forced single-stream prefill of
+   its prompt and output (plain kernels); on 8 more greedy requests, with
+   the admission gate shrunk so that every wave takes the flash plan, three
+   planted faults (a slot decoding at pos - 1; an admission scatter into a
+   permuted slot; the flash wave's queries at q_offset 0 instead of after
+   the prefix) must fail that check, and in f32 the cosine of each
+   request's admission and first 4 decode rows against the same forward
+   (>= 0.99999 sound, as the batch phase). Then SpeculativeGenerator
+   (k = 4) with the target's first 2 layers as a draft and with a
+   self-draft, in bf16 and int4: acceptance, tok/s beside the phase-3
+   stream, and the same teacher-forced check. Then serve.py's
+   server on 127.0.0.1:0 (--scheduler continuous): /health, 8 concurrent
+   /v1/generate, /v1/completions, a streamed /v1/chat/completions and
+   /v1/batch_stats, each 200 with the engine's texts, and their latencies.
+   Last a GGUF dir at Llama-3.2-1B width and 2 layers (Q8_0 embedding and
+   projections, F32 norms, a byte-level BPE over 128,256 ids embedded),
+   written here in numpy: DecoderLM(dir) must give the params and the
+   first-prefill logits of the same dequantized weights loaded from
+   safetensors. `--phases env,serve` runs it alone.
+10. embed: four encoder model dirs at the public config.json widths of the
    registry's minilm-l6-v2, minilm-l6-v2-cross-encoder, distilbert-sentiment
    and nomic-embed-text (random f32 weights from a seeded generator, a
    BERT-template word tokenizer over the whole vocabulary), each driven
@@ -91,11 +125,13 @@ Phases, in order (all by default); any failure raises and exits non-zero:
    memory; for MiniLM also plain against packed encode at S = 64 and 32.
    `--phases env,embed` runs it alone.
 
-At the end come three lines: a JSON object {"kernels": [...]} (per kernel
-the launches of phases 3-8, max_abs_err over its cases, and ms / plain_ms /
-bound_ms / library_ms -- for flash one launch at the Llama-1B prefill shape,
-for int4 the 113 launches of one decoded token; also printed before it: the 7
-launches of one layer of an M-token prefill, for each prefill M), then
+After each of phases 3-9 a line gives its own launches (the counts are set
+to 0 just before it and read just after). At the end come three lines: a
+JSON object {"kernels": [...]} (per kernel the launches of phases 3-9,
+max_abs_err over its cases, and ms / plain_ms / bound_ms / library_ms -- for
+flash one launch at the Llama-1B prefill shape, for int4 the 113 launches of
+one decoded token; also printed before it: the 7 launches of one layer at
+each M), then
 "total <seconds>", then the card's name and power limit as nvidia-smi gives
 them. bound_ms is the larger of the bytes moved over 3.35 TB/s and the bf16
 operations over 989 TFLOP/s (H100 SXM data sheet). The last line is
@@ -107,6 +143,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import importlib
 import json
 import math
@@ -134,9 +171,9 @@ LLAMA_1B = {
     "bos_token_id": 128000, "eos_token_id": 128001, "torch_dtype": "bfloat16",
 }
 INT4_PER_FORWARD = 7 * LLAMA_1B["num_hidden_layers"] + 1
-# the phases that drive generation (3-8), between the launch counts' reset
+# the phases that drive generation (3-9), between the launch counts' reset
 # and their reading
-GENERATION = ("bf16", "int4", "int8", "batch", "chat", "gpt2")
+GENERATION = ("bf16", "int4", "int8", "batch", "chat", "gpt2", "serve")
 FLASH_PER_PREFILL = LLAMA_1B["num_hidden_layers"]
 
 # the public config.json values (the keys the loader reads) of the registry's
@@ -525,6 +562,11 @@ def phase_flash() -> list:
         flash_case("llama1b-reuse S=512 q_offset=16 kv_len=528 T=640", B, H, Hkv,
                    512, 640, D, q_offset=16, kv_len=528, poison=True, seed=9,
                    cache_len=4096),
+        # the continuous engine's flash admission wave: 8 lanes of a 2048
+        # bucket after a 256-token shared prefix, over their 2304-slot
+        # working caches
+        flash_case("llama1b-admission B=8 S=2048 q_offset=256 T=2304", 8, H, Hkv,
+                   2048, 2304, D, q_offset=256, kv_len=2304, seed=10),
     ]
     return [r for r in flash if r is not None]
 
@@ -542,9 +584,13 @@ def phase_kernels() -> dict:
     # prefill buckets: short prompts and prefix-reuse suffixes (8-128), the
     # batch phase's 64-token shared prefix, long prompts (1024), and a
     # batched prefill of 8 rows at bucket 1024 (8192); M = 8 is also a
-    # batched decode step of 8 rows
+    # batched decode step of 8 rows and the continuous engine's decode step
+    # of 8 slots; M = 5 is the speculative target pass (k = 4), 256 the
+    # engine's system prompt and 256 and 512 its single-lane admission
+    # waves, and 16,384 its admission wave of 8 lanes at bucket 2048
     prefill = {M: {name: int4_case(f"M={M} {name}", M, *shapes[name], seed=9 + i)
-                   for i, name in enumerate(layer)} for M in (8, 32, 64, 128, 1024, 8192)}
+                   for i, name in enumerate(layer)}
+               for M in (5, 8, 32, 64, 128, 256, 512, 1024, 8192, 16384)}
     # the head of the batch prefill and of each batched decode step: 8 rows
     head8 = int4_case("M=8 lm_head 2048x128256", 8, *shapes["lm_head 2048x128256"],
                       seed=20)
@@ -565,7 +611,7 @@ def phase_kernels() -> dict:
     check(tok["bound_by"] == "bytes", "int4 M=1 bound by bytes")
     per_layer = {n: per_token[n] // LLAMA_1B["num_hidden_layers"] for n in layer}
     for M, rows in prefill.items():
-        total(rows, per_layer, f"int4 one layer of a {M}-token prefill (7 launches)")
+        total(rows, per_layer, f"int4 one layer at M = {M} (7 launches)")
     total({**prefill[8], "lm_head 2048x128256": head8}, per_token,
           "int4 one batched decode step of 8 rows (113 launches)")
     return {"flash": flash,
@@ -892,8 +938,23 @@ def run_slice(model_dir: Path, quantize) -> dict:
             "follow_out": follow_out}
 
 
+def _counted(name: str, fn, *args):
+    """Run one main-path phase with the launch counts set to 0 just before
+    it and read just after; print them and add them to the counts so far."""
+    before = _counts()
+    _restore((0, 0))
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        got = _counts()
+        _restore((before[0] + got[0], before[1] + got[1]))
+        print(json.dumps({"phase": name, "seconds": time.perf_counter() - t0,
+                          "flash_launches": got[0], "int4_launches": got[1]}))
+
+
 def phase_slices(phases) -> None:
-    """Phases 3-8 over one Llama-3.2-1B-width model dir (and GPT-2's)."""
+    """Phases 3-9 over one Llama-3.2-1B-width model dir (and GPT-2's)."""
     with tempfile.TemporaryDirectory(prefix="kjarni_smoke_") as tmp:
         d = Path(tmp) / "llama-3.2-1b-random"
         t0 = time.perf_counter()
@@ -903,17 +964,23 @@ def phase_slices(phases) -> None:
               f"{(d / 'model.safetensors').stat().st_size / 1e9:.2f} GB")
         ran = {}
         if "bf16" in phases:
-            ran["bf16"] = run_slice(d, None)
+            ran["bf16"] = _counted("bf16", run_slice, d, None)
         if "int4" in phases:
-            ran["int4"] = run_slice(d, "int4")
+            ran["int4"] = _counted("int4", run_slice, d, "int4")
         if "int8" in phases:
-            phase_int8(d, ran.get("bf16"))
+            _counted("int8", phase_int8, d, ran.get("bf16"))
         if "batch" in phases:
-            phase_batch(d, ran)
+            _counted("batch", phase_batch, d, ran)
         if "chat" in phases:
-            phase_chat(d, Path(tmp) / "llama-3.2-1b-chat")
+            _counted("chat", phase_chat, d, Path(tmp) / "llama-3.2-1b-chat")
         if "gpt2" in phases:
-            phase_gpt2(Path(tmp) / "gpt2-random")
+            _counted("gpt2", phase_gpt2, Path(tmp) / "gpt2-random")
+        if "serve" in phases:
+            before = _counts()
+            _counted("serve", phase_serve, d, Path(tmp), ran)
+            serve_n = [a - b for a, b in zip(_counts(), before)]
+            check(serve_n[0] > 0 and serve_n[1] > 0,
+                  f"the serve phase launched both kernels (flash, int4: {serve_n})")
 
 
 def _counts() -> tuple[int, int]:
@@ -1566,7 +1633,691 @@ def phase_gpt2(d: Path) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 9
+# phase 9: serving (continuous engine, speculative decoding, HTTP) and GGUF
+# ---------------------------------------------------------------------------
+
+SERVE_SLOTS, SERVE_SYSTEM = 8, 256      # slots; system prompt tokens (BOS + 255 words)
+SERVE_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9, min_p=0.0)
+# The teacher-forced check: every greedy token the engine (or the
+# speculative loop) emits must lie within SERVE_TIE_BAND logits of the
+# maximum of its position's row in one plain single-stream prefill of the
+# prompt and output. Random weights give flat logits, so bf16 flips near-ties:
+# on the H100 the sound runs read at most 0.125 (int4) and 0.078 (bf16), each
+# planted fault (SERVE_FAULTS) at least 1.54 (PERF.md, §6). Also printed, and
+# held in f32 (f32 copies of params and cache, plain kernels) at
+# BATCH_COS_MIN["f32"] as the batch phase holds its rows: the cosine of each
+# greedy request's admission row and first SERVE_CHECK_STEPS decode rows
+# against the same forward.
+SERVE_TIE_BAND = 0.5
+SERVE_CHECK_STEPS = 4
+SERVE_FAULTS = ("decode_at_pos_minus_1", "admission_scatter_permuted",
+                "flash_wave_q_offset_0")
+
+
+def _serve_mix(seed: int) -> list:
+    """Three bursts of 8 requests: (suffix tokens, new tokens, sampled). The
+    first burst's suffixes (1,100-1,800 tokens) admit as one 8-lane wave at
+    bucket 2048 (the flash plan: 4 * 32 * 2048 * 2304 * 8 = 4.8 GB of scores
+    over the 2 GB gate); the later bursts' (100-1,000) take plain plans. One
+    request in three samples."""
+    import random
+    g = random.Random(seed)
+    return [[(g.randint(*((1100, 1800) if b == 0 else (100, 1000))), g.randint(32, 128),
+              i % 3 == 2) for i in range(8)] for b in range(3)]
+
+
+def _teacher_forced(lm, ids: list, rows: list):
+    """Logits (f32, CPU) at positions `rows` of one plain prefill forward of
+    `ids` over a fresh cache (no flash; the kernels' plain versions): the
+    single-stream reference a request's logits are held against. Its
+    launches are not the main path's."""
+    import torch
+    counts = _counts()
+    with plain_kernels(), torch.inference_mode():
+        ck, cv = lm._new_cache(1, len(ids))
+        x = lm.family.forward_hidden(lm.params, lm.config,
+                                     torch.tensor([ids], device=lm.device), ck, cv, 0)
+        out = lm.family.head_logits(lm.params, lm.config, x[0, rows]).float().cpu()
+    del ck, cv, x
+    _restore(counts)
+    return out
+
+
+def _margins(ref, toks: list) -> list:
+    """max(row) - row[token] of each reference row and the token emitted
+    there: 0 where the emitted token is the reference's argmax."""
+    return [float(r.max() - r[t]) for r, t in zip(ref, toks)]
+
+
+class EngineProbe:
+    """Instruments one ContinuousEngine: waves per plan mode, decode steps,
+    each request's first-token time, and optionally the engine's logits
+    (each request's admission row and its first SERVE_CHECK_STEPS decode
+    rows), with a planted fault (SERVE_FAULTS): decode_at_pos_minus_1 on
+    one active slot per window, in turn over the active slots."""
+
+    def __init__(self, eng, prompt_len: dict, capture: bool = False, fault=None):
+        import types
+        from kjarni_tpu_torch.models import llama as kllama
+        self.modes, self.steps, self.first = {}, 0, {}
+        self.adm, self.dec = {}, {}
+        fam, wave, window, note = eng.family, eng._admit_wave, eng._window, eng._note_token
+        state = {"wave": [], "win": [], "step": 0}
+
+        def admit_wave(grp, pi, m, bucket):
+            mode = eng._admit_plan(bucket, m)["mode"]
+            self.modes[mode] = self.modes.get(mode, 0) + 1
+            state["wave"] = [req[0] for _, req in grp]
+            if fault == "flash_wave_q_offset_0":
+                attend = kllama.flash_attention
+
+                def at_zero(q, k, v, **kw):   # queries as if no prefix preceded them
+                    return attend(q, k, v, **{**kw, "q_offset": 0})
+                kllama.flash_attention = at_zero
+                try:
+                    wave(grp, pi, m, bucket)
+                finally:
+                    kllama.flash_attention = attend
+            else:
+                wave(grp, pi, m, bucket)
+            if fault == "admission_scatter_permuted" and len(grp) > 1:
+                # each lane's cache lands in the next lane's slot
+                slots = [s for s, _ in grp]
+                for c in (eng.cache_k, eng.cache_v):
+                    c[:, slots] = c[:, slots[1:] + slots[:1]]
+
+        def win(k, plain, kb, pos):
+            self.steps += k
+            state["win"] = [(i, s.request_id, pos[i]) for i, s in enumerate(eng._slots)
+                            if s.active]
+            state["step"] = 0
+            state["windows"] = state.get("windows", -1) + 1
+            return window(k, plain, kb, pos)
+
+        def forward(params, cfg, ids, ck, cv, pos_start, *a, **kw):
+            if fault == "decode_at_pos_minus_1" and state["win"]:
+                i = state["win"][state["windows"] % len(state["win"])][0]
+                pos_start = pos_start.clone()
+                pos_start[i] -= 1
+            out = fam.forward(params, cfg, ids, ck, cv, pos_start, *a, **kw)
+            for i, rid, p0 in state["win"]:
+                j = p0 + state["step"] - prompt_len[rid]
+                if j < SERVE_CHECK_STEPS:
+                    self.dec[(rid, j)] = out[0][i].float().cpu()
+            state["step"] += 1
+            return out
+
+        def head_logits(params, cfg, x):
+            out = fam.head_logits(params, cfg, x)
+            for j, rid in enumerate(state["wave"]):
+                self.adm[rid] = out[j].float().cpu()
+            return out
+
+        def note_token(slot_idx, tok):
+            self.first.setdefault(eng._slots[slot_idx].request_id, time.perf_counter())
+            note(slot_idx, tok)
+
+        eng._admit_wave, eng._window, eng._note_token = admit_wave, win, note_token
+        if capture:
+            eng.family = types.SimpleNamespace(
+                forward=forward, forward_hidden=fam.forward_hidden,
+                head_logits=head_logits, init_cache=fam.init_cache)
+
+
+class SlotDrawCheck:
+    """Within the block, every draw of the continuous engine's sampled
+    slots is checked to lie in its slot's top-k / top-p / min-p set
+    (_keep_mask over the same penalised logits)."""
+
+    def __init__(self):
+        self.draws = 0
+
+    def __enter__(self):
+        from kjarni_tpu_torch.generate import continuous
+        from kjarni_tpu_torch.generate.sampling import SamplingParams
+        self._orig = orig = continuous._sample_slot
+
+        def checked(logits, generators, rows, temp, top_k, top_p, min_p):
+            tok = orig(logits, generators, rows, temp, top_k, top_p, min_p)
+            if rows:
+                lg = logits[rows].float().cpu().numpy()
+                for j, r in enumerate(rows):
+                    sp = SamplingParams(temperature=float(temp[r]), top_k=int(top_k[r]),
+                                        top_p=float(top_p[r]), min_p=float(min_p[r]))
+                    check(bool(_keep_mask(lg[j], sp)[int(tok[r])]),
+                          f"slot {r}: sampled token lies in its top-k/top-p/min-p set")
+                self.draws += len(rows)
+            return tok
+        continuous._sample_slot = checked
+        return self
+
+    def __exit__(self, *exc):
+        from kjarni_tpu_torch.generate import continuous
+        continuous._sample_slot = self._orig
+
+
+@contextlib.contextmanager
+def int4_shapes(hist: dict):
+    """Within the block, count the int4 launches of the model's projections
+    by M (the rows of x)."""
+    from kjarni_tpu_torch.models import llama as kllama
+    orig = kllama.int4_matvec
+
+    def counted(x, w4, scale):
+        hist[x.shape[0]] = hist.get(x.shape[0], 0) + 1
+        return orig(x, w4, scale)
+    kllama.int4_matvec = counted
+    try:
+        yield hist
+    finally:
+        kllama.int4_matvec = orig
+
+
+def run_engine(lm, system: str, bursts: list, seed: int, capture=False, fault=None,
+               profile=False, score_limit=None) -> dict:
+    """One ContinuousEngine run (slots 8, 4,096 slots each, windows of up to
+    8 steps): the system prompt registered, burst 1 submitted at once,
+    burst 2 after 4 windows and burst 3 after 4 more (they join mid-flight),
+    then every request to its end. score_limit, where given, replaces the
+    admission gate's 2 GB (1 sends every wave to the flash plan). Returns ids
+    per request and the numbers."""
+    import torch
+    from kjarni_tpu_torch.generate.continuous import ContinuousEngine
+    from kjarni_tpu_torch.generate.sampling import SamplingParams
+    eng = ContinuousEngine(lm, slots=SERVE_SLOTS, max_context=4096, steps_per_sync=8)
+    if score_limit is not None:
+        eng._admit_score_limit = score_limit
+    sys_n = eng.register_prefix(system)
+    check(sys_n == SERVE_SYSTEM, f"system prompt of {sys_n} tokens")
+    prompt_len, meta, submitted = {}, {}, {}
+    probe = EngineProbe(eng, prompt_len, capture, fault)
+    prof = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b, burst in enumerate(bursts):
+        if b:
+            for _ in range(4):
+                eng.step()
+            if profile and b == 1:
+                prof = profile_call(eng.step)
+        for i, (sfx, new, sampled) in enumerate(burst):
+            ids = lm.encode_prompt(system) + lm.encode_prompt(
+                _prompt(sfx, seed + 8 * b + i), add_bos=False)
+            sp = SamplingParams(**SERVE_SAMPLING) if sampled else None
+            rid = eng.submit(token_ids=ids, max_new_tokens=new, sampling=sp,
+                             seed=seed + 8 * b + i if sampled else None, defer_admit=True)
+            prompt_len[rid], meta[rid] = len(ids), (ids, sampled)
+            submitted[rid] = time.perf_counter()
+    done = {fr.request_id: fr for fr in eng.run()}
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ttft = sorted(1e3 * (probe.first[r] - submitted[r]) for r in done)
+    new = sum(len(fr.token_ids) for fr in done.values())
+    return {"eng": eng, "probe": probe, "done": done, "meta": meta, "seconds": secs,
+            "new_tokens": new, "tok_per_s": new / secs, "profile": prof,
+            "ttft_ms_p50": statistics.median(ttft),
+            "ttft_ms_p95": ttft[min(len(ttft) - 1, int(0.95 * len(ttft)))]}
+
+
+def hold_engine_rows(lm, run: dict) -> dict:
+    """Each greedy request's captured engine rows against the teacher-forced
+    reference: the cosine of its admission row and first decode rows, and
+    the margin of every emitted token (max(ref) - ref[token])."""
+    import torch
+    cos, margins = [], []
+    for rid, (ids, sampled) in run["meta"].items():
+        out = run["done"][rid].token_ids
+        if sampled or not out:
+            continue
+        P = len(ids)
+        ref = _teacher_forced(lm, ids + out, list(range(P - 1, P + len(out) - 1)))
+        margins += _margins(ref, out)
+        rows = [(run["probe"].adm.get(rid), ref[0])]
+        rows += [(run["probe"].dec.get((rid, j)), ref[j + 1])
+                 for j in range(min(SERVE_CHECK_STEPS, len(out) - 1))]
+        cos += [torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+                for a, b in rows if a is not None]
+    ms = sorted(margins)
+    return {"min_cosine": min(cos), "rows": len(cos), "tokens": len(ms),
+            "max_margin": ms[-1], "p99_margin": ms[int(0.99 * (len(ms) - 1))],
+            "tokens_off_argmax": sum(m > 0 for m in ms)}
+
+
+def serve_engine(d: Path, quantize) -> dict:
+    """The continuous engine over the phase-3 weights: run A timed, run B
+    (the same schedule) checked, then the planted faults on a smaller mix."""
+    import torch
+    from kjarni_tpu_torch import Generator
+    tag = quantize or "bf16"
+    lm = Generator(str(d), quantize=quantize).lm
+    system = _prompt(SERVE_SYSTEM - 1, 100)
+    bursts = _serve_mix(seed=7)
+    c0 = _counts()
+    gc.collect()     # earlier probes' closures hold their engines in cycles
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with int4_shapes({}) as shapes:
+        a = run_engine(lm, system, bursts, seed=300)
+    flash_n, int4_n = (x - y for x, y in zip(_counts(), c0))
+    eng = a["eng"]
+    check(a["probe"].modes.get("flash", 0) >= 1 and a["probe"].modes.get("plain", 0) >= 1,
+          f"{tag} engine: flash and plain admission waves ({a['probe'].modes})")
+    check(flash_n == FLASH_PER_PREFILL * a["probe"].modes.get("flash", 0),
+          f"{tag} engine: {flash_n} flash launches, 16 per flash wave")
+    forwards = 1 + eng.stats["admission_waves"] + a["probe"].steps
+    want4 = INT4_PER_FORWARD * forwards if quantize == "int4" else 0
+    check(int4_n == want4, f"{tag} engine: {int4_n} int4 launches, expected {want4}")
+    if quantize == "int4":
+        check(shapes.get(SERVE_SLOTS, 0) > 0 and shapes.get(8 * 2048, 0) > 0,
+              f"{tag} engine: int4 at M = 8 (decode) and 16,384 (8 x 2048 wave): {shapes}")
+    row = {"serve": f"engine {tag}", "requests": len(a["done"]),
+           "windows": eng.stats["windows"], "decode_steps": a["probe"].steps,
+           "admission_waves": eng.stats["admission_waves"],
+           "prefix_hits": eng.stats["prefix_hits"], "waves_by_plan": a["probe"].modes,
+           "plans": {f"{b}+{m}": p["mode"] for (b, m), p in eng._admit_plans.items()},
+           "flash_launches": flash_n, "int4_launches": int4_n, "int4_launches_by_M": shapes,
+           "new_tokens": a["new_tokens"], "seconds": a["seconds"],
+           "tok_per_s": a["tok_per_s"], "ttft_ms_p50": a["ttft_ms_p50"],
+           "ttft_ms_p95": a["ttft_ms_p95"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del a["eng"], eng
+    # run B: the same schedule, with the draws checked and the logits held
+    counts = _counts()
+    with SlotDrawCheck() as dc:
+        b = run_engine(lm, system, bursts, seed=300, capture=True, profile=True)
+    _restore(counts)
+    for rid, fr in a["done"].items():
+        kind = "sampled" if a["meta"][rid][1] else "greedy"
+        check(b["done"][rid].token_ids == fr.token_ids,
+              f"{tag} engine: request {rid} ({kind}) repeats its stream in a second run")
+    held = hold_engine_rows(lm, b)
+    row.update({f"sound_{k}": v for k, v in held.items()})
+    row.update({"sampled_draws_checked": dc.draws, **(b["profile"] or {})})
+    del b
+    check(held["max_margin"] <= SERVE_TIE_BAND,
+          f"{tag} engine: greedy tokens within {SERVE_TIE_BAND} of the teacher-forced "
+          f"maximum ({held['max_margin']})")
+    # the planted faults, on a mix of 8 greedy requests in two bursts whose
+    # waves all take the flash plan (the gate shrunk to 1 byte), in bf16
+    # (the margin) and in f32 (the cosine, with flash's plain version); each
+    # must fail both
+    small = [[(200 + 100 * i, 8, False) for i in range(4)],
+             [(150 + 120 * i, 8, False) for i in range(4)]]
+    counts = _counts()
+    for prec in ("bf16", "f32"):
+        with as_f32(lm) if prec == "f32" else contextlib.nullcontext():
+            for fault in (None, *SERVE_FAULTS):
+                run = run_engine(lm, system, small, seed=500, capture=True, fault=fault,
+                                 score_limit=1)
+                check(set(run["probe"].modes) == {"flash"},
+                      f"{tag} engine, {prec}, {fault or 'sound'}: every wave takes the "
+                      f"flash plan ({run['probe'].modes})")
+                got = hold_engine_rows(lm, run)
+                del run
+                row.update({f"{prec}_{fault or 'sound'}_{k}": v for k, v in got.items()})
+                ok = (got["max_margin"] <= SERVE_TIE_BAND if prec == "bf16"
+                      else got["min_cosine"] >= BATCH_COS_MIN["f32"])
+                check(ok == (fault is None),
+                      f"{tag} engine, {prec}, {fault or 'sound'}: margin {got['max_margin']}"
+                      f" (band {SERVE_TIE_BAND}), cosine {got['min_cosine']} (f32 bound "
+                      f"{BATCH_COS_MIN['f32']}): {'passes' if fault is None else 'fails'}")
+    _restore(counts)
+    print(json.dumps(row))
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def serve_speculative(d: Path, tmp: Path, quantize, single_tps) -> list:
+    """SpeculativeGenerator over the phase-3 weights as the target, with two
+    drafts: the target's first 2 layers (same embedding and head) and the
+    target itself. Each output is held by the teacher-forced check (every
+    emitted token's margin); the cosine of the target pass's rows of the
+    emitted tokens against the same forward is printed."""
+    import types
+    import torch
+    from kjarni_tpu_torch import Generator
+    from kjarni_tpu_torch.generate.sampling import GenerationConfig
+    from kjarni_tpu_torch.generate.speculative import SpeculativeGenerator
+    from kjarni_tpu_torch.models.decoder_lm import DecoderLM
+    tag = quantize or "bf16"
+    dd = tmp / f"llama-3.2-1b-first-2-layers-{tag}"
+    if not dd.exists():
+        dd.mkdir()
+        for name in ("model.safetensors", "tokenizer.json"):
+            (dd / name).symlink_to(d / name)
+        (dd / "config.json").write_text(json.dumps({**LLAMA_1B, "num_hidden_layers": 2}))
+    target = Generator(str(d), quantize=quantize).lm
+    drafts = {"2-layer draft": DecoderLM(dd, quantize=quantize), "self-draft": target}
+    ids = target.encode_prompt(_prompt(600, 90))
+    cfg = GenerationConfig.greedy(max_new_tokens=128, max_length=4096)
+    rows = []
+    for name, draft in drafts.items():
+        spec = SpeculativeGenerator(target, draft, num_tokens=4)
+        c0 = _counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with int4_shapes({}) as shapes:
+            out = [st.id for st in spec.generate_stream(token_ids=ids, config=cfg)]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        flash_n, int4_n = (x - y for x, y in zip(_counts(), c0))
+        want = FLASH_PER_PREFILL + draft.config.num_layers
+        check(len(out) > 0 and flash_n == want,
+              f"spec {tag} {name}: {flash_n} flash launches, expected {want} (the "
+              f"target's and the draft's prefills at bucket 1024)")
+        if quantize == "int4":
+            check(shapes.get(spec.k + 1, 0) > 0 and shapes.get(1, 0) > 0,
+                  f"spec {tag} {name}: int4 at M = 5 (target pass) and 1 (draft): {shapes}")
+        row = {"serve": f"speculative {tag} {name}", "new_tokens": len(out),
+               "seconds": secs, "tok_per_s": len(out) / secs,
+               "single_stream_decode_tok_per_s": single_tps,
+               "rounds": spec.last_rounds, "acceptance_rate": spec.last_acceptance_rate,
+               "flash_launches": flash_n, "int4_launches": int4_n,
+               "int4_launches_by_M": shapes}
+        # a second run records the target passes: (slot, inputs, logits)
+        fam, passes = target.family, []
+
+        def record(params, cfg_, toks, ck, cv, pos):
+            out_ = fam.forward_all_logits(params, cfg_, toks, ck, cv, pos)
+            if toks.shape[1] == spec.k + 1:
+                passes.append((pos, toks[0].tolist(), out_[0][0].float().cpu()))
+            return out_
+        target.family = types.SimpleNamespace(
+            forward=fam.forward, forward_hidden=fam.forward_hidden,
+            head_logits=fam.head_logits, init_cache=fam.init_cache,
+            forward_all_logits=record)
+        counts = _counts()
+        try:
+            again = [st.id for st in spec.generate_stream(token_ids=ids, config=cfg)]
+        finally:
+            target.family = fam
+        _restore(counts)
+        check(again == out, f"spec {tag} {name}: a second run repeats the output")
+        # the rows whose inputs are the emitted sequence, against the reference
+        P, seq = len(ids), ids + out
+        ref = _teacher_forced(target, seq, list(range(P - 1, P + len(out) - 1)))
+        cos = []
+        for pos, toks, lg in passes:
+            for i, t in enumerate(toks):
+                j = pos + i - (P - 1)
+                if j >= len(out) or seq[pos + i] != t:
+                    break
+                cos.append(torch.nn.functional.cosine_similarity(lg[i], ref[j], dim=0).item())
+        ms = sorted(_margins(ref, out))
+        row.update({"min_cosine": min(cos), "rows": len(cos), "max_margin": ms[-1],
+                    "tokens_off_argmax": sum(m > 0 for m in ms)})
+        print(json.dumps(row))
+        check(ms[-1] <= SERVE_TIE_BAND, f"spec {tag} {name}: tokens within "
+                                        f"{SERVE_TIE_BAND} of the teacher-forced maximum "
+                                        f"({ms[-1]})")
+        rows.append(row)
+    del target, drafts
+    torch.cuda.empty_cache()
+    return rows
+
+
+def serve_http(d: Path) -> dict:
+    """serve.py's server on 127.0.0.1:0 in a thread (--scheduler continuous,
+    the phase-3 model dir): /health, 8 concurrent /v1/generate,
+    /v1/completions, a streamed /v1/chat/completions and /v1/batch_stats;
+    each must answer 200, the generate and completion texts with the texts
+    the engine finished."""
+    import threading
+    import urllib.request
+    from kjarni_tpu_torch import serve
+    engine = serve._Engine({"generate": str(d), "chat": str(d)}, scheduler="continuous",
+                           max_batch=SERVE_SLOTS, steps_per_sync=8)
+    srv = serve.KjarniHTTPServer(("127.0.0.1", 0), serve.make_handler(engine))
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{srv.server_port}"
+    gen = engine.get("generate", None)
+    runner = engine._continuous(gen)
+    finished, fin = [], runner._engine._finish
+
+    def finish(slot_idx, reason):
+        fin(slot_idx, reason)
+        finished.append(runner._engine._finished[-1].text)
+    runner._engine._finish = finish
+
+    def call(path, body=None, stream=False):
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(base + path, data=data,
+                                     headers={"Content-Type": "application/json"})
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            raw = r.read().decode()
+            code = r.status
+        ms = 1e3 * (time.perf_counter() - t)
+        check(code == 200, f"HTTP {path}: {code}")
+        if stream:
+            frames = [f[6:] for f in raw.split("\n") if f.startswith("data: ")]
+            check(frames and frames[-1] == "[DONE]", f"HTTP {path}: SSE ends with [DONE]")
+            return [json.loads(f) for f in frames[:-1]], ms
+        return json.loads(raw), ms
+
+    try:
+        health, ms_health = call("/health")
+        check(health == {"status": "ok"}, "HTTP /health")
+        res = {}
+
+        def client(i):
+            res[i] = call("/v1/generate", {"prompt": _prompt(150 + 40 * i, 400 + i),
+                                           "max_new_tokens": 32, "preset": "greedy"})
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        burst_s = time.perf_counter() - t0
+        texts = [res[i][0]["text"] for i in range(8)]
+        check(sorted(texts) == sorted(finished) and len(texts) == 8,
+              "HTTP /v1/generate: the 8 texts are the engine's")
+        comp, ms_comp = call("/v1/completions", {"prompt": _prompt(300, 410),
+                                                 "max_tokens": 16, "temperature": 0})
+        check(comp["choices"][0]["text"] == finished[-1],
+              "HTTP /v1/completions: the engine's text")
+        chunks, ms_chat = call("/v1/chat/completions", {
+            "messages": [{"role": "user", "content": _prompt(200, 420)}],
+            "max_tokens": 16, "temperature": 0, "stream": True}, stream=True)
+        check(len(chunks) > 2 and chunks[-1]["choices"][0]["finish_reason"] in
+              ("stop", "length"), "HTTP /v1/chat/completions: SSE chunks")
+        stats, ms_stats = call("/v1/batch_stats", {})
+        cont = stats["continuous"][gen.model_id]
+        check(cont["finished"] == 9 and cont["submitted"] == 9, f"HTTP batch_stats {cont}")
+        row = {"serve": "http continuous", "health_ms": ms_health,
+               "generate_ms": sorted(res[i][1] for i in range(8)),
+               "generate_burst_s": burst_s, "completions_ms": ms_comp,
+               "chat_stream_ms": ms_chat, "chat_chunks": len(chunks),
+               "batch_stats_ms": ms_stats, "batch_stats": cont}
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        runner.shutdown()
+    print(json.dumps(row))
+    return row
+
+
+def _gguf_kv(key: str, value) -> bytes:
+    """One GGUF metadata pair: u32 ints, f32 floats, strings, and arrays of
+    strings or of i32."""
+    import struct
+
+    def s(x: str) -> bytes:
+        b = x.encode()
+        return struct.pack("<Q", len(b)) + b
+    if isinstance(value, list):
+        if isinstance(value[0], str):
+            body = struct.pack("<IQ", 8, len(value)) + b"".join(s(v) for v in value)
+        else:
+            body = struct.pack(f"<IQ{len(value)}i", 5, len(value), *value)
+        return s(key) + struct.pack("<I", 9) + body
+    if isinstance(value, float):
+        return s(key) + struct.pack("<If", 6, value)
+    if isinstance(value, int):
+        return s(key) + struct.pack("<II", 4, value)
+    return s(key) + struct.pack("<I", 8) + s(value)
+
+
+def write_gguf_file(path: Path, tensors: dict, metadata: dict) -> None:
+    """A GGUF v3 file: tensors {name: (dims ne0-first, ggml type, raw bytes)},
+    32-byte aligned."""
+    import struct
+    head = struct.pack("<IIQQ", 0x46554747, 3, len(tensors), len(metadata))
+    head += b"".join(_gguf_kv(k, v) for k, v in metadata.items())
+    offset = 0
+    for name, (dims, ttype, raw) in tensors.items():
+        b = name.encode()
+        head += struct.pack(f"<Q{len(b)}sI", len(b), b, len(dims))
+        head += struct.pack(f"<{len(dims)}QIQ", *dims, ttype, offset)
+        offset += len(raw) + (-len(raw)) % 32
+    with open(path, "wb") as f:
+        f.write(head + b"\0" * ((-len(head)) % 32))
+        for _, _, raw in tensors.values():
+            f.write(raw)
+            f.write(b"\0" * ((-len(raw)) % 32))
+
+
+def q8_0(w):
+    """Q8_0 blocks of f32 w (numpy, rows of a multiple of 32): (raw bytes,
+    the dequantized f32 values as a reader computes them, f16 scale times
+    int8)."""
+    import numpy as np
+    blocks = w.reshape(-1, 32)
+    d = (np.abs(blocks).max(axis=1, keepdims=True) / 127.0).astype(np.float16)
+    d[d == 0] = 1.0
+    q = np.clip(np.round(blocks / d.astype(np.float32)), -127, 127).astype(np.int8)
+    raw = np.concatenate([d.view(np.uint8), q.view(np.uint8)], axis=1)
+    return raw.tobytes(), (d.astype(np.float32) * q.astype(np.float32)).reshape(w.shape)
+
+
+def gguf_bpe_metadata(vocab: int) -> dict:
+    """tokenizer.ggml.* of a byte-level BPE over `vocab` ids: the 256 byte
+    symbols, every merge of two of them, then merges of those pairs with a
+    third symbol up to id 128,000, then 256 specials (<|begin_of_text|> = 128000, <|end_of_text|> = 128001,
+    reserved tokens), as Llama 3 lays them out."""
+    from kjarni_tpu_torch.tokenizer_native import bytes_to_unicode
+    syms = list(bytes_to_unicode().values())
+    n_plain = LLAMA3_SPECIALS["<|begin_of_text|>"]
+    pairs = [(a, b) for a in syms for b in syms]                 # 65,536
+    merges = (pairs + [(a + b, c) for a, b in pairs for c in syms])[:n_plain - len(syms)]
+    specials = [f"<|reserved_special_token_{i}|>" for i in range(vocab - n_plain)]
+    specials[0], specials[1] = "<|begin_of_text|>", "<|end_of_text|>"
+    tokens = syms + [a + b for a, b in merges] + specials
+    return {"tokenizer.ggml.model": "gpt2", "tokenizer.ggml.tokens": tokens,
+            "tokenizer.ggml.merges": [f"{a} {b}" for a, b in merges],
+            "tokenizer.ggml.token_type": [1] * n_plain + [3] * (vocab - n_plain),
+            "tokenizer.ggml.bos_token_id": n_plain, "tokenizer.ggml.eos_token_id": n_plain + 1}
+
+
+def serve_gguf(tmp: Path) -> dict:
+    """A Llama-3.2-1B-width GGUF at 2 layers (Q8_0 embedding and projections,
+    F32 norms, tied head) with the embedded BPE over 128,256 ids, loaded by
+    DecoderLM(dir); its params and first-prefill logits against the same
+    dequantized weights written as safetensors."""
+    import numpy as np
+    import torch
+    from kjarni_tpu_torch.models.decoder_lm import DecoderLM
+    from kjarni_tpu_torch.tokenizer_native import BPETokenizer
+    from kjarni_tpu_torch.weights.gguf import GgufWeights
+    from kjarni_tpu_torch.weights.safetensors_loader import save_file
+    c, L = LLAMA_1B, 2
+    H, I_, V = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
+    qd, kvd = c["num_attention_heads"] * c["head_dim"], c["num_key_value_heads"] * c["head_dim"]
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(11)
+    md = {"general.architecture": "llama", "llama.block_count": L,
+          "llama.embedding_length": H, "llama.feed_forward_length": I_,
+          "llama.attention.head_count": c["num_attention_heads"],
+          "llama.attention.head_count_kv": c["num_key_value_heads"],
+          "llama.context_length": 8192, "llama.rope.freq_base": c["rope_theta"],
+          "llama.attention.layer_norm_rms_epsilon": c["rms_norm_eps"],
+          "llama.vocab_size": V, **gguf_bpe_metadata(V)}
+    tensors, dense = {}, {}
+
+    def add(gname, hname, out_f, in_f):
+        w = (rng.standard_normal((out_f, in_f), dtype=np.float32) * 0.02)
+        raw, deq = q8_0(w)
+        tensors[gname], dense[hname] = ([in_f, out_f], 8, raw), deq
+
+    ones = np.ones(H, np.float32)
+    add("token_embd.weight", "model.embed_tokens.weight", V, H)
+    tensors["output_norm.weight"], dense["model.norm.weight"] = ([H], 0, ones.tobytes()), ones
+    for i in range(L):
+        g, h = f"blk.{i}.", f"model.layers.{i}."
+        for gn, hn, o, n in (("attn_q", "self_attn.q_proj", qd, H),
+                             ("attn_k", "self_attn.k_proj", kvd, H),
+                             ("attn_v", "self_attn.v_proj", kvd, H),
+                             ("attn_output", "self_attn.o_proj", H, qd),
+                             ("ffn_gate", "mlp.gate_proj", I_, H), ("ffn_up", "mlp.up_proj", I_, H),
+                             ("ffn_down", "mlp.down_proj", H, I_)):
+            add(g + gn + ".weight", h + hn + ".weight", o, n)
+        for gn, hn in (("attn_norm", "input_layernorm"),
+                       ("ffn_norm", "post_attention_layernorm")):
+            tensors[g + gn + ".weight"], dense[h + hn + ".weight"] = \
+                ([H], 0, ones.tobytes()), ones
+    gd, sd = tmp / "llama-1b-width-2-layers-gguf", tmp / "llama-1b-width-2-layers-st"
+    gd.mkdir()
+    sd.mkdir()
+    write_gguf_file(gd / "model.gguf", tensors, md)
+    save_file({k: torch.from_numpy(v) for k, v in dense.items()}, sd / "model.safetensors")
+    (sd / "config.json").write_text(json.dumps(GgufWeights(gd / "model.gguf").hf_config()))
+    write_tokenizer(sd / "tokenizer.json", V)
+    del tensors, dense
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lg = DecoderLM(gd)
+    torch.cuda.synchronize()
+    load_gguf_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ls = DecoderLM(sd)
+    torch.cuda.synchronize()
+    load_st_s = time.perf_counter() - t0
+    check(isinstance(lg.tokenizer, BPETokenizer) and lg.config == ls.config,
+          "GGUF dir: embedded BPE, the safetensors dir's config")
+    text = " ".join("".join(chr(97 + int(x)) for x in rng.integers(0, 26, n))
+                    for n in rng.integers(2, 9, 300))
+    ids = lg.encode_prompt(text)
+    check(lg.tokenizer.decode(ids) == text, "GGUF BPE decodes what it encodes")
+
+    def leaves(p, pre=""):
+        for k, v in p.items():
+            yield from (leaves(v, pre + k + ".") if isinstance(v, dict) else [(pre + k, v)])
+    pg, ps = dict(leaves(lg.params)), dict(leaves(ls.params))
+    check(pg.keys() == ps.keys() and all(torch.equal(pg[k], ps[k]) for k in pg),
+          "GGUF params equal the dequantized safetensors params")
+    f0 = _counts()[0]
+    out_g, out_s = prefill_logits(lg, ids), prefill_logits(ls, ids)
+    check(_counts()[0] - f0 == 2 * L, "GGUF and safetensors prefills take flash")
+    check(torch.equal(out_g, out_s) and bool(torch.isfinite(out_g).all()),
+          "GGUF first-prefill logits equal the safetensors ones")
+    row = {"serve": "gguf", "layers": L, "prompt_tokens": len(ids),
+           "gguf_gb": (gd / "model.gguf").stat().st_size / 1e9, "write_s": write_s,
+           "load_gguf_s": load_gguf_s, "load_safetensors_s": load_st_s,
+           "logits_max_abs_diff": (out_g - out_s).abs().max().item()}
+    print(json.dumps(row))
+    del lg, ls
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_serve(d: Path, tmp: Path, ran: dict) -> None:
+    """Phase 9: the continuous engine and speculative decoding in bf16 and
+    int4, the HTTP server, and a GGUF dir."""
+    for quantize in (None, "int4"):
+        serve_engine(d, quantize)
+    for quantize in (None, "int4"):
+        serve_speculative(d, tmp, quantize,
+                          ran.get(quantize or "bf16", {}).get("stream_decode_tok_per_s"))
+    serve_http(d)
+    serve_gguf(tmp)
+
+
+# ---------------------------------------------------------------------------
+# phase 10
 # ---------------------------------------------------------------------------
 
 def encoder_modules(c: dict) -> dict:
@@ -1911,9 +2662,9 @@ def main() -> int:
     if set(GENERATION) & set(phases):
         phase_slices(phases)
     launches = {"flash": flash_attention.launches, "int4": int4_matvec.launches}
-    if {"bf16", "int4", "int8", "chat"} & set(phases):
+    if {"bf16", "int4", "int8", "chat", "serve"} & set(phases):
         check(launches["flash"] > 0, "the main path launched the flash kernel")
-    if {"int4", "batch"} & set(phases):
+    if {"int4", "batch", "serve"} & set(phases):
         check(launches["int4"] > 0, "the main path launched the int4 kernel")
     if "embed" in phases:
         phase_embed()

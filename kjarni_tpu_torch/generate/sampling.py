@@ -75,9 +75,10 @@ def _lengths(length, rows: int, device) -> torch.Tensor:
 
 
 def apply_repetition_penalty(logits: torch.Tensor, tokens: torch.Tensor,
-                             valid: torch.Tensor, penalty: float) -> torch.Tensor:
+                             valid: torch.Tensor, penalty) -> torch.Tensor:
     """logits [V]; tokens [T] history buffer; valid [T] 0/1 mask; or the
-    same with a leading batch axis, row by row.
+    same with a leading batch axis, row by row. `penalty` is one float, or a
+    [B] tensor of one per row (the continuous engine's slots).
 
     Per-occurrence compounding, sign-dependent divide/multiply (sampling.rs:8).
     """
@@ -85,8 +86,8 @@ def apply_repetition_penalty(logits: torch.Tensor, tokens: torch.Tensor,
     counts = _scatter_add(torch.zeros(lg.shape, dtype=torch.float32, device=lg.device),
                           tokens.long().reshape(lg.shape[0], -1),
                           valid.float().reshape(lg.shape[0], -1))
-    factor = torch.pow(torch.tensor(penalty, dtype=torch.float32,
-                                    device=logits.device), counts)
+    factor = torch.pow(torch.as_tensor(penalty, dtype=torch.float32,
+                                       device=logits.device).reshape(-1, 1), counts)
     return torch.where(lg < 0, lg * factor, lg / factor).reshape(logits.shape)
 
 

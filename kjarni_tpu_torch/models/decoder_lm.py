@@ -34,6 +34,8 @@ from ..generate.sampling import (GenerationConfig, SamplingParams, process_logit
                                  sample_token)
 from ..generate.stream import StreamDecoder, StreamedToken, TokenType
 from ..tokenizer import KjarniTokenizer
+from ..tokenizer_native import bpe_from_gguf_metadata
+from ..weights.gguf import GgufWeights
 from ..weights.safetensors_loader import ModelWeights
 from . import gpt2 as kgpt2
 from . import llama as kllama
@@ -114,12 +116,24 @@ class DecoderLM:
         dtype = resolve_dtype(dtype, self.device)
         model_dir = Path(model_dir)
         self.model_dir = model_dir
+        # weights source priority: safetensors > GGUF (the JAX package puts
+        # its native checkpoint first; the port has no such format yet)
+        gguf_path = model_dir / "model.gguf"
         has_safetensors = (model_dir / "model.safetensors").exists() or \
             (model_dir / "model.safetensors.index.json").exists()
-        if not has_safetensors and (model_dir / "model.gguf").exists():
-            raise not_ported("GGUF weights", "queue 1, item 2")
-        ws = ModelWeights(model_dir)  # raises with a clear error
-        hf_cfg = json.loads((model_dir / "config.json").read_text())
+        if has_safetensors:
+            ws = ModelWeights(model_dir)
+        elif gguf_path.exists():
+            ws = GgufWeights(gguf_path)
+        elif (model_dir / "kjarni_ckpt").exists():
+            raise not_ported(f"the native checkpoint of {model_dir}", "queue 1, item 8")
+        else:
+            ws = ModelWeights(model_dir)  # raises with a clear error
+        cfg_path = model_dir / "config.json"
+        if cfg_path.exists():
+            hf_cfg = json.loads(cfg_path.read_text())
+        else:
+            hf_cfg = ws.hf_config()  # GGUF metadata -> HF-style config
         self.hf_config = hf_cfg
         if hf_cfg.get("model_type", "llama") == "gpt2":
             self.family = kgpt2
@@ -149,10 +163,17 @@ class DecoderLM:
         self._cache = None  # allocated lazily, reused across generations
 
         tok_path = model_dir / "tokenizer.json"
-        if not tok_path.exists():
-            raise not_ported(f"a model dir without tokenizer.json ({model_dir}; "
-                              "the GGUF-embedded tokenizer)", "queue 1, item 2")
-        self.tokenizer = KjarniTokenizer.from_file(tok_path)
+        if tok_path.exists():
+            self.tokenizer = KjarniTokenizer.from_file(tok_path)
+        else:
+            # GGUF files embed vocab and merges: the in-tree BPE over them
+            bpe = bpe_from_gguf_metadata(ws.metadata) \
+                if isinstance(ws, GgufWeights) else None
+            if bpe is None:
+                raise InvalidConfigError(
+                    f"no tokenizer.json in {model_dir} and no GGUF-embedded "
+                    f"tokenizer available")
+            self.tokenizer = bpe
         self.chat_template: ChatTemplate = template_for_arch(cfg.arch)
 
         # stop tokens: generation_config.json eos wins over config.json

@@ -16,11 +16,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..core.errors import GenerationError
 from ..ops.activations import gelu_new
 from ..ops.attention import NEG_INF, attention, merge_heads
 from ..ops.norms import layer_norm
 from ..weights.safetensors_loader import ModelWeights
-from .llama import _cache_write, _stack
+from .llama import _cache_write, _get, _stack, causal_bias
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +68,7 @@ def load_params(ws: ModelWeights, cfg: Gpt2Config, dtype=torch.float32,
     pre = "transformer." if "transformer.wte.weight" in ws else ""
 
     def one(name):
-        return ws.get(pre + name).to(device=device, dtype=dtype)
+        return _get(ws, pre + name).to(device=device, dtype=dtype)
 
     def stack(fmt):
         return _stack(ws, pre + fmt, L, dtype, device, transpose=False)
@@ -106,22 +107,27 @@ def _run_stack(params: dict, cfg: Gpt2Config, ids: torch.Tensor,
                pad_mask: Optional[torch.Tensor] = None,
                kv_bucket: Optional[int] = None) -> torch.Tensor:
     """Embed -> layer loop -> final norm, with llama._run_stack's batched
-    contract (`positions` [B, S] under left padding, `pad_mask` [B, T]).
+    contract (`positions` [B, S] under left padding, `pad_mask` [B, T]) and
+    its per-row decode (pos_start a [B] tensor, S = 1: `wpe` and the cache
+    slot at each row's own position).
     `use_flash` and `kv_bucket` are accepted for the shared signature and
     ignored: attention is the plain op over the cache."""
     del use_flash, kv_bucket
     B, S = ids.shape
     T = cache_k.shape[3]
     H, D = cfg.num_heads, cfg.head_dim
-    pos_start = int(pos_start)
-    if positions is None:
+    per_row = torch.is_tensor(pos_start)
+    if per_row and (S != 1 or pos_start.shape != (B,)):
+        raise GenerationError("a per-row decode position takes one token per row")
+    pos_start = pos_start if per_row else int(pos_start)
+    if per_row:
+        pos_emb = params["wpe"][pos_start][:, None]
+    elif positions is None:
         pos_emb = params["wpe"][pos_start:pos_start + S][None]
     else:
         pos_emb = params["wpe"][positions]
     x = F.embedding(ids, params["embed"]) + pos_emb
-    qi = pos_start + torch.arange(S, device=ids.device)[:, None]
-    kj = torch.arange(T, device=ids.device)[None, :]
-    bias = torch.where(kj <= qi, 0.0, NEG_INF)[None, None]
+    bias = causal_bias(pos_start, S, T, ids.device)
     if pad_mask is not None:
         bias = bias + torch.where(pad_mask.bool(), 0.0, NEG_INF)[:, None, None, :]
 
@@ -161,3 +167,18 @@ def forward_all_logits(params: dict, cfg: Gpt2Config, ids: torch.Tensor,
     """Like forward() but returns logits at every position."""
     x = _run_stack(params, cfg, ids, cache_k, cache_v, pos_start)
     return x @ params["lm_head"], cache_k, cache_v
+
+
+def forward_hidden(params: dict, cfg: Gpt2Config, ids: torch.Tensor,
+                   cache_k: torch.Tensor, cache_v: torch.Tensor, pos_start,
+                   use_flash: bool = False, positions: Optional[torch.Tensor] = None,
+                   pad_mask: Optional[torch.Tensor] = None,
+                   kv_bucket: Optional[int] = None) -> torch.Tensor:
+    """The stack without the lm-head (cf. llama.forward_hidden)."""
+    return _run_stack(params, cfg, ids, cache_k, cache_v, pos_start, use_flash,
+                      positions, pad_mask, kv_bucket)
+
+
+def head_logits(params: dict, cfg: Gpt2Config, x: torch.Tensor) -> torch.Tensor:
+    """lm-head projection of gathered hidden rows."""
+    return x @ params["lm_head"]

@@ -117,6 +117,13 @@ class DecoderConfig:
 # Weight loading
 # ---------------------------------------------------------------------------
 
+def _get(ws: ModelWeights, name: str) -> torch.Tensor:
+    """One checkpoint tensor as a torch tensor: `ModelWeights` gives torch
+    views, `GgufWeights` (weights/gguf.py) dequantized numpy arrays."""
+    t = ws.get(name)
+    return torch.from_numpy(t) if isinstance(t, np.ndarray) else t
+
+
 def _stack(ws: ModelWeights, fmt: str, L: int, dtype, device,
            transpose: bool = True) -> torch.Tensor:
     """Stack L checkpoint tensors on `device`. Each layer goes to the device
@@ -124,7 +131,7 @@ def _stack(ws: ModelWeights, fmt: str, L: int, dtype, device,
     no converted copy of the model."""
     out = None
     for i in range(L):
-        t = ws.get(fmt.format(i)).to(device)
+        t = _get(ws, fmt.format(i)).to(device)
         t = t.t() if transpose else t
         if out is None:
             out = torch.empty((L, *t.shape), dtype=dtype, device=device)
@@ -135,7 +142,8 @@ def _stack(ws: ModelWeights, fmt: str, L: int, dtype, device,
 def load_params(ws: ModelWeights, cfg: DecoderConfig, dtype=torch.float32,
                 rope_cache_len: Optional[int] = None,
                 device: torch.device | str = "cpu") -> dict:
-    """Map HF llama-layout checkpoints into the stacked param dict.
+    """Map HF llama-layout checkpoints (safetensors, or GGUF through
+    weights/gguf.py's HF names) into the stacked param dict.
 
     Phi-3's fused qkv_proj / gate_up_proj are split here so one forward serves
     every arch.
@@ -154,7 +162,7 @@ def load_params(ws: ModelWeights, cfg: DecoderConfig, dtype=torch.float32,
         return out
 
     def one(name):
-        return ws.get(name).to(device=device, dtype=dtype)
+        return _get(ws, name).to(device=device, dtype=dtype)
 
     if cfg.arch == "phi3":
         qkv = stack(p + "layers.{}.self_attn.qkv_proj.weight")
@@ -351,24 +359,34 @@ def cache_slots(cache) -> int:
     return c.shape[-2]
 
 
-def _cache_write(cache, new: torch.Tensor, pos_start: int) -> None:
+def _cache_write(cache, new: torch.Tensor, pos_start) -> None:
     """Write [B, H, S, D] into one layer's cache [B, H, T, D] at pos_start.
     XLA's dynamic_update_slice would clamp the start so the update fits; a
     write past T here is a caller error and is refused. The int8 cache takes
     absmax / 127 per (head, position), computed in new's dtype, as the JAX
-    package's _cache_write."""
+    package's _cache_write.
+
+    pos_start may be a [B] tensor when S = 1: row b writes its slot
+    pos_start[b] of its own row (per-row decode). Checking that range would
+    cost a device sync per layer, so the caller keeps it in [0, T)."""
+    if isinstance(cache, dict):
+        scale = new.abs().amax(dim=-1).clamp_min(1e-6) / 127.0
+        q = torch.clamp(torch.round(new / scale[..., None]), -127, 127)
+        leaves = ((cache["q"], q), (cache["s"], scale))
+    else:
+        leaves = ((cache, new),)
+    if torch.is_tensor(pos_start):
+        rows = torch.arange(new.shape[0], device=new.device)
+        for c, v in leaves:
+            c[rows, :, pos_start] = v[:, :, 0].to(c.dtype)
+        return
     S, T = new.shape[2], cache_slots(cache)
     if pos_start < 0 or pos_start + S > T:
         raise GenerationError(
             f"KV cache write of {S} positions at {pos_start} exceeds its "
             f"{T} slots")
-    if isinstance(cache, dict):
-        scale = new.abs().amax(dim=-1).clamp_min(1e-6) / 127.0
-        q = torch.clamp(torch.round(new / scale[..., None]), -127, 127)
-        cache["q"][:, :, pos_start:pos_start + S].copy_(q)
-        cache["s"][:, :, pos_start:pos_start + S].copy_(scale)
-        return
-    cache[:, :, pos_start:pos_start + S].copy_(new)
+    for c, v in leaves:
+        c[:, :, pos_start:pos_start + S].copy_(v)
 
 
 def _cache_read(cache, n: int, dtype: torch.dtype) -> torch.Tensor:
@@ -382,6 +400,23 @@ def _cache_read(cache, n: int, dtype: torch.dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
+
+def causal_bias(pos_start, S: int, T: int, device,
+                window: Optional[int] = None) -> torch.Tensor:
+    """Additive causal bias over T cache slots: query slot i sees kv slots
+    j <= i (and j > i - window under a sliding window). [1, 1, S, T] for an
+    int pos_start; [B, 1, 1, T] for a per-row [B] tensor (S = 1)."""
+    kj = torch.arange(T, device=device)[None, :]
+    if torch.is_tensor(pos_start):
+        qi = pos_start.to(device)[:, None]                        # [B, 1]
+    else:
+        qi = pos_start + torch.arange(S, device=device)[:, None]  # [S, 1]
+    keep = kj <= qi
+    if window:
+        keep = keep & (kj > qi - window)
+    bias = torch.where(keep, 0.0, NEG_INF)
+    return bias[:, None, None] if torch.is_tensor(pos_start) else bias[None, None]
+
 
 def _run_stack(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
                cache_k, cache_v, pos_start: int, use_flash: bool = False,
@@ -398,13 +433,26 @@ def _run_stack(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
     Batched generation over ragged prompts passes `positions` [B, S] (each
     row's RoPE positions under left padding; cache slots stay shared) and
     `pad_mask` [B, T] (1 = a real kv slot), added to the causal bias.
+
+    Per-row decode (the continuous engine's slots, each at its own position)
+    passes pos_start as a [B] tensor with S = 1: row b takes RoPE at
+    pos_start[b], writes its K/V at that slot of its own cache row and
+    attends kv slots j <= pos_start[b]. This is the JAX engine's vmap of the
+    B = 1 forward over the slot axis, as one batched forward.
     """
     B, S = ids.shape
     T = cache_slots(cache_k)
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    pos_start = int(pos_start)
+    per_row = torch.is_tensor(pos_start)
+    if per_row and (S != 1 or use_flash or pos_start.shape != (B,)):
+        raise GenerationError("a per-row decode position takes one token per row "
+                              "and the plain attention")
+    pos_start = pos_start if per_row else int(pos_start)
     x = F.embedding(ids, params["embed"])
-    if positions is None:
+    if per_row:     # per-row tables [B, 1, 1, D]
+        cos = params["rope_cos"][pos_start][:, None, None]
+        sin = params["rope_sin"][pos_start][:, None, None]
+    elif positions is None:
         cos = params["rope_cos"][pos_start:pos_start + S]
         sin = params["rope_sin"][pos_start:pos_start + S]
     else:   # per-row tables [B, 1, S, D]
@@ -413,13 +461,7 @@ def _run_stack(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
 
     bias = None
     if not use_flash:
-        # causal bias over cache slots: query slot i sees kv slots j <= i
-        qi = pos_start + torch.arange(S, device=ids.device)[:, None]
-        kj = torch.arange(T, device=ids.device)[None, :]
-        keep = kj <= qi
-        if cfg.sliding_window:
-            keep = keep & (kj > qi - cfg.sliding_window)
-        bias = torch.where(keep, 0.0, NEG_INF)[None, None]      # [1, 1, S, T]
+        bias = causal_bias(pos_start, S, T, ids.device, cfg.sliding_window)
         if pad_mask is not None:
             bias = bias + torch.where(pad_mask.bool(), 0.0,
                                       NEG_INF)[:, None, None, :]   # [B, 1, S, T]
@@ -486,3 +528,20 @@ def forward_all_logits(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
     """Like forward() but returns logits at every position."""
     x = _run_stack(params, cfg, ids, cache_k, cache_v, pos_start)
     return _head_mm(x, params["lm_head"]), cache_k, cache_v
+
+
+def forward_hidden(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
+                   cache_k, cache_v, pos_start, use_flash: bool = False,
+                   positions: Optional[torch.Tensor] = None,
+                   pad_mask: Optional[torch.Tensor] = None,
+                   kv_bucket: Optional[int] = None) -> torch.Tensor:
+    """The stack without the lm-head: final-norm hidden states [B, S, H] at
+    every position, so a caller projects only the rows it needs (batched
+    admission takes one hidden row per lane before head_logits)."""
+    return _run_stack(params, cfg, ids, cache_k, cache_v, pos_start, use_flash,
+                      positions, pad_mask, kv_bucket)
+
+
+def head_logits(params: dict, cfg: DecoderConfig, x: torch.Tensor) -> torch.Tensor:
+    """lm-head projection of gathered hidden rows."""
+    return _head_mm(x, params["lm_head"])

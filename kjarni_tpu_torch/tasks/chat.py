@@ -11,7 +11,8 @@ from ..chat_templates import Conversation, template_by_name
 from ..core.cancellation import CancellationToken
 from ..generate.sampling import GenerationConfig
 from ..generate.stream import StreamedToken
-from ..models.decoder_lm import DecoderLM, not_ported
+from ..generate.speculative import SpeculativeGenerator
+from ..models.decoder_lm import DecoderLM
 from ..registry import ModelTask
 from .common import Device, DownloadPolicy, resolve_model_dir
 from .generator import resolve_generation_config
@@ -40,8 +41,6 @@ class Chat:
                  chat_template: Optional[str] = None,
                  offline: bool = False,
                  quiet: bool = False):
-        if draft_model is not None:
-            raise not_ported("speculative decoding (draft_model)", "queue 1, item 4")
         self.device = Device.resolve(device)
         policy = DownloadPolicy.OFFLINE if offline else DownloadPolicy.ALLOW
         model_dir, info = resolve_model_dir(
@@ -55,6 +54,14 @@ class Chat:
             # an explicit prompt format (e.g. "llama2" for a legacy
             # [INST]/<<SYS>> fine-tune) over the arch's default
             self._lm.chat_template = template_by_name(chat_template)
+        self._spec = None
+        if draft_model is not None:
+            draft_dir, _ = resolve_model_dir(
+                draft_model, cache_dir, policy, quiet, _CHAT_TASKS, "chat")
+            self._spec = SpeculativeGenerator(
+                self._lm, DecoderLM(draft_dir, dtype=dtype, max_context=max_context,
+                                    device=self.device.torch_name),
+                num_tokens=draft_num_tokens)
         if system_prompt is None:
             system_prompt = self._lm.chat_template.default_system_prompt()
         self._conversation = (Conversation.with_system(system_prompt)
@@ -63,6 +70,11 @@ class Chat:
     @property
     def lm(self) -> DecoderLM:
         return self._lm
+
+    @property
+    def speculative(self) -> Optional[SpeculativeGenerator]:
+        """The SpeculativeGenerator when a draft model is loaded, else None."""
+        return self._spec
 
     @property
     def conversation(self) -> Conversation:
@@ -98,11 +110,15 @@ class Chat:
         while len(token_ids) > budget and self._conversation.drop_oldest_turn():
             token_ids = self._encode()
 
+        # greedy turns take the speculative loop when a draft is loaded
+        source = (self._spec.generate_stream
+                  if self._spec is not None and cfg.strategy == "greedy"
+                  else self._lm.generate_stream)
+
         def run():
             collected: list[str] = []
             stop_seqs = self._lm.chat_template.stop_sequences()
-            for st in self._lm.generate_stream(token_ids=token_ids, config=cfg,
-                                               cancellation=cancellation):
+            for st in source(token_ids=token_ids, config=cfg, cancellation=cancellation):
                 # stop sequences are usually special tokens the stream
                 # decoder already drops; guard anyway
                 if any(s in st.text for s in stop_seqs):

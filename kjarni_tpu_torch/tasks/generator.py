@@ -10,7 +10,8 @@ from typing import Iterator, Optional
 from ..core.cancellation import CancellationToken
 from ..generate.sampling import GenerationConfig, SamplingParams
 from ..generate.stream import StreamedToken
-from ..models.decoder_lm import DecoderLM, not_ported
+from ..generate.speculative import SpeculativeGenerator
+from ..models.decoder_lm import DecoderLM
 from ..registry import ModelTask
 from .common import Device, DownloadPolicy, resolve_model_dir
 
@@ -64,8 +65,6 @@ class Generator:
                  draft_num_tokens: int = 4,
                  offline: bool = False,
                  quiet: bool = False):
-        if draft_model is not None:
-            raise not_ported("speculative decoding (draft_model)", "queue 1, item 4")
         self.device = Device.resolve(device)
         policy = DownloadPolicy.OFFLINE if offline else DownloadPolicy.ALLOW
         model_dir, info = resolve_model_dir(
@@ -75,10 +74,30 @@ class Generator:
         self._lm = DecoderLM(model_dir, dtype=dtype, max_context=max_context,
                              quantize=quantize, execution_plan=execution_plan,
                              tp=tp, kv_cache=kv_cache, device=self.device.torch_name)
+        # speculative decoding: the generator owns the draft model, so every
+        # caller (Chat, serve) gets it (cf. decoder/generator.rs:56)
+        self._spec = None
+        if draft_model is not None:
+            draft_dir, _ = resolve_model_dir(
+                draft_model, cache_dir, policy, quiet, _GENERATOR_TASKS, "generation")
+            self._spec = SpeculativeGenerator(
+                self._lm, DecoderLM(draft_dir, dtype=dtype, max_context=max_context,
+                                    device=self.device.torch_name),
+                num_tokens=draft_num_tokens)
 
     @property
     def lm(self) -> DecoderLM:
         return self._lm
+
+    @property
+    def speculative(self) -> Optional[SpeculativeGenerator]:
+        """The SpeculativeGenerator when a draft model is loaded, else None
+        (acceptance telemetry: last_acceptance_rate)."""
+        return self._spec
+
+    def _use_spec(self, cfg: GenerationConfig) -> bool:
+        # greedy rounds verify exactly; sampled requests keep the plain path
+        return self._spec is not None and cfg.strategy == "greedy"
 
     def generate(self, prompt: str, *, preset: Optional[str] = None,
                  config: Optional[GenerationConfig] = None,
@@ -86,6 +105,8 @@ class Generator:
                  **overrides) -> str:
         cfg = resolve_generation_config(
             preset, config, self._lm.default_generation_config(), **overrides)
+        if self._use_spec(cfg):
+            return self._spec.generate(prompt, config=cfg, cancellation=cancellation)
         return self._lm.generate(prompt, config=cfg, cancellation=cancellation)
 
     def generate_batch(self, prompts: list[str], *,
@@ -104,4 +125,7 @@ class Generator:
                         **overrides) -> Iterator[StreamedToken]:
         cfg = resolve_generation_config(
             preset, config, self._lm.default_generation_config(), **overrides)
+        if self._use_spec(cfg):
+            return self._spec.generate_stream(prompt, config=cfg,
+                                              cancellation=cancellation)
         return self._lm.generate_stream(prompt, config=cfg, cancellation=cancellation)

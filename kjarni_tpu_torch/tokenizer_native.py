@@ -1,8 +1,10 @@
 """Byte-level BPE tokenizer (GPT-2 style), with no HF runtime.
 
-Copy of the BPE part of kjarni_tpu/tokenizer_native.py. `regex` is imported
-inside `encode`, so building a tokenizer and decoding need neither `regex`
-nor `tokenizers`.
+Copy of the BPE part of kjarni_tpu/tokenizer_native.py, and of
+`bpe_from_gguf_metadata`, which builds it from the vocabulary and merges a
+GGUF file embeds (a GGUF-only model dir has no tokenizer.json). `regex` is
+imported inside `encode`, so building a tokenizer and decoding need neither
+`regex` nor `tokenizers`.
 """
 
 from __future__ import annotations
@@ -122,3 +124,33 @@ class BPETokenizer:
     def token_to_id(self, token: str) -> Optional[int]:
         tid = self.special_tokens.get(token)
         return tid if tid is not None else self.vocab.get(token)
+
+
+def bpe_from_gguf_metadata(metadata: dict) -> Optional[BPETokenizer]:
+    """A BPE tokenizer from GGUF tokenizer.ggml.* metadata, or None when the
+    file embeds no vocabulary and merges."""
+    tokens = metadata.get("tokenizer.ggml.tokens")
+    merges = metadata.get("tokenizer.ggml.merges")
+    if not tokens or merges is None:
+        return None
+    vocab = {t: i for i, t in enumerate(tokens)}
+    merge_pairs = []
+    for m in merges:
+        a, _, b = m.partition(" ")
+        merge_pairs.append((a, b))
+    specials = {}
+    for key in ("tokenizer.ggml.bos_token_id", "tokenizer.ggml.eos_token_id"):
+        tid = metadata.get(key)
+        if tid is not None and tid < len(tokens):
+            specials[tokens[tid]] = tid
+    # control tokens (token_type 3 in ggml, or <|...|> shaped) act as specials
+    types = metadata.get("tokenizer.ggml.token_type")
+    if types:
+        for i, t in enumerate(types):
+            if t == 3 and i < len(tokens):
+                specials[tokens[i]] = i
+    else:
+        for i, tok in enumerate(tokens):
+            if tok.startswith("<|") and tok.endswith("|>"):
+                specials[tok] = i
+    return BPETokenizer(vocab, merge_pairs, specials)

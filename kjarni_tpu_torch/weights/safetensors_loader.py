@@ -28,6 +28,9 @@ _DTYPES = {
     "I16": torch.int16,
     "I8": torch.int8,
     "U8": torch.uint8,
+    "U16": torch.uint16,
+    "U32": torch.uint32,
+    "U64": torch.uint64,
     "BOOL": torch.bool,
     "F8_E4M3": torch.float8_e4m3fn,
     "F8_E5M2": torch.float8_e5m2,

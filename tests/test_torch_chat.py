@@ -134,7 +134,7 @@ def test_stream_updates_history_at_its_end(chat_dir):
 
 def test_refusals(chat_dir):
     with pytest.raises(InvalidConfigError, match="ROADMAP.md"):
-        Chat(str(chat_dir), device="cpu", draft_model="x")
+        Chat(str(chat_dir), device="cpu", tp=2)
     if not torch.cuda.is_available():   # Chat() means the card
         with pytest.raises(InvalidConfigError, match="device='cpu'"):
             Chat(str(chat_dir))

@@ -8,7 +8,10 @@ every tile class (interior, causal diagonal, window left edge, kv_len edge
 with a poisoned tail), q in the [B, S, H, D] storage that the model passes,
 and bit-identical repeat calls. Also the encoder (the embed path, which has no
 hand-written kernel): its bf16 embeddings against f32 on the card, and that it
-launches neither kernel. Skipped without a card; on the machine with the card
+launches neither kernel; and a tiny decoder's generation, batch, continuous
+engine (flash admission forced by a shrunk score gate) and speculative
+decoding on the card, each held against its plain kernels' forward. Skipped
+without a card; on the machine with the card
 (which has no jax, hence --noconftest):
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -20,6 +23,8 @@ kernel accumulates in f32 and rounds once; the difference grows with sqrt(K)
 times the output's scale, not with each element's own size, so at K = 4096 a
 per-element rtol would misfire on outputs near zero.
 """
+
+import contextlib
 
 import pytest
 import torch
@@ -264,3 +269,86 @@ def test_generate_batch_on_the_card(decoder_dir, kw):
     assert len(out) == len(prompts) and all(isinstance(t, str) for t in out)
     assert flash_attention.launches == before[0]
     assert (int4_matvec.launches > before[1]) == (kw.get("quantize") == "int4")
+
+
+def _engine_run(lm, prompts, quantize):
+    """The tiny decoder's ContinuousEngine (4 slots, windows of 4) over
+    `prompts` with every admission wave forced onto flash (a 1-byte score
+    gate), the engine's admission and first decode logits captured."""
+    import chip_smoke
+    from kjarni_tpu_torch.generate.continuous import ContinuousEngine
+    eng = ContinuousEngine(lm, slots=4, max_context=2048, steps_per_sync=4)
+    eng._admit_score_limit = 1
+    prompt_len, meta = {}, {}
+    probe = chip_smoke.EngineProbe(eng, prompt_len, capture=True)
+    for i, p in enumerate(prompts):
+        ids = lm.encode_prompt(p)
+        rid = eng.submit(token_ids=ids, max_new_tokens=8, defer_admit=i < 2)
+        prompt_len[rid], meta[rid] = len(ids), (ids, False)
+    done = {fr.request_id: fr for fr in eng.run()}
+    return {"probe": probe, "done": done, "meta": meta}
+
+
+@pytest.mark.parametrize("quantize", [None, "int4"])
+def test_continuous_engine_on_the_card(decoder_dir, quantize):
+    """Flash admission waves (forced by a shrunk score gate) and slot decode
+    on the card, in bf16 and int4: the engine's admission and first decode
+    logits hold cosine >= 0.998 against the teacher-forced single stream
+    with the plain kernels, with the kernels and with the engine itself run
+    on the plain kernels; the kernels' run launches flash (one launch per
+    layer of each wave) and, under int4, int4 at M = slots."""
+    import chip_smoke
+    from kjarni_tpu_torch import Generator
+    d, prompts = decoder_dir
+    lm = Generator(str(d), quantize=quantize).lm
+    before = flash_attention.launches, int4_matvec.launches
+    with chip_smoke.int4_shapes({}) as shapes:
+        run = _engine_run(lm, prompts, quantize)
+    flash_n = flash_attention.launches - before[0]
+    waves = run["probe"].modes.get("flash", 0)
+    assert set(run["probe"].modes) == {"flash"} and flash_n == 2 * waves > 0
+    assert (int4_matvec.launches > before[1]) == (quantize == "int4")
+    if quantize == "int4":
+        assert shapes.get(4, 0) > 0
+    held = chip_smoke.hold_engine_rows(lm, run)
+    assert held["min_cosine"] >= 0.998 and held["rows"] >= 4 * 5, held
+    with chip_smoke.plain_kernels():
+        plain = _engine_run(lm, prompts, quantize)
+    assert flash_attention.launches - before[0] == flash_n
+    held = chip_smoke.hold_engine_rows(lm, plain)
+    assert held["min_cosine"] >= 0.998, held
+    for rid, fr in run["done"].items():
+        a, b = run["probe"].adm[rid], plain["probe"].adm[rid]
+        assert torch.nn.functional.cosine_similarity(a, b, dim=0) >= 0.998
+
+
+@pytest.mark.parametrize("quantize", [None, "int4"])
+def test_speculative_on_the_card(decoder_dir, quantize):
+    """A self-drafting SpeculativeGenerator on the card: flash prefills of
+    the target and the draft, int4 at M = 5 (target pass) and 1 (draft
+    steps), and every emitted token within 0.05 of the teacher-forced
+    maximum of the plain kernels' forward (the bf16 tie band of this tiny
+    model's logits); the same with the generator on the plain kernels."""
+    import chip_smoke
+    from kjarni_tpu_torch import Generator
+    from kjarni_tpu_torch.generate.sampling import GenerationConfig
+    from kjarni_tpu_torch.generate.speculative import SpeculativeGenerator
+    d, prompts = decoder_dir
+    lm = Generator(str(d), quantize=quantize).lm
+    ids = lm.encode_prompt(prompts[3])
+    cfg = GenerationConfig.greedy(max_new_tokens=24, max_length=2048)
+    for plain in (False, True):
+        spec = SpeculativeGenerator(lm, lm, num_tokens=4)
+        before = flash_attention.launches
+        with chip_smoke.plain_kernels() if plain else contextlib.nullcontext(), \
+                chip_smoke.int4_shapes({}) as shapes:
+            out = [st.id for st in spec.generate_stream(token_ids=ids, config=cfg)]
+        if not plain:
+            assert flash_attention.launches - before == 2 * 2   # target and draft prefills
+            if quantize == "int4":
+                assert shapes.get(5, 0) > 0 and shapes.get(1, 0) > 0, shapes
+        ref = chip_smoke._teacher_forced(lm, ids + out,
+                                         list(range(len(ids) - 1, len(ids) + len(out) - 1)))
+        margins = chip_smoke._margins(ref, out)
+        assert len(out) == 24 and max(margins) <= 0.05, margins
+        assert spec.last_acceptance_rate >= 0.75

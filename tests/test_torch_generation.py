@@ -101,11 +101,17 @@ def test_no_card_and_no_cpu_request_raises(llama_dir):
         Generator(str(llama_dir))
 
 
-@pytest.mark.parametrize("kw", [dict(tp=2), dict(execution_plan="balanced"),
-                                dict(draft_model="x")])
+@pytest.mark.parametrize("kw", [dict(tp=2), dict(execution_plan="balanced")])
 def test_options_outside_the_slice_raise(llama_dir, kw):
     with pytest.raises(InvalidConfigError, match="ROADMAP.md"):
         Generator(str(llama_dir), device="cpu", **kw)
+
+
+def test_native_checkpoint_dir_raises(tmp_path):
+    (tmp_path / "config.json").write_text("{}")
+    (tmp_path / "kjarni_ckpt").mkdir()
+    with pytest.raises(InvalidConfigError, match="native checkpoint.*ROADMAP.md"):
+        Generator(str(tmp_path), device="cpu")
 
 
 def test_card_dtype_is_bf16():
