@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive kjarni_tpu_torch's generation and embed paths on one CUDA card and
-check them.
+"""Drive kjarni_tpu_torch's generation, encoder-decoder and embed paths on
+one CUDA card and check them.
 
-    python3 chip_smoke.py [--phases env,kernels,bf16,int4,int8,batch,chat,gpt2,serve,embed]
+    python3 chip_smoke.py [--phases env,kernels,bf16,int4,int8,batch,chat,gpt2,serve,
+                                    seq2seq,whisper,embed]
                           [--root DIR]
 
 --root DIR imports kjarni_tpu_torch from another checkout (an older commit,
@@ -23,8 +24,11 @@ Phases, in order (all by default); any failure raises and exits non-zero:
    admission waves and M = 16,384 for its 8-lane admission wave at bucket
    2048, and the head at M = 1 and at M = 8 (the batch's prefill and decode
    steps); flash also at that admission wave (B 8, S 2048 after a 256-token
-   prefix, over 2,304 slots); two calls must give bit-identical
-   outputs); one line per case with the launches the case made,
+   prefix, over 2,304 slots) and at whisper-small's encoder (non-causal,
+   12 heads, S = T = 1500, B = 1 and 8, held to 1.5% of the largest output,
+   which a causal call and a call dropping the last key must fail); two
+   calls must give bit-identical outputs); one line per case with the
+   launches the case made,
    max_abs_err, kernel_ms, plain_ms and library_ms, the time of one PyTorch
    call computing the same function as a yardstick the port never calls:
    scaled_dot_product_attention for flash (library_kernel names the device
@@ -110,7 +114,49 @@ Phases, in order (all by default); any failure raises and exits non-zero:
    written here in numpy: DecoderLM(dir) must give the params and the
    first-prefill logits of the same dequantized weights loaded from
    safetensors. `--phases env,serve` runs it alone.
-10. embed: four encoder model dirs at the public config.json widths of the
+10. seq2seq: model dirs at the public config.json widths of the registry's
+   distilbart-cnn (12 + 6 layers, 1,024 wide, its summarization task
+   parameters) and flan-t5-base (12 + 12 layers, 768 wide, gated-gelu,
+   untied head), random bf16 weights from a seeded generator (T5's
+   relative-position tables N(0, 1), the output heads N(0, 0.2): see
+   write_encdec_dir) and a word-level tokenizer over the
+   whole vocabulary with each model's specials. Summarizer(dir).summarize on
+   an 800-word article (4 beams, min length 56, no-repeat 3, forced BOS/EOS)
+   and Summarizer.stream; Translator(dir).translate on a 100-word sentence.
+   Checks: a repeated call gives the same text; bf16 encoder states and
+   first-step logits against f32 on the card (cosine >= 0.999 for BART,
+   0.99 for T5: S2S_COS_MIN; for T5 also read with cuBLAS's reduced-precision
+   bf16 reduction off, and bf16 against f32 on the CPU); f32 on the
+   card against f32 on the CPU (states atol 2e-4 rtol 1e-3, logits of 24
+   teacher-forced decoder tokens atol 1e-3); a padded BART row against the
+   same input unpadded (atol 1e-3); in f32, over 64 steps, the device beam
+   loop's tokens and its step-by-step trace (every beam's decode inputs and
+   logits) equal the host loop's. Five planted faults must fail those bounds in
+   every run: the self-cache not reordered by the beam parents (the loops
+   then differ), the cross-attention padding bias dropped (the padded row),
+   T5's decoder bias built bidirectional (card against CPU), and in the bf16
+   T5 forward its encoder bias built unidirectional and its scores scaled
+   by d_kv ** -0.5 (the bf16 cosine). No kernel
+   launches. One line per model: seconds per call, decode steps/s (k beams
+   a step), the encoder's device ms, peak memory, device busy share.
+11. whisper: a model dir at whisper-small's public widths (12 + 12 layers,
+   768 wide, 80 mels, vocabulary 51,865; random bf16 weights, the token
+   and decoder-position tables N(0, 0.2)) with a
+   tokenizer holding Whisper's specials at their fixed ids, driven through
+   Transcriber on the card: a 30 s synthetic signal (serial), a 240 s one
+   (8 chunks, one batched wave), stream_file, language="auto" and
+   timestamps. The encoder takes the flash kernel (12 launches per encode
+   call, checked). Checks: the mel on the card against the CPU's (atol
+   2e-4); the encoder with flash against the plain attention in bf16 at B =
+   1 and 8 (cosine >= 0.999 on every frame); each batched token within a
+   0.5-logit tie band of a teacher-forced serial forward of its chunk
+   (first 32 tokens of each row); in f32 the batched wave's greedy ids equal
+   each chunk's serial decode. Planted faults that must fail: the encoder's
+   flash called causal, the decoder's positions shifted by one. One line:
+   real-time factor per input, decode tok/s of the wave, the encoder's
+   device ms per wave with and without flash at B = 1 and 8 (CUDA-graph
+   replay), peak memory, device busy share.
+12. embed: four encoder model dirs at the public config.json widths of the
    registry's minilm-l6-v2, minilm-l6-v2-cross-encoder, distilbert-sentiment
    and nomic-embed-text (random f32 weights from a seeded generator, a
    BERT-template word tokenizer over the whole vocabulary), each driven
@@ -125,9 +171,10 @@ Phases, in order (all by default); any failure raises and exits non-zero:
    memory; for MiniLM also plain against packed encode at S = 64 and 32.
    `--phases env,embed` runs it alone.
 
-After each of phases 3-9 a line gives its own launches (the counts are set
-to 0 just before it and read just after). At the end come three lines: a
-JSON object {"kernels": [...]} (per kernel the launches of phases 3-9,
+After each of phases 3-11 a line gives its own launches (the counts are set
+to 0 just before it and read just after; 10 and 11 must launch no int4). At
+the end come three lines: a JSON object {"kernels": [...]} (per kernel the
+launches of phases 3-11,
 max_abs_err over its cases, and ms / plain_ms / bound_ms / library_ms -- for
 flash one launch at the Llama-1B prefill shape, for int4 the 113 launches of
 one decoded token; also printed before it: the 7 launches of one layer at
@@ -174,6 +221,8 @@ INT4_PER_FORWARD = 7 * LLAMA_1B["num_hidden_layers"] + 1
 # the phases that drive generation (3-9), between the launch counts' reset
 # and their reading
 GENERATION = ("bf16", "int4", "int8", "batch", "chat", "gpt2", "serve")
+# the encoder-decoder phases (10 and 11), also on the main path
+ENC_DEC = ("seq2seq", "whisper")
 FLASH_PER_PREFILL = LLAMA_1B["num_hidden_layers"]
 
 # the public config.json values (the keys the loader reads) of the registry's
@@ -342,10 +391,14 @@ def _device_kernel(fn) -> str:
 
 
 def flash_case(name, B, H, Hkv, S, T, D, causal=True, window=None, q_offset=0,
-               kv_len=None, poison=False, seed=0, cache_len=None) -> dict:
-    """One flash case against the plain version. cache_len: K/V are the
+               kv_len=None, poison=False, seed=0, cache_len=None, ref_tol=None,
+               controls=None) -> dict:
+    """One flash case against the plain version, within 3e-2 or, given
+    ref_tol, within ref_tol * max|plain output|. cache_len: K/V are the
     first T slots of a [B, Hkv, cache_len, D] cache, and the line also times
-    the materialized attention of _run_stack over the whole cache."""
+    the materialized attention of _run_stack over the whole cache. controls:
+    name -> keyword overrides of a wrong kernel call, each of which must
+    fall outside the bound."""
     import torch
     import torch.nn.functional as F
     from kjarni_tpu_torch.ops.kernels import flash_attention as fa
@@ -372,7 +425,16 @@ def flash_case(name, B, H, Hkv, S, T, D, causal=True, window=None, q_offset=0,
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out).all()), f"flash {name}: finite output")
     err = (out.float() - ref.float()).abs().max().item()
-    check(err <= 3e-2, f"flash {name}: max_abs_err {err} <= 3e-2")
+    tol = 3e-2 if ref_tol is None else ref_tol * ref.float().abs().max().item()
+    check(err <= tol, f"flash {name}: max_abs_err {err} <= {tol}")
+    launches = flash_attention.launches - launches0
+    control_errs = {}
+    for control, over in (controls or {}).items():
+        bad = flash_attention(q, k, v, **{**kw, **over})
+        control_errs[control] = (bad.float() - ref.float()).abs().max().item()
+        check(control_errs[control] > tol, f"flash {name}: control {control} reads "
+                                           f"{control_errs[control]}, outside {tol}")
+    flash_attention.launches = launches0 + launches
     kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, **kw))
     eager_ms = host_ms(lambda: flash_attention(q, k, v, **kw))
     plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), iters=5)
@@ -390,9 +452,9 @@ def flash_case(name, B, H, Hkv, S, T, D, causal=True, window=None, q_offset=0,
     # timing), with is_causal, or with the same mask as a boolean tensor
     kr = k.repeat_interleave(H // Hkv, dim=1)
     vr = v.repeat_interleave(H // Hkv, dim=1)
-    if causal and window is None and q_offset == 0 and kv_len is None and S == T:
-        def sdpa():
-            return F.scaled_dot_product_attention(q, kr, vr, is_causal=True)
+    if window is None and q_offset == 0 and kv_len is None and (S == T or not causal):
+        def sdpa():   # no mask tensor: is_causal, or none at all
+            return F.scaled_dot_product_attention(q, kr, vr, is_causal=causal)
     else:
         row = q_offset + torch.arange(S, device=dev)[:, None]
         col = torch.arange(T, device=dev)[None, :]
@@ -409,11 +471,13 @@ def flash_case(name, B, H, Hkv, S, T, D, causal=True, window=None, q_offset=0,
     flops = 4 * D * pairs * B * H
     bound, bound_by = bound_ms(nbytes, flops)
     row = {"case": f"flash {name}", "launches": flash_attention.launches - launches0,
-           "max_abs_err": err, "kernel_ms": kernel_ms,
+           "max_abs_err": err, "bound": tol, "kernel_ms": kernel_ms,
            "eager_ms": eager_ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "library_kernel": library_kernel, "bound_ms": bound, "bound_by": bound_by}
     if materialized_ms is not None:
         row["materialized_ms"] = materialized_ms
+    if control_errs:
+        row["control_max_abs_err"] = control_errs
     print(json.dumps(row))
     return row
 
@@ -567,6 +631,19 @@ def phase_flash() -> list:
         # working caches
         flash_case("llama1b-admission B=8 S=2048 q_offset=256 T=2304", 8, H, Hkv,
                    2048, 2304, D, q_offset=256, kv_len=2304, seed=10),
+        # whisper-small's encoder self-attention (non-causal, 12 heads, 1,500
+        # frames: 23 full 64-key tiles and a ragged one of 28): one serial
+        # chunk, and the 240 s input's wave of 8 chunks. Each output averages
+        # ~550 value rows (|out| ~0.03, the largest under 1), so 3e-2 is the
+        # size of an output: these are held to 1.5% of the largest (two to
+        # three bf16 ulps there), and a causal call and one that drops the
+        # last key must fall outside that
+        flash_case("whisper-encoder B=1 H=12 S=T=1500 non-causal", 1, 12, 12, 1500, 1500,
+                   D, causal=False, seed=11, ref_tol=WHISPER_FLASH_REF_TOL,
+                   controls=WHISPER_FLASH_CONTROLS),
+        flash_case("whisper-encoder B=8 H=12 S=T=1500 non-causal", 8, 12, 12, 1500, 1500,
+                   D, causal=False, seed=12, ref_tol=WHISPER_FLASH_REF_TOL,
+                   controls=WHISPER_FLASH_CONTROLS),
     ]
     return [r for r in flash if r is not None]
 
@@ -802,15 +879,16 @@ def profile_request(gen, text: str, new_tokens: int = 16) -> dict:
     return profile_call(request)
 
 
-def profile_call(fn, top: int = 8) -> dict:
+def profile_call(fn, top: int = 8, ops: bool = True) -> dict:
     """torch.profiler over one call of `fn`: device busy share of the wall
-    time, the `top` kernels that take the most device time, and the torch
-    ops (with input shapes) that launch the most device time."""
+    time, the `top` kernels that take the most device time, and (`ops`) the
+    torch ops (with input shapes) that launch the most device time; sorting
+    the ops of a call of ~10^4 kernels takes the profiler ~30 s."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as p:
+                 record_shapes=ops) as p:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -831,9 +909,10 @@ def profile_call(fn, top: int = 8) -> dict:
         return getattr(e, "device_time_total", None) or \
             getattr(e, "cuda_time_total", 0.0)
 
-    ops = [e for e in p.key_averages(group_by_input_shape=True)
-           if not on_device(e) and e.key.startswith("aten::") and op_dev_us(e) > 0]
-    top_ops = sorted(ops, key=op_dev_us, reverse=True)[:top]
+    aten = [e for e in p.key_averages(group_by_input_shape=True)
+            if not on_device(e) and e.key.startswith("aten::") and op_dev_us(e) > 0] \
+        if ops else []
+    top_ops = sorted(aten, key=op_dev_us, reverse=True)[:top]
     return {"profile_wall_ms": wall_us / 1e3, "profile_kernel_ms": total / 1e3,
             "profile_device_busy": total / wall_us,
             "profile_top_kernels": [[e.key[:70], round(dev_us(e) / 1e3, 3), e.count]
@@ -2317,7 +2396,778 @@ def phase_serve(d: Path, tmp: Path, ran: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 10
+# phases 10 and 11: the encoder-decoder family
+# ---------------------------------------------------------------------------
+
+# the public config.json values (the keys the loaders read) of the registry's
+# seq2seq and speech defaults
+DISTILBART_CNN = {
+    "model_type": "bart", "architectures": ["BartForConditionalGeneration"],
+    "vocab_size": 50264, "d_model": 1024, "encoder_layers": 12, "decoder_layers": 6,
+    "encoder_attention_heads": 16, "decoder_attention_heads": 16,
+    "encoder_ffn_dim": 4096, "decoder_ffn_dim": 4096, "max_position_embeddings": 1024,
+    "activation_function": "gelu", "scale_embedding": False, "bos_token_id": 0,
+    "pad_token_id": 1, "eos_token_id": 2, "decoder_start_token_id": 2,
+    "forced_bos_token_id": 0, "forced_eos_token_id": 2,
+    "task_specific_params": {"summarization": {
+        "early_stopping": True, "length_penalty": 2.0, "max_length": 142,
+        "min_length": 56, "no_repeat_ngram_size": 3, "num_beams": 4}},
+}
+FLAN_T5_BASE = {
+    "model_type": "t5", "architectures": ["T5ForConditionalGeneration"],
+    "vocab_size": 32128, "d_model": 768, "d_kv": 64, "d_ff": 2048, "num_layers": 12,
+    "num_decoder_layers": 12, "num_heads": 12, "relative_attention_num_buckets": 32,
+    "relative_attention_max_distance": 128, "feed_forward_proj": "gated-gelu",
+    "layer_norm_epsilon": 1e-6, "tie_word_embeddings": False,
+    "decoder_start_token_id": 0, "eos_token_id": 1, "pad_token_id": 0,
+    "task_specific_params": {
+        "summarization": {"early_stopping": True, "length_penalty": 2.0, "max_length": 200,
+                          "min_length": 30, "no_repeat_ngram_size": 3, "num_beams": 4,
+                          "prefix": "summarize: "},
+        "translation_en_to_de": {"early_stopping": True, "max_length": 300, "num_beams": 4,
+                                 "prefix": "translate English to German: "}},
+}
+WHISPER_SMALL = {
+    "model_type": "whisper", "architectures": ["WhisperForConditionalGeneration"],
+    "vocab_size": 51865, "d_model": 768, "encoder_layers": 12, "decoder_layers": 12,
+    "encoder_attention_heads": 12, "decoder_attention_heads": 12,
+    "encoder_ffn_dim": 3072, "decoder_ffn_dim": 3072, "num_mel_bins": 80,
+    "max_source_positions": 1500, "max_target_positions": 448, "bos_token_id": 50257,
+    "eos_token_id": 50257, "pad_token_id": 50257, "decoder_start_token_id": 50258,
+}
+# (registry name, public source, config, special tokens {text: id}, post-processor)
+SEQ2SEQ = (
+    ("distilbart-cnn", "sshleifer/distilbart-cnn-12-6", DISTILBART_CNN,
+     {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3, "<mask>": 50263}, "<s> $A </s>"),
+    ("flan-t5-base", "google/flan-t5-base", FLAN_T5_BASE,
+     {"<pad>": 0, "</s>": 1, "<unk>": 2}, "$A </s>"),
+)
+WHISPER_LANGUAGES = (
+    "en zh de es ru ko fr ja pt tr pl ca nl ar sv it id hi fi vi he uk el ms cs ro da hu "
+    "ta no th ur hr bg lt la mi ml cy sk te fa lv bn sr az sl kn et mk br eu is hy ne mn "
+    "bs kk sq sw gl mr pa si km sn yo so af oc ka be tg sd gu am yi lo uz fo ht ps tk nn "
+    "mt sa lb my bo tl mg as tt haw ln ha ba jw su").split()
+# bf16 against f32 on the card. BART renormalizes every layer: the embed phase's
+# bound. T5's residual stream is never normalized between its 12 layers and its
+# scores are unscaled: at flan-t5-base's widths bf16 reads ~0.9955 against f32,
+# on the CPU as on the card and with cuBLAS's reduced-precision reduction off
+# (this phase prints all three), so 0.999 cannot hold there; 0.99 still fails
+# the planted T5 faults (an encoder bias built unidirectional, scores scaled
+# by d_kv ** -0.5), which read ~0.2
+S2S_COS_MIN = {"bart": 0.999, "t5": 0.99}
+S2S_PROFILE_STEPS = 16     # the profiled call's max_length: a short trace
+S2S_STATES_ATOL, S2S_STATES_RTOL = 2e-4, 1e-3   # f32 card against f32 CPU (embed's)
+S2S_LOGITS_ATOL = 1e-3     # f32 logits: card against CPU, padded against unpadded
+# the f32 loops are compared over this many steps: the host loop sums beam
+# scores in f64 and the device loop in f32 (as the JAX package's two loops
+# do), and the f32 sums drift by ~1e-4 over 142 steps, within reach of the
+# gap between the k-th and (k+1)-th candidate at some step
+S2S_LOOP_STEPS = 64
+S2S_FAULTS = ("self_cache_not_reordered", "cross_padding_bias_dropped",
+              "t5_decoder_bias_bidirectional", "t5_encoder_bias_unidirectional",
+              "t5_attention_scaled")
+S2S_TRACE_ATOL = 1e-5      # the two loops' per-step logits (the same f32 ops)
+WHISPER_FLASH_COS_MIN = 0.999   # encoder states with flash against plain, bf16
+WHISPER_FLASH_REF_TOL = 1.5e-2  # phase 2's bound at the encoder's shape, of max|out|
+WHISPER_FLASH_CONTROLS = {"causal": {"causal": True}, "last key dropped": {"kv_len": 1499}}
+WHISPER_MEL_ATOL = 2e-4         # the JAX test's bound against HF's extractor
+WHISPER_TIE_BAND = SERVE_TIE_BAND
+WHISPER_CHECK_STEPS = 32        # tokens per row held to the tie band
+WHISPER_FAULTS = ("encoder_flash_causal", "decoder_positions_shifted")
+
+
+def seq2seq_modules(c: dict) -> dict:
+    """module name -> (kind, shape) of the HF checkpoint layout of config c:
+    "emb" a table, "lin" a linear with bias, "w" one without, "norm" a
+    LayerNorm (ones and zeros), "rms" an RMSNorm weight (ones), "table" a
+    T5 relative-position table, "head" an output head's table, "zeros" a
+    zero vector."""
+    mt = c["model_type"]
+    out = {}
+    if mt == "t5":
+        d, inner, ff = c["d_model"], c["num_heads"] * c["d_kv"], c["d_ff"]
+
+        def attn(p):
+            return {p + "q": ("w", (inner, d)), p + "k": ("w", (inner, d)),
+                    p + "v": ("w", (inner, d)), p + "o": ("w", (d, inner))}
+
+        def ffn(p):
+            return {p + "wi_0": ("w", (ff, d)), p + "wi_1": ("w", (ff, d)),
+                    p + "wo": ("w", (d, ff))}
+        out = {"shared": ("emb", (c["vocab_size"], d)),
+               "lm_head": ("head", (c["vocab_size"], d)),
+               "encoder.final_layer_norm": ("rms", (d,)),
+               "decoder.final_layer_norm": ("rms", (d,))}
+        for side in ("encoder", "decoder"):
+            out[f"{side}.block.0.layer.0.SelfAttention.relative_attention_bias"] = \
+                ("table", (c["relative_attention_num_buckets"], c["num_heads"]))
+        for i in range(c["num_layers"]):
+            p = f"encoder.block.{i}.layer."
+            out.update({**attn(p + "0.SelfAttention."), p + "0.layer_norm": ("rms", (d,)),
+                        **ffn(p + "1.DenseReluDense."), p + "1.layer_norm": ("rms", (d,))})
+        for i in range(c["num_decoder_layers"]):
+            p = f"decoder.block.{i}.layer."
+            out.update({**attn(p + "0.SelfAttention."), p + "0.layer_norm": ("rms", (d,)),
+                        **attn(p + "1.EncDecAttention."), p + "1.layer_norm": ("rms", (d,)),
+                        **ffn(p + "2.DenseReluDense."), p + "2.layer_norm": ("rms", (d,))})
+        return out
+    d = c["d_model"]
+    whisper = mt == "whisper"
+    k_kind = "w" if whisper else "lin"          # Whisper's k_proj has no bias
+
+    def attn(p):
+        return {p + "q_proj": ("lin", (d, d)), p + "k_proj": (k_kind, (d, d)),
+                p + "v_proj": ("lin", (d, d)), p + "out_proj": ("lin", (d, d))}
+
+    def block(p, F, cross):
+        m = {**attn(p + "self_attn."), p + "self_attn_layer_norm": ("norm", (d,)),
+             p + "fc1": ("lin", (F, d)), p + "fc2": ("lin", (d, F)),
+             p + "final_layer_norm": ("norm", (d,))}
+        if cross:
+            m.update({**attn(p + "encoder_attn."), p + "encoder_attn_layer_norm": ("norm", (d,))})
+        return m
+    pre = "model."
+    if whisper:
+        out = {pre + "encoder.conv1": ("lin3", (d, c["num_mel_bins"], 3)),
+               pre + "encoder.conv2": ("lin3", (d, d, 3)),
+               pre + "encoder.embed_positions": ("emb", (c["max_source_positions"], d)),
+               pre + "encoder.layer_norm": ("norm", (d,)),
+               # the tied head, and the positions at the tokens' scale
+               pre + "decoder.embed_tokens": ("head", (c["vocab_size"], d)),
+               pre + "decoder.embed_positions": ("head", (c["max_target_positions"], d)),
+               pre + "decoder.layer_norm": ("norm", (d,))}
+    else:
+        P = c["max_position_embeddings"] + 2      # BART's +2 position offset
+        out = {pre + "shared": ("head", (c["vocab_size"], d)),   # tied head
+               pre + "encoder.embed_positions": ("emb", (P, d)),
+               pre + "decoder.embed_positions": ("emb", (P, d)),
+               pre + "encoder.layernorm_embedding": ("norm", (d,)),
+               pre + "decoder.layernorm_embedding": ("norm", (d,)),
+               "final_logits_bias": ("zeros", (1, c["vocab_size"]))}
+    for i in range(c["encoder_layers"]):
+        out.update(block(f"{pre}encoder.layers.{i}.", c["encoder_ffn_dim"], False))
+    for i in range(c["decoder_layers"]):
+        out.update(block(f"{pre}decoder.layers.{i}.", c["decoder_ffn_dim"], True))
+    return out
+
+
+def write_encdec_dir(d: Path, c: dict, seed: int = 0) -> None:
+    """config.json and model.safetensors of random bf16 weights in config
+    c's checkpoint layout: N(0, 0.02) from a seeded generator on the card,
+    norms ones (and zeros); T5's relative-position tables N(0, 1) (trained
+    tables are of that order; at 0.02 the bias would vanish beside the
+    unscaled scores) and the output heads (BART's shared table, T5's
+    lm_head, Whisper's token table and its decoder positions) N(0, 0.2):
+    logits of std ~6, peaked as a trained model's are, where 0.02 gives
+    near-uniform ones whose candidates tie."""
+    import torch
+    from kjarni_tpu_torch.weights.safetensors_loader import save_file
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(shape, std=0.02):
+        return (torch.randn(*shape, generator=g, device="cuda") * std
+                ).to(torch.bfloat16).cpu()
+
+    tensors = {}
+    for name, (kind, shape) in seq2seq_modules(c).items():
+        if kind in ("norm", "rms"):
+            tensors[name + ".weight"] = torch.ones(shape, dtype=torch.bfloat16)
+            if kind == "norm":
+                tensors[name + ".bias"] = torch.zeros(shape, dtype=torch.bfloat16)
+        elif kind == "zeros":
+            tensors[name] = torch.zeros(shape, dtype=torch.bfloat16)
+        else:
+            tensors[name + ".weight"] = rnd(shape, {"table": 1.0, "head": 0.2}.get(kind, 0.02))
+            if kind in ("lin", "lin3"):
+                tensors[name + ".bias"] = rnd(shape[:1])
+    d.mkdir(parents=True, exist_ok=True)
+    save_file(tensors, d / "model.safetensors")
+    (d / "config.json").write_text(json.dumps(c))
+
+
+def write_word_tokenizer(path: Path, vocab_size: int, specials: dict,
+                         single: str) -> None:
+    """A word-level tokenizer.json over the whole vocabulary: the words w<id>
+    at every id but the specials', the specials at theirs, and the
+    post-processor template `single` (BART's "<s> $A </s>", T5's "$A </s>")."""
+    from tokenizers import AddedToken, Tokenizer, models, normalizers, pre_tokenizers, processors
+    words = [f"w{i}" for i in range(vocab_size)]
+    for text, i in specials.items():
+        words[i] = text
+    unk = "<unk>"
+    tk = Tokenizer(models.WordLevel({w: i for i, w in enumerate(words)}, unk_token=unk))
+    tk.normalizer = normalizers.Lowercase()
+    tk.pre_tokenizer = pre_tokenizers.Whitespace()
+    tk.add_special_tokens([AddedToken(t, special=True, normalized=False) for t in specials])
+    tk.post_processor = processors.TemplateProcessing(
+        single=single, special_tokens=[(t, i) for t, i in specials.items() if t in single])
+    tk.save(str(path))
+
+
+def _words(n: int, lo: int, hi: int, seed: int) -> str:
+    """n random words w<id> (ids lo..hi-1, one token each)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return " ".join(f"w{i}" for i in torch.randint(lo, hi, (n,), generator=g).tolist())
+
+
+def _s2s_forward(lm, ids, mask, dec: list, cross_mask=None):
+    """(encoder states [B, S, d], logits [B, len(dec), V]) in f32 of one
+    teacher-forced decoder pass over `dec` (every row) after encoding ids."""
+    import torch
+    fam, cfg = lm.family, lm.config
+    with torch.inference_mode():
+        enc, ck, cv = lm._encode_and_cross(ids, mask)
+        sk, sv = fam.init_self_cache(cfg, ids.shape[0], 32, lm.dtype, lm.device)
+        dec_t = torch.tensor([dec] * ids.shape[0], device=lm.device)
+        logits, _, _ = fam.decode_step(lm.params, cfg, dec_t, sk, sv, ck, cv,
+                                       mask if cross_mask is None else cross_mask, 0)
+    return enc.float(), logits.float()
+
+
+def _stages(row: dict):
+    """stage(name) records the seconds since the previous stage in
+    row["stage_s"][name]."""
+    t = [time.perf_counter()]
+    row["stage_s"] = {}
+
+    def stage(name: str) -> None:
+        now = time.perf_counter()
+        row["stage_s"][name] = now - t[0]
+        t[0] = now
+    return stage
+
+
+def _max_err(a, b) -> float:
+    return (a.float().cpu() - b.float().cpu()).abs().max().item()
+
+
+def _beam_trace(lm, run):
+    """(run()'s result, each decode step's (pos, tokens, parents, logits) on
+    the host) for one beam loop over lm's decode step."""
+    import torch
+    trace = []
+    real = lm._step
+
+    def step(ids, sk, sv, ck, cv, mask, pos, parents):
+        logits, sk, sv = real(ids, sk, sv, ck, cv, mask, pos, parents)
+        trace.append((pos, ids.reshape(-1).cpu(), parents.cpu(), logits.float().cpu()))
+        return logits, sk, sv
+    lm._step = step
+    try:
+        with torch.inference_mode():
+            return run(), trace
+    finally:
+        del lm._step
+
+
+def _trace_parts(a: list, b: list, start: int = 0):
+    """The first step from `start` at which two beam traces differ (tokens,
+    parents, or logits beyond S2S_TRACE_ATOL), or None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if i < start:
+            continue
+        if x[0] != y[0] or not (x[1].equal(y[1]) and x[2].equal(y[2])) \
+                or (x[3] - y[3]).abs().max().item() > S2S_TRACE_ATOL:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+@contextlib.contextmanager
+def s2s_fault(name: str):
+    """Within the block one fault is planted (S2S_FAULTS); the cross padding
+    fault is planted by the caller, which passes an all-ones cross mask."""
+    from kjarni_tpu_torch.models import seq2seq_lm
+    from kjarni_tpu_torch.models import t5 as kt5
+    saved = seq2seq_lm.reorder_cache, kt5.position_bias, kt5.attention
+    real_bias, real_attention = kt5.position_bias, kt5.attention
+    if name == "self_cache_not_reordered":
+        seq2seq_lm.reorder_cache = lambda cache, parents: cache
+    elif name in ("t5_decoder_bias_bidirectional", "t5_encoder_bias_unidirectional"):
+        both = name == "t5_decoder_bias_bidirectional"
+        kt5.position_bias = lambda table, q0, sq, sk, bidirectional, nb, md: real_bias(
+            table, q0, sq, sk, both, nb, md)
+    elif name == "t5_attention_scaled":   # d_kv ** -0.5 where T5 takes 1.0
+        kt5.attention = lambda q, k, v, bias=None, scale=None: real_attention(q, k, v, bias)
+    try:
+        yield
+    finally:
+        seq2seq_lm.reorder_cache, kt5.position_bias, kt5.attention = saved
+
+
+def run_seq2seq(name: str, source: str, d: Path, seed: int) -> dict:
+    """One seq2seq registry default through its task API on the card (bf16),
+    then the checks against f32 on the card and on the CPU and the beam
+    loops against each other in f32, each with its planted faults; one JSON
+    line."""
+    import numpy as np
+    import torch
+    from kjarni_tpu_torch import Seq2SeqOverrides, Summarizer, Translator
+    from kjarni_tpu_torch.models.seq2seq_lm import Seq2SeqLM
+    bart = name == "distilbart-cnn"
+    row = {"model": name, "source": source,
+           "task": "summarize" if bart else "translate"}
+    stage = _stages(row)
+    t0 = time.perf_counter()
+    api = Summarizer(str(d)) if bart else Translator(str(d))
+    lm = api._gen.lm
+    torch.cuda.synchronize()
+    row["load_s"] = time.perf_counter() - t0
+    check(lm.device.type == "cuda" and lm.dtype == torch.bfloat16,
+          f"{name}: the task's model runs bf16 on the card")
+    # words below BART's <mask> (the last id) and T5's 100 sentinel ids
+    hi = lm.config.vocab_size - (1 if bart else 128)
+    text = _words(800 if bart else 100, 10, hi, seed)
+    if bart:
+        def call():
+            return api.summarize(text)
+    else:
+        def call():
+            return api.translate(text, "en", "de")
+    steps = [0]
+    real_step = lm._step
+
+    def counted_step(*a):
+        steps[0] += 1
+        return real_step(*a)
+    lm._step = counted_step
+    ids, mask = lm._encode_input(text)
+    row["input_tokens"] = int(mask.sum())
+    out = call()                                   # warm-up, and the output
+    check(isinstance(out, str), f"{name}: text out")
+    torch.cuda.reset_peak_memory_stats()
+    allocated = torch.cuda.memory_allocated()
+    runs = []
+    for _ in range(3):
+        steps[0] = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        again = call()
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t)
+        check(again == out, f"{name}: a repeated call gives the same text")
+    row.update(call_s=statistics.median(runs), call_s_runs=runs, decode_steps=steps[0],
+               beams=lm.beam_config(task="summarization" if bart else None)[0].num_beams,
+               output_words=len(out.split()))
+    row["decode_steps_per_s"] = steps[0] / row["call_s"]
+    row["peak_mem_gb"] = (torch.cuda.max_memory_allocated() - allocated) / 1e9
+    stage("calls")
+    if bart:
+        t = time.perf_counter()
+        pieces = list(api.stream(text))
+        row["stream_s"] = time.perf_counter() - t
+        # the stream takes the host loop, which breaks exact bf16 ties its own
+        # way: the loops are held equal in f32 below
+        check(all(isinstance(p, str) for p in pieces), f"{name}: stream yields text")
+        row.update(stream_pieces=len(pieces), stream_equals_summary="".join(pieces) == out)
+    del lm._step
+    enc_prof = profile_call(lambda: lm._encode_and_cross(ids, mask), top=3)
+    row["encoder_device_ms"] = enc_prof["profile_kernel_ms"]
+    # a call of S2S_PROFILE_STEPS decode steps, profiled and not: the
+    # profiler sorts a whole call's ~10^5 kernels for minutes
+    short = Seq2SeqOverrides(max_length=S2S_PROFILE_STEPS)
+    prof_call = (lambda: api.summarize(text, short)) if bart else \
+        (lambda: api.translate(text, "en", "de", short))
+    prof = profile_call(prof_call, top=5, ops=False)
+    row.update({k: prof[k] for k in ("profile_wall_ms", "profile_kernel_ms",
+                                     "profile_top_kernels")})
+    row["device_busy_share"] = prof["profile_kernel_ms"] / host_ms(prof_call, iters=2)
+    stage("profile")
+
+    # bf16 against f32 on the card: encoder states and first-step logits
+    f32 = Seq2SeqLM(d, dtype="f32")
+    start = [lm.config.decoder_start_token_id]
+    e16, l16 = _s2s_forward(lm, ids, mask, start)
+    e32, l32 = _s2s_forward(f32, ids, mask, start)
+    real = mask[0].bool()
+    cos_states = torch.nn.functional.cosine_similarity(e16[0, real], e32[0, real],
+                                                       dim=-1).min().item()
+    cos_logits = _cosine(l16, l32)
+    row.update(min_state_cosine_bf16_vs_f32=cos_states, logits_cosine_bf16_vs_f32=cos_logits)
+    faults = {}
+    if not bart:
+        def cosines(ef, lf, e_ref=e32, l_ref=l32):
+            rows = real.to(ef.device)
+            return (torch.nn.functional.cosine_similarity(ef[0, rows], e_ref[0, rows],
+                                                          dim=-1).min().item(),
+                    _cosine(lf, l_ref))
+        # the same with cuBLAS's reduced-precision bf16 reduction off, and
+        # the planted faults the bound must reject
+        mm = torch.backends.cuda.matmul
+        reduced = mm.allow_bf16_reduced_precision_reduction
+        mm.allow_bf16_reduced_precision_reduction = False
+        try:
+            row["cosines_bf16_vs_f32_full_reduction"] = cosines(
+                *_s2s_forward(lm, ids, mask, start))
+        finally:
+            mm.allow_bf16_reduced_precision_reduction = reduced
+        for fault in ("t5_encoder_bias_unidirectional", "t5_attention_scaled"):
+            with s2s_fault(fault):
+                faults[fault] = min(cosines(*_s2s_forward(lm, ids, mask, start)))
+    stage("bf16_vs_f32")
+    cos_min = S2S_COS_MIN[lm.config.arch]
+    check(cos_states >= cos_min and cos_logits >= cos_min,
+          f"{name}: bf16 vs f32 cosine (states {cos_states}, logits {cos_logits}) "
+          f">= {cos_min}")
+    for fault, cos in faults.items():
+        check(cos < cos_min, f"{name}: planted fault {fault} reads cosine {cos}, "
+                             f"outside the {cos_min} bound")
+
+    # f32 on the card against f32 on the CPU: 128 words, 24 decoder tokens
+    cpu = Seq2SeqLM(d, dtype="f32", device="cpu")
+    if not bart:   # and the bf16 check's reading taken on the CPU instead
+        cpu16 = Seq2SeqLM(d, dtype="bf16", device="cpu")
+        row["cosines_bf16_vs_f32_cpu"] = cosines(
+            *_s2s_forward(cpu16, ids.cpu(), mask.cpu(), start),
+            *_s2s_forward(cpu, ids.cpu(), mask.cpu(), start))
+        del cpu16
+    short = _words(128, 10, hi, seed + 1)
+    dec = start + [int(t) for t in torch.randint(10, hi, (23,),
+                                                 generator=torch.Generator().manual_seed(seed))]
+    ids_c, mask_c = f32._encode_input(short)
+    ec, lc = _s2s_forward(f32, ids_c, mask_c, dec)
+    eh, lh = _s2s_forward(cpu, ids_c.cpu(), mask_c.cpu(), dec)
+    rc = mask_c[0].bool().cpu()
+    states_ok = bool(torch.allclose(ec[0, rc.to(ec.device)].cpu(), eh[0, rc],
+                                    atol=S2S_STATES_ATOL, rtol=S2S_STATES_RTOL))
+    row["f32_card_vs_cpu_states_max_abs_err"] = _max_err(ec[0, rc.to(ec.device)], eh[0, rc])
+    row["f32_card_vs_cpu_logits_max_abs_err"] = _max_err(lc, lh)
+    check(states_ok, f"{name}: f32 card vs CPU encoder states within atol "
+                     f"{S2S_STATES_ATOL} rtol {S2S_STATES_RTOL}")
+    check(row["f32_card_vs_cpu_logits_max_abs_err"] <= S2S_LOGITS_ATOL,
+          f"{name}: f32 card vs CPU logits {row['f32_card_vs_cpu_logits_max_abs_err']} "
+          f"<= {S2S_LOGITS_ATOL}")
+    logit_faults = {}
+    if not bart:
+        with s2s_fault("t5_decoder_bias_bidirectional"):
+            _, lf = _s2s_forward(f32, ids_c, mask_c, dec)
+        logit_faults["t5_decoder_bias_bidirectional"] = _max_err(lf, lh)
+    else:
+        # a padded row against the same input alone, unpadded
+        other = _words(300, 10, hi, seed + 2)
+        b_ids, b_mask = f32.tokenizer.encode_batch([other, short], max_len=1022)
+        b_ids = torch.from_numpy(np.asarray(b_ids, np.int64)).cuda()
+        b_mask = torch.from_numpy(np.asarray(b_mask, np.int64)).cuda()
+        n = int(b_mask[1].sum())
+        check(n < b_ids.shape[1], f"{name}: the second row is padded")
+        _, alone = _s2s_forward(f32, b_ids[1:, :n], b_mask[1:, :n], dec[:8])
+        _, padded = _s2s_forward(f32, b_ids, b_mask, dec[:8])
+        row["padded_vs_unpadded_logits_max_abs_err"] = _max_err(padded[1], alone[0])
+        check(row["padded_vs_unpadded_logits_max_abs_err"] <= S2S_LOGITS_ATOL,
+              f"{name}: a padded row's logits equal its unpadded run's")
+        _, lf = _s2s_forward(f32, b_ids, b_mask, dec[:8], cross_mask=torch.ones_like(b_mask))
+        logit_faults["cross_padding_bias_dropped"] = _max_err(lf[1], alone[0])
+    stage("f32_vs_cpu_and_padding")
+    for fault, err in logit_faults.items():
+        check(err > S2S_LOGITS_ATOL, f"{name}: planted fault {fault} reads {err}, "
+                                     f"outside the {S2S_LOGITS_ATOL} bound")
+    faults.update(logit_faults)
+
+    # the device beam loop against the host loop over one decode step, in
+    # f32: the same tokens and, step by step, the same decode inputs and logits
+    bs, _ = f32.beam_config(task="summarization" if bart else None)
+    bs = dataclasses.replace(bs, max_length=S2S_LOOP_STEPS)
+    e_ids, e_mask = f32._encode_input(text)
+    fused, fused_trace = _beam_trace(f32, lambda: f32._generate_fused(bs, e_ids, e_mask))
+    host, host_trace = _beam_trace(f32, lambda: f32._generate_host(bs, e_ids, e_mask))
+    # at step 0 only beam 0 is live. With a forced BOS every other candidate
+    # ties at the mask value, and the loops fill the k - 1 dead rows of step 1
+    # differently (the host masks with -inf, the device with -1e9, as the JAX
+    # package's loops do); from step 2 every row descends from the BOS in both
+    start = 2 if bs.forced_bos_token_id is not None else 0
+    parted = _trace_parts(fused_trace, host_trace, start)
+    row.update(f32_beam_steps=len(fused_trace), f32_beam_tokens=len(fused),
+               f32_loops_part_at_step=parted)
+    check(fused == host and parted is None,
+          f"{name}: f32 device beam loop equals the host loop (tokens; steps from "
+          f"{parted})")
+    with s2s_fault("self_cache_not_reordered"):
+        faulty, faulty_trace = _beam_trace(
+            f32, lambda: f32._generate_fused(bs, e_ids, e_mask))
+    faults["self_cache_not_reordered"] = _trace_parts(faulty_trace, host_trace, start)
+    row["fault_tokens_equal_host"] = faulty == host
+    check(faults["self_cache_not_reordered"] is not None,
+          f"{name}: planted fault self_cache_not_reordered parts the loops")
+    stage("beam_loops")
+    row["faults"] = faults
+    print(json.dumps(row))
+    del api, lm, f32, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_seq2seq() -> list:
+    import torch
+    counts = _counts()
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="kjarni_s2s_") as tmp:
+        for i, (name, source, cfg, specials, single) in enumerate(SEQ2SEQ):
+            d = Path(tmp) / name
+            t0 = time.perf_counter()
+            write_encdec_dir(d, cfg, seed=40 + i)
+            write_word_tokenizer(d / "tokenizer.json", cfg["vocab_size"], specials, single)
+            print(f"{name}: model dir written: {time.perf_counter() - t0:.1f} s, "
+                  f"{(d / 'model.safetensors').stat().st_size / 1e9:.2f} GB")
+            rows.append(run_seq2seq(name, source, d, seed=50 + i))
+            torch.cuda.empty_cache()
+    planted = {f for r in rows for f in r["faults"]}
+    check(planted == set(S2S_FAULTS), f"every seq2seq fault planted: {sorted(planted)}")
+    check(_counts() == counts, f"the seq2seq phase launched no hand-written kernel "
+                               f"(flash, int4: {counts} -> {_counts()})")
+    return rows
+
+
+def whisper_specials() -> dict:
+    """Whisper's special tokens at their fixed ids (whisper-small's vocabulary)."""
+    sp = {"<|endoftext|>": 50257, "<|startoftranscript|>": 50258}
+    sp.update({f"<|{lang}|>": 50259 + i for i, lang in enumerate(WHISPER_LANGUAGES)})
+    sp.update({"<|translate|>": 50358, "<|transcribe|>": 50359, "<|startoflm|>": 50360,
+               "<|startofprev|>": 50361, "<|nocaptions|>": 50362,
+               "<|notimestamps|>": 50363})
+    sp.update({f"<|{0.02 * i:.2f}|>": 50364 + i for i in range(1501)})
+    return sp
+
+
+def _speech(seconds: float, seed: int):
+    """A synthetic signal at 16 kHz: a few drifting tones and noise."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(16000 * seconds)) / 16000.0
+    x = sum(a * np.sin(2 * np.pi * (f + 5 * np.sin(0.3 * t)) * t)
+            for a, f in zip(rng.uniform(0.05, 0.2, 4), rng.uniform(100, 3000, 4)))
+    return (x + 0.01 * rng.standard_normal(len(t))).astype(np.float32)
+
+
+@contextlib.contextmanager
+def whisper_fault(wm, name: str):
+    """Within the block one WHISPER_FAULTS fault is planted in model wm: the
+    encoder's flash called with causal=True, or the decoder's position table
+    shifted by one row (position p reads p - 1's embedding)."""
+    import torch
+    from kjarni_tpu_torch.models import whisper as kwhisper
+    saved = kwhisper.flash_attention, wm.params
+    if name == "encoder_flash_causal":
+        real = kwhisper.flash_attention
+        kwhisper.flash_attention = lambda q, k, v, **kw: real(q, k, v, **{**kw, "causal": True})
+    else:
+        wm.params = {**wm.params, "dec_pos": torch.roll(wm.params["dec_pos"], 1, 0)}
+    try:
+        yield
+    finally:
+        kwhisper.flash_attention, wm.params = saved
+
+
+def _wave_margins(wm, chunks, out, prompt, allow) -> list:
+    """Each batched row's first WHISPER_CHECK_STEPS tokens against a
+    teacher-forced serial forward of its chunk (B = 1 encode, one decoder
+    pass over prompt + row): max(allowed logits) - logit[token] per token."""
+    import torch
+    from kjarni_tpu_torch.models import whisper as kwhisper
+    from kjarni_tpu_torch.models.whisper_transcriber import EOT_TOKEN, audio_pcm16
+    margins = []
+    counts = _counts()
+    with torch.inference_mode():
+        for j, chunk in enumerate(chunks):
+            row = [int(t) for t in out[j][:WHISPER_CHECK_STEPS]]
+            if EOT_TOKEN in row:
+                row = row[:row.index(EOT_TOKEN) + 1]
+            ck, cv = wm._encode_chunk(audio_pcm16(chunk))
+            ids = torch.tensor([prompt + row[:-1]], device=wm.device)
+            sk, sv = wm._new_cache(1, ids.shape[1])
+            logits, _, _ = kwhisper.decode_step(wm.params, wm.config, ids, sk, sv, ck, cv,
+                                                None, 0)
+            ref = torch.where(allow, logits[0, len(prompt) - 1:].float(), float("-inf")).cpu()
+            margins += _margins(ref, row)
+    _restore(counts)
+    return margins
+
+
+def phase_whisper() -> dict:
+    """whisper-small's widths through Transcriber on the card; see the module
+    docstring (phase 11)."""
+    import numpy as np
+    import torch
+    from kjarni_tpu_torch import Transcriber
+    from kjarni_tpu_torch.audio.loader import write_wav
+    from kjarni_tpu_torch.audio.mel import log_mel_spectrogram
+    from kjarni_tpu_torch.models import whisper as kwhisper
+    from kjarni_tpu_torch.models import whisper_transcriber as wt
+    from kjarni_tpu_torch.ops.kernels.flash_attention import flash_attention
+    c = WHISPER_SMALL
+    row = {"model": "whisper-small", "source": "openai/whisper-small"}
+    stage = _stages(row)
+    with tempfile.TemporaryDirectory(prefix="kjarni_whisper_") as tmp:
+        d = Path(tmp) / "whisper-small"
+        t0 = time.perf_counter()
+        write_encdec_dir(d, c, seed=60)
+        write_tokenizer(d / "tokenizer.json", c["vocab_size"], whisper_specials())
+        print(f"whisper-small: model dir written: {time.perf_counter() - t0:.1f} s, "
+              f"{(d / 'model.safetensors').stat().st_size / 1e9:.2f} GB")
+        a30, a240 = _speech(30.0, 61), _speech(240.0, 62)
+        wav30, wav240 = Path(tmp) / "a30.wav", Path(tmp) / "a240.wav"
+        write_wav(wav30, a30, 16000)
+        write_wav(wav240, a240, 16000)
+
+        stage("write")
+        t0 = time.perf_counter()
+        tr = Transcriber(str(d))
+        wm = tr._model
+        torch.cuda.synchronize()
+        row["load_s"] = time.perf_counter() - t0
+        check(wm.device.type == "cuda" and wm.dtype == torch.bfloat16 and wm.use_flash,
+              "whisper: bf16 on the card, the encoder on flash")
+        encodes = [0]
+        real_encode = kwhisper.encode
+
+        def counted_encode(*a, **kw):
+            encodes[0] += 1
+            return real_encode(*a, **kw)
+        kwhisper.encode = counted_encode
+        torch.cuda.reset_peak_memory_stats()
+        f0 = flash_attention.launches
+
+        def run(what, seconds, fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            row[what] = {"audio_s": seconds, "wall_s": secs, "rtf": seconds / secs}
+            return res
+
+        r30 = run("serial_30s", 30.0, lambda: tr.transcribe_file(wav30))
+        r240 = run("batched_240s", 240.0, lambda: tr.transcribe_file(wav240))
+        pieces = run("stream_30s", 30.0, lambda: list(tr.stream_file(wav30)))
+        auto = Transcriber(str(d), language="auto")
+        run("auto_30s", 30.0, lambda: auto.transcribe_file(wav30))
+        ts = Transcriber(str(d), timestamps=True)
+        rts = run("timestamps_30s", 30.0, lambda: ts.transcribe_file(wav30))
+        del auto, ts
+        kwhisper.encode = real_encode
+        launched = flash_attention.launches - f0
+        row.update(encode_calls=encodes[0], flash_launches=launched,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   words_30s=len(r30.text.split()), words_240s=len(r240.text.split()),
+                   stream_pieces=len(pieces), timestamp_segments=len(rts.segments))
+        check(launched == c["encoder_layers"] * encodes[0],
+              f"whisper: {launched} flash launches, 12 per encode call x {encodes[0]}")
+        check(len(r240.segments) >= 1 or not r240.text.strip(), "whisper: segments")
+        check(abs(r240.duration - 240.0) < 0.01, f"whisper: duration {r240.duration}")
+        stage("main_path")
+        main_counts = _counts()   # the Transcriber calls' launches alone
+
+        # decode tok/s of the 240 s wave alone
+        cfg = wm.build_prompt_tokens(tr.config)
+        chunks = wm.chunk_audio(a240)
+        pcm = wt.audio_pcm16(np.stack(chunks))
+        ck, cv = wm._encode_chunks(pcm)
+        cache_len, max_steps, allow = wm._plan(cfg, tr.config)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out, _ = wm._decode_loop_b(cfg, ck, cv, allow, cache_len, max_steps)
+        dt = time.perf_counter() - t
+        gen = sum(min(len(r), (list(r) + [wt.EOT_TOKEN]).index(wt.EOT_TOKEN) + 1) for r in out)
+        row["wave"] = {"B": len(chunks), "decode_s": dt, "tokens": int(gen),
+                       "decode_tok_per_s": gen / dt, "steps": int(out.shape[1])}
+        # a serial chunk of 16 tokens, profiled and not
+        short = wt.WhisperTranscriberConfig(max_tokens_per_chunk=16)
+        prof = profile_call(lambda: wm.transcribe(a30, short), top=5, ops=False)
+        row.update({k: prof[k] for k in ("profile_wall_ms", "profile_kernel_ms",
+                                         "profile_top_kernels")})
+        row["device_busy_share"] = prof["profile_kernel_ms"] / host_ms(
+            lambda: wm.transcribe(a30, short), iters=2)
+        stage("profile")
+
+        # the mel on the card against the CPU's
+        mel_card = log_mel_spectrogram(torch.from_numpy(chunks[0]).cuda(), wm.mel_config).cpu()
+        mel_cpu = log_mel_spectrogram(torch.from_numpy(chunks[0]), wm.mel_config)
+        row["mel_card_vs_cpu_max_abs_err"] = _max_err(mel_card, mel_cpu)
+        check(row["mel_card_vs_cpu_max_abs_err"] <= WHISPER_MEL_ATOL,
+              f"whisper: mel card vs CPU {row['mel_card_vs_cpu_max_abs_err']} "
+              f"<= {WHISPER_MEL_ATOL}")
+
+        # the encoder with flash against the plain attention, bf16, B = 1 and 8;
+        # then the time of each per wave
+        enc_ms, cos = {}, {}
+        for B in (1, len(chunks)):
+            mel = log_mel_spectrogram(wt._dequant_pcm(torch.from_numpy(pcm[:B]).cuda()),
+                                      wm.mel_config).to(wm.dtype)
+            with torch.inference_mode():
+                f1 = flash_attention.launches
+                hf = kwhisper.encode(wm.params, wm.config, mel, use_flash=True)
+                check(flash_attention.launches - f1 == c["encoder_layers"],
+                      "whisper: 12 flash launches per encode call")
+                hp = kwhisper.encode(wm.params, wm.config, mel, use_flash=False)
+                cos[f"B={B}"] = torch.nn.functional.cosine_similarity(
+                    hf.float(), hp.float(), dim=-1).min().item()
+                with whisper_fault(wm, "encoder_flash_causal"):
+                    hc = kwhisper.encode(wm.params, wm.config, mel, use_flash=True)
+                cos[f"B={B} fault encoder_flash_causal"] = \
+                    torch.nn.functional.cosine_similarity(hc.float(), hp.float(),
+                                                          dim=-1).min().item()
+                for flash in (True, False):
+                    enc_ms[f"B={B} {'flash' if flash else 'plain'}"] = cuda_ms(
+                        lambda: kwhisper.encode(wm.params, wm.config, mel, use_flash=flash),
+                        iters=3)
+            del hf, hp, hc, mel
+            torch.cuda.empty_cache()
+        row.update(encoder_flash_vs_plain_min_cosine=cos, encoder_ms=enc_ms)
+        stage("mel_and_encoder")
+        for key, value in cos.items():
+            if "fault" in key:
+                check(value < WHISPER_FLASH_COS_MIN, f"whisper: planted fault reads "
+                                                     f"cosine {value} ({key})")
+            else:
+                check(value >= WHISPER_FLASH_COS_MIN, f"whisper: encoder flash vs "
+                                                      f"plain cosine {value} ({key})")
+
+        # bf16: each batched token within the tie band of a teacher-forced
+        # serial forward, and the planted position fault outside it
+        margins = _wave_margins(wm, chunks, out, cfg, allow)
+        with whisper_fault(wm, "decoder_positions_shifted"):
+            faulty, _ = wm._decode_loop_b(cfg, ck, cv, allow, cache_len, WHISPER_CHECK_STEPS)
+        fault_margins = _wave_margins(wm, chunks, faulty, cfg, allow)
+        row.update(max_margin=max(margins), fault_max_margin=max(fault_margins))
+        stage("tie_band")
+        check(max(margins) <= WHISPER_TIE_BAND,
+              f"whisper: batched tokens within {WHISPER_TIE_BAND} logits ({max(margins)})")
+        check(max(fault_margins) > WHISPER_TIE_BAND,
+              f"whisper: planted fault decoder_positions_shifted reads "
+              f"{max(fault_margins)}, outside the band")
+        del ck, cv, tr, wm
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # f32 on the card: the batched wave's greedy ids equal each chunk's
+        # serial decode
+        wf = wt.WhisperModel(d, dtype="f32")
+        check(not wf.use_flash, "whisper f32: the plain attention")
+        small = wt.WhisperTranscriberConfig(max_tokens_per_chunk=WHISPER_CHECK_STEPS)
+        cache_len, max_steps, allow = wf._plan(cfg, small)
+        ck, cv = wf._encode_chunks(pcm)
+        outb, _ = wf._decode_loop_b(cfg, ck, cv, allow, cache_len, max_steps)
+        same = 0
+        for j, chunk in enumerate(chunks):
+            ck1, cv1 = wf._encode_chunk(wt.audio_pcm16(chunk))
+            ids, _ = wf._decode_loop(cfg, ck1, cv1, allow, cache_len, 0.0, None, max_steps)
+            same += list(outb[j][:len(ids)]) == ids
+        row["f32_batched_rows_equal_serial"] = f"{same}/{len(chunks)}"
+        check(same == len(chunks), f"whisper f32: batched rows equal serial ({same})")
+        row["faults"] = {"encoder_flash_causal": min(v for k, v in cos.items() if "fault" in k),
+                         "decoder_positions_shifted": max(fault_margins)}
+        check(set(row["faults"]) == set(WHISPER_FAULTS), "every whisper fault planted")
+        stage("f32")
+        _restore(main_counts)
+        del wf, ck, cv
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps(row))
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 12
 # ---------------------------------------------------------------------------
 
 def encoder_modules(c: dict) -> dict:
@@ -2638,7 +3488,8 @@ def phase_embed() -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(["env", "kernels", *GENERATION, "embed"]))
+    ap.add_argument("--phases", default=",".join(["env", "kernels", *GENERATION, *ENC_DEC,
+                                                  "embed"]))
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="the checkout whose kjarni_tpu_torch is imported")
     args = ap.parse_args()
@@ -2661,8 +3512,13 @@ def main() -> int:
     int4_matvec.launches = 0
     if set(GENERATION) & set(phases):
         phase_slices(phases)
+    for name, phase in (("seq2seq", phase_seq2seq), ("whisper", phase_whisper)):
+        if name in phases:
+            before = _counts()
+            _counted(name, phase)
+            check(_counts()[1] == before[1], f"the {name} phase launched no int4")
     launches = {"flash": flash_attention.launches, "int4": int4_matvec.launches}
-    if {"bf16", "int4", "int8", "chat", "serve"} & set(phases):
+    if {"bf16", "int4", "int8", "chat", "serve", "whisper"} & set(phases):
         check(launches["flash"] > 0, "the main path launched the flash kernel")
     if {"int4", "batch", "serve"} & set(phases):
         check(launches["int4"] > 0, "the main path launched the int4 kernel")

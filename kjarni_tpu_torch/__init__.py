@@ -30,7 +30,14 @@ def __getattr__(name):
     if name == "Reranker":
         from .tasks.reranker import Reranker
         return Reranker
+    if name in _TASKS:
+        from . import tasks
+        return getattr(tasks, name)
     raise AttributeError(f"module 'kjarni_tpu_torch' has no attribute '{name}'")
 
 
-__all__ = ["Generator", "Chat", "chat_send", "Embedder", "Classifier", "Reranker", "Device", "KjarniError"]
+_TASKS = ("Summarizer", "Translator", "Seq2SeqGenerator", "Seq2SeqOverrides",
+          "Transcriber", "TranscriptionResult")
+
+__all__ = ["Generator", "Chat", "chat_send", "Embedder", "Classifier", "Reranker",
+           *_TASKS, "Device", "KjarniError"]

@@ -133,6 +133,8 @@ _FLASH_TILES = [
     (1, 16, 2, 64, 320, 128, True, 50, 200, 264),       # all three at once
     (1, 4, 2, 150, 190, 64, False, None, 0, 170),       # not causal
     (1, 32, 8, 1024, 1024, 64, True, None, 0, None),    # Llama-1B prefill
+    (1, 12, 12, 1500, 1500, 64, False, None, 0, None),  # whisper-small's encoder:
+    (4, 12, 12, 1500, 1500, 64, False, None, 0, None),  # 23 full key tiles + 28
 ]
 
 
@@ -352,3 +354,120 @@ def test_speculative_on_the_card(decoder_dir, quantize):
         margins = chip_smoke._margins(ref, out)
         assert len(out) == 24 and max(margins) <= 0.05, margins
         assert spec.last_acceptance_rate >= 0.75
+
+
+# tiny encoder-decoders in chip_smoke.py's checkpoint layouts (it writes the
+# registry defaults at full width): BART with 2 + 1 layers, Whisper with
+# 2 + 2 layers and head_dim 64 (the flash kernel's)
+_TINY_BART = {"model_type": "bart", "vocab_size": 1000, "d_model": 64, "encoder_layers": 2,
+              "decoder_layers": 1, "encoder_attention_heads": 2, "decoder_attention_heads": 2,
+              "encoder_ffn_dim": 128, "decoder_ffn_dim": 128, "max_position_embeddings": 256,
+              "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2,
+              "decoder_start_token_id": 2, "forced_bos_token_id": 0, "forced_eos_token_id": 2,
+              "task_specific_params": {"summarization": {
+                  "early_stopping": True, "length_penalty": 2.0, "max_length": 24,
+                  "min_length": 4, "no_repeat_ngram_size": 3, "num_beams": 3}}}
+_TINY_WHISPER = {"model_type": "whisper", "vocab_size": 51865, "d_model": 128,
+                 "encoder_layers": 2, "decoder_layers": 2, "encoder_attention_heads": 2,
+                 "decoder_attention_heads": 2, "encoder_ffn_dim": 256, "decoder_ffn_dim": 256,
+                 "num_mel_bins": 80, "max_source_positions": 1500,
+                 "max_target_positions": 448}
+_TIE_BAND = 0.5     # bf16 against f32 logits (chip_smoke.py's serve and whisper band)
+
+
+@pytest.fixture(scope="module")
+def encdec_dirs(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the encoder-decoders' entry points run on it")
+    import chip_smoke
+    bart = tmp_path_factory.mktemp("tiny_bart")
+    chip_smoke.write_encdec_dir(bart, _TINY_BART, seed=7)
+    chip_smoke.write_word_tokenizer(bart / "tokenizer.json", _TINY_BART["vocab_size"],
+                                    {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3},
+                                    "<s> $A </s>")
+    whisper = tmp_path_factory.mktemp("tiny_whisper")
+    chip_smoke.write_encdec_dir(whisper, _TINY_WHISPER, seed=8)
+    chip_smoke.write_tokenizer(whisper / "tokenizer.json", _TINY_WHISPER["vocab_size"],
+                               chip_smoke.whisper_specials())
+    return bart, whisper
+
+
+def _normalized_score(lm, text_ids, mask, tokens, lp):
+    """The f32 model's length-normalized log-probability of one beam output."""
+    fam, cfg = lm.family, lm.config
+    with torch.inference_mode():
+        _, ck, cv = lm._encode_and_cross(text_ids, mask)
+        dec = [cfg.decoder_start_token_id] + tokens
+        sk, sv = fam.init_self_cache(cfg, 1, 64, lm.dtype, lm.device)
+        logits, _, _ = fam.decode_step(lm.params, cfg, torch.tensor([dec[:-1]]), sk, sv,
+                                       ck, cv, mask, 0)
+        logp = torch.log_softmax(logits[0].float(), -1)
+        total = logp[torch.arange(len(tokens)), torch.tensor(tokens)].sum().item()
+    return total / max(len(tokens), 1) ** lp
+
+
+def test_bart_summarize_on_the_card_matches_the_cpu(encdec_dirs):
+    """f32 on the card: the same beam tokens as the port's f32 CPU run of the
+    same weights; bf16 (the default): a summary that the f32 model scores
+    within the tie band of its own, and no kernel launch."""
+    import chip_smoke
+    from kjarni_tpu_torch import Summarizer
+    from kjarni_tpu_torch.models.seq2seq_lm import Seq2SeqLM
+    d = encdec_dirs[0]
+    text = chip_smoke._words(60, 10, 990, seed=9)
+    cpu = Summarizer(str(d), device="cpu")
+    lm_cpu, lm32 = cpu._gen.lm, Seq2SeqLM(d, dtype="f32")
+    assert lm32.device.type == "cuda"
+    ids, mask = lm_cpu._encode_input(text)
+    bs, _ = lm_cpu.beam_config(task="summarization")
+    want = lm_cpu._generate_fused(bs, ids, mask)
+    assert lm32._generate_fused(bs, ids.cuda(), mask.cuda()) == want
+    assert lm32.generate(text, task="summarization") == cpu.summarize(text)
+    before = flash_attention.launches, int4_matvec.launches
+    bf16 = Summarizer(str(d))
+    assert bf16._gen.lm.dtype == torch.bfloat16
+    got = bf16._gen.lm._generate_fused(bs, ids.cuda(), mask.cuda())
+    assert (flash_attention.launches, int4_matvec.launches) == before
+    ref = _normalized_score(lm_cpu, ids, mask, want, bs.length_penalty)
+    ours = _normalized_score(lm_cpu, ids, mask, got, bs.length_penalty)
+    assert ours >= ref - _TIE_BAND, (ours, ref)
+    assert isinstance(bf16.summarize(text), str)
+
+
+def test_whisper_transcribe_on_the_card_matches_the_cpu(encdec_dirs):
+    """f32 on the card: the CPU's greedy ids and text, serial and batched;
+    bf16 with the flash encoder (the default): every token within the tie
+    band of the f32 CPU model's teacher-forced logits."""
+    import numpy as np
+    import chip_smoke
+    from kjarni_tpu_torch.models import whisper as kwhisper
+    from kjarni_tpu_torch.models import whisper_transcriber as wt
+    d = encdec_dirs[1]
+    audio = chip_smoke._speech(65.0, seed=10)
+    cfg = wt.WhisperTranscriberConfig(max_tokens_per_chunk=24)
+    cpu = wt.WhisperModel(d, device="cpu")
+    card32 = wt.WhisperModel(d, dtype="f32")
+    assert card32.device.type == "cuda" and not card32.use_flash
+    for cb in (1, 16):
+        c = wt.WhisperTranscriberConfig(max_tokens_per_chunk=24, chunk_batch=cb)
+        assert card32.transcribe(audio, c)[0] == cpu.transcribe(audio, c)[0]
+    bf16 = wt.WhisperModel(d)
+    assert bf16.use_flash and bf16.dtype == torch.bfloat16
+    chunk = bf16.chunk_audio(audio)[0]
+    prompt = bf16.build_prompt_tokens(cfg)
+    cache_len, max_steps, allow = bf16._plan(prompt, cfg)
+    f0 = flash_attention.launches
+    ck, cv = bf16._encode_chunk(wt.audio_pcm16(chunk))
+    assert flash_attention.launches - f0 == _TINY_WHISPER["encoder_layers"]
+    ids, _ = bf16._decode_loop(prompt, ck, cv, allow, cache_len, 0.0, None, max_steps)
+    cck, ccv = cpu._encode_chunk(wt.audio_pcm16(chunk))
+    seq = torch.tensor([prompt + ids[:-1]])
+    sk, sv = cpu._new_cache(1, seq.shape[1])
+    with torch.inference_mode():
+        logits, _, _ = kwhisper.decode_step(cpu.params, cpu.config, seq, sk, sv, cck, ccv,
+                                            None, 0)
+    ref = torch.where(allow.cpu(), logits[0, len(prompt) - 1:], float("-inf"))
+    margins = [float(r.max() - r[t]) for r, t in zip(ref, ids)]
+    assert max(margins) <= _TIE_BAND, margins
+    text, _ = bf16.transcribe(audio, cfg)
+    assert isinstance(text, str) and np.isfinite(max(margins))
