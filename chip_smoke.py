@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Drive kjarni_tpu_torch's generation, encoder-decoder and embed paths on
-one CUDA card and check them.
+"""Drive kjarni_tpu_torch's generation, encoder-decoder, embed and search
+paths and the decoder's infrastructure on one CUDA card and check them.
 
     python3 chip_smoke.py [--phases env,kernels,bf16,int4,int8,batch,chat,gpt2,serve,
-                                    seq2seq,whisper,embed]
+                                    infra,seq2seq,whisper,embed,search]
                           [--root DIR]
 
 --root DIR imports kjarni_tpu_torch from another checkout (an older commit,
@@ -170,11 +170,51 @@ Phases, in order (all by default); any failure raises and exits non-zero:
    replay), device busy share and top kernels of one profiled call, peak
    memory; for MiniLM also plain against packed encode at S = 64 and 32.
    `--phases env,embed` runs it alone.
+13. search: model dirs at the public widths of minilm-l6-v2 and its
+   cross-encoder (as phase 12), and a seeded corpus of 1,600 .txt / .md
+   files of 5,000 characters of random BERT-vocabulary words (12,634 chunks
+   at the default 1,000 / 200 split: a segment of 10,000 rows on the
+   store's device branch and a tail of 2,634 in numpy). Indexer(dir).create
+   on the card, its chunk and file counts against DocumentLoader on the same
+   files, 256 stored embeddings against the f32 encoder on the card (cosine
+   >= EMBED_COS_MIN). Searcher(dir, reranker_model=ce) answers 64 queries in
+   semantic, keyword and hybrid mode, each with and without rerank (p50 /
+   p95 ms). Checks: semantic top-10 ids equal an exact numpy f64 top-k over
+   the stored embeddings (scores within 1e-5 of f64; a run of reference
+   scores closer than 1e-5 compares as a set: topk_agrees), keyword results
+   equal a device="cpu" searcher's, hybrid ids equal the RRF of the checked
+   top-20 lists, rerank scores within RERANK_ATOL of the f32 cross-encoder,
+   every text its document's. Three planted faults must fail those checks
+   (SEARCH_FAULTS: the device matrix kept across add, segment-local ids,
+   TF32-rounded scoring inputs). /v1/search through serve.py's server
+   answers as the Searcher. Then a VectorStore of 1,000,000 x 384 seeded f32
+   rows (1.54 GB on the card): the scoring product's device ms (CUDA-graph
+   replay) beside its 0.46 ms byte bound, a search split into device, copy
+   back and host top-k, peak memory, top-10 against numpy f64 (the TF32
+   fault must fail it). Neither kernel launches. `--phases env,search`.
+14. infra (run after phase 9, over its weights): Generator(dir,
+   execution_plan="offload_ends") in bf16: the table in pinned host memory
+   once (the tied head a view of it), at least the table's 525 MB fewer
+   device bytes than the device plan, the first prefill's logits within
+   cosine 0.999 and 2% of the largest logit of the device plan's, 16 flash
+   launches per prefill, every greedy token of a 701-token request within
+   the 0.5-logit tie band of a teacher-forced device-plan forward; prefill
+   ms, stream tok/s and the host head and gather ms per token beside the
+   device plan's. Two planted faults (INFRA_FAULTS: the head fed the
+   pre-norm state, the gather's ids shifted by one) must fail the logits
+   check. int4 under offload_embeddings (113 int4 launches per forward, the
+   tie band) and offload_head (the quantized head stays on the card). The
+   native checkpoint: convert_model to int4 on the card, DecoderLM(ckpt)
+   bit-equal to the in-memory tree with the same greedy ids, load seconds
+   of each. profiling.trace around one request holds its annotate span and
+   the card's kernels; device_memory_report names the card. `--phases
+   env,infra`.
 
-After each of phases 3-11 a line gives its own launches (the counts are set
-to 0 just before it and read just after; 10 and 11 must launch no int4). At
+After each of phases 3-14 a line gives its own launches (the counts are set
+to 0 just before it and read just after; 10 and 11 must launch no int4, 12
+and 13 nothing). At
 the end come three lines: a JSON object {"kernels": [...]} (per kernel the
-launches of phases 3-11,
+launches of phases 3-14,
 max_abs_err over its cases, and ms / plain_ms / bound_ms / library_ms -- for
 flash one launch at the Llama-1B prefill shape, for int4 the 113 launches of
 one decoded token; also printed before it: the 7 launches of one layer at
@@ -218,9 +258,9 @@ LLAMA_1B = {
     "bos_token_id": 128000, "eos_token_id": 128001, "torch_dtype": "bfloat16",
 }
 INT4_PER_FORWARD = 7 * LLAMA_1B["num_hidden_layers"] + 1
-# the phases that drive generation (3-9), between the launch counts' reset
-# and their reading
-GENERATION = ("bf16", "int4", "int8", "batch", "chat", "gpt2", "serve")
+# the phases over the Llama-3.2-1B-width weights (3-9 and 14), between the
+# launch counts' reset and their reading
+GENERATION = ("bf16", "int4", "int8", "batch", "chat", "gpt2", "serve", "infra")
 # the encoder-decoder phases (10 and 11), also on the main path
 ENC_DEC = ("seq2seq", "whisper")
 FLASH_PER_PREFILL = LLAMA_1B["num_hidden_layers"]
@@ -1033,7 +1073,7 @@ def _counted(name: str, fn, *args):
 
 
 def phase_slices(phases) -> None:
-    """Phases 3-9 over one Llama-3.2-1B-width model dir (and GPT-2's)."""
+    """Phases 3-9 and 14 over one Llama-3.2-1B-width model dir (and GPT-2's)."""
     with tempfile.TemporaryDirectory(prefix="kjarni_smoke_") as tmp:
         d = Path(tmp) / "llama-3.2-1b-random"
         t0 = time.perf_counter()
@@ -1060,6 +1100,8 @@ def phase_slices(phases) -> None:
             serve_n = [a - b for a, b in zip(_counts(), before)]
             check(serve_n[0] > 0 and serve_n[1] > 0,
                   f"the serve phase launched both kernels (flash, int4: {serve_n})")
+        if "infra" in phases:
+            _counted("infra", phase_infra, d, Path(tmp))
 
 
 def _counts() -> tuple[int, int]:
@@ -3486,10 +3528,619 @@ def phase_embed() -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 13: search and RAG
+# ---------------------------------------------------------------------------
+
+SEARCH_FILES, SEARCH_FILE_CHARS = 1600, 5000
+SEARCH_QUERIES = 64
+SEARCH_TOP_K = 10
+# scores closer than this compare as a set (f32 against f64 differs ~1e-7;
+# TF32 inputs move a score ~2e-5)
+SEARCH_TIE = 1e-5
+STORE_ROWS, STORE_DIM = 1_000_000, 384
+F32_FLOP_PER_S = 67e12                  # H100 SXM, f32 outside the tensor cores
+SEARCH_FAULTS = ("stale_device_matrix_after_add", "global_ids_not_offset",
+                 "tf32_scoring")
+
+
+def write_corpus(root: Path, n: int, seed: int, chars: int = SEARCH_FILE_CHARS) -> None:
+    """n .txt / .md files of `chars` characters: paragraphs of 30-159 random
+    words w<id> of the BERT tokenizer (ids 1000..29999), blank lines between."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        paras, size = [], 0
+        while size < chars:
+            para = " ".join(f"w{x}" for x in rng.integers(1000, 30000,
+                                                            rng.integers(30, 160)).tolist())
+            paras.append(para)
+            size += len(para) + 2
+        (root / f"doc{i:04d}.{'md' if i % 2 else 'txt'}").write_text("\n\n".join(paras)[:chars])
+
+
+def f64_scores(matrix, query):
+    """Exact cosine scores (numpy f64) of every row of `matrix` against
+    `query`: the reference a search answer is held to."""
+    import numpy as np
+    m = np.asarray(matrix, dtype=np.float64)
+    q = np.asarray(query, dtype=np.float64)
+    norms = np.maximum(np.linalg.norm(m, axis=1), 1e-9)
+    return (m @ q) / (norms * max(float(np.linalg.norm(q)), 1e-9))
+
+
+def topk_agrees(ids, scores, ref, k: int, tol: float = SEARCH_TIE) -> tuple[bool, str]:
+    """Whether a top-k answer (ids, scores) is the exact top k of the f64
+    reference scores `ref`: the same ids in the same order, where ids whose
+    reference scores lie within `tol` of each other compare as a set, and
+    each score within `tol` of its reference."""
+    import numpy as np
+    ids = [int(i) for i in ids]
+    if len(ids) != min(k, len(ref)) or len(set(ids)) != len(ids):
+        return False, f"{len(ids)} ids for k = {k}"
+    got = ref[ids]
+    err = float(np.abs(np.asarray(scores, dtype=np.float64) - got).max())
+    if err > tol:
+        return False, f"a score {err:.3g} off its f64 value"
+    kth = np.partition(-ref, len(ids) - 1)[len(ids) - 1] * -1
+    if (got < kth - tol).any():
+        return False, "an id outside the top k"
+    if not set(np.nonzero(ref > kth + tol)[0].tolist()) <= set(ids):
+        return False, "a top-k id missing"
+    if (np.diff(got) > tol).any():
+        return False, "ids out of order"
+    return True, ""
+
+
+@contextlib.contextmanager
+def search_fault(name: str):
+    """Plant one of SEARCH_FAULTS for the block: the store's device matrix
+    kept across add, segment-local ids returned as global ones, or the
+    scoring product's inputs rounded to TF32's 10-bit mantissa (what TF32
+    tensor cores do)."""
+    import torch
+    from kjarni_tpu_torch.rag.index import IndexReader
+    from kjarni_tpu_torch.search import vector
+    saved = []
+    if name == "stale_device_matrix_after_add":
+        add = vector.VectorStore.add
+
+        def stale(self, embedding):
+            keep = self._device_matrix
+            i = add(self, embedding)
+            self._device_matrix = keep
+            return i
+        saved.append((vector.VectorStore, "add", add))
+        vector.VectorStore.add = stale
+    elif name == "global_ids_not_offset":
+        saved.append((IndexReader, "_global_id", IndexReader._global_id))
+        IndexReader._global_id = lambda self, seg, local: local
+    elif name == "tf32_scoring":
+        scores = vector._device_scores
+
+        def tf32(x):
+            return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+        saved.append((vector, "_device_scores", scores))
+        vector._device_scores = lambda m, q: scores(tf32(m), tf32(q))
+    else:
+        raise ValueError(name)
+    try:
+        yield
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+
+
+def _search_ok(reader, E, q_embs, queries) -> tuple[bool, str]:
+    """The semantic top-k of each query through `reader`, held to the f64
+    top-k over the stored embeddings E."""
+    for q, qe in zip(queries, q_embs):
+        res = reader.search_semantic(qe, SEARCH_TOP_K)
+        ok, why = topk_agrees([r.document_id for r in res], [r.score for r in res],
+                              f64_scores(E, qe), SEARCH_TOP_K)
+        if not ok:
+            return False, f"{q[:20]}: {why}"
+    return True, ""
+
+
+def store_at_scale() -> dict:
+    """VectorStore over STORE_ROWS x STORE_DIM seeded f32 rows (not
+    normalized) on the card: the scoring product's device time beside its
+    bound, one search split into device, copy back and host top-k, peak
+    memory; top-k against numpy f64, and the TF32 fault must fail it."""
+    import numpy as np
+    import torch
+    from kjarni_tpu_torch.search import vector
+    g = torch.Generator(device="cuda").manual_seed(44)
+    mat = torch.randn(STORE_ROWS, STORE_DIM, generator=g, device="cuda")
+    mat = (mat * (0.5 + torch.rand(STORE_ROWS, 1, generator=g, device="cuda"))).cpu().numpy()
+    torch.cuda.empty_cache()
+    queries = np.random.default_rng(45).standard_normal((4, STORE_DIM)).astype(np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    store = vector.VectorStore(mat)
+    t0 = time.perf_counter()
+    store.search(queries[0], SEARCH_TOP_K)
+    first_s = time.perf_counter() - t0
+    dm = store.device_matrix()
+    check(dm.is_cuda and dm.dtype == torch.float32 and dm.shape == (STORE_ROWS, STORE_DIM),
+          "the store's matrix is f32 on the card")
+    qd = torch.from_numpy(queries[0] / np.linalg.norm(queries[0])).cuda()
+    device_ms = cuda_ms(lambda: vector._device_scores(dm, qd))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32_allowed = store._scores(queries[0])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    check(np.array_equal(tf32_allowed, store._scores(queries[0])),
+          "the store's scores do not move when TF32 is allowed")
+    nbytes = 4 * (STORE_ROWS * STORE_DIM + STORE_DIM + STORE_ROWS)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, 2 * STORE_ROWS * STORE_DIM / F32_FLOP_PER_S
+    parts = {"device": [], "copy": [], "topk": [], "search": []}
+    for i in range(10):
+        q = queries[i % 4]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = vector._device_scores(dm, torch.from_numpy(q / np.linalg.norm(q)).cuda())
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        h = s.cpu().numpy()
+        t2 = time.perf_counter()
+        top = np.argpartition(-h, SEARCH_TOP_K - 1)[:SEARCH_TOP_K]
+        top = top[np.argsort(-h[top])]
+        t3 = time.perf_counter()
+        store.search(q, SEARCH_TOP_K)
+        t4 = time.perf_counter()
+        for k, a, b in (("device", t0, t1), ("copy", t1, t2), ("topk", t2, t3),
+                        ("search", t3, t4)):
+            parts[k].append(1e3 * (b - a))
+    peak_gb = (torch.cuda.max_memory_allocated() - before) / 1e9
+    # the f64 reference: norms once, one product per query
+    m64 = mat.astype(np.float64)
+    norms = np.maximum(np.linalg.norm(m64, axis=1), 1e-9)
+
+    def held(q):
+        ref = (m64 @ q.astype(np.float64)) / (norms * np.linalg.norm(q.astype(np.float64)))
+        res = store.search(q, SEARCH_TOP_K)
+        return topk_agrees([i for i, _ in res], [s for _, s in res], ref, SEARCH_TOP_K)
+    for q in queries:
+        ok, why = held(q)
+        check(ok, f"1M-row store top-{SEARCH_TOP_K} equals numpy f64's: {why}")
+    with search_fault("tf32_scoring"):
+        faulted = [held(q) for q in queries]
+    check(not all(ok for ok, _ in faulted), "the TF32 fault fails the 1M-row f64 check")
+    del m64, store, dm
+    torch.cuda.empty_cache()
+    return {"store_rows": STORE_ROWS, "store_dim": STORE_DIM,
+            "store_gb": STORE_ROWS * STORE_DIM * 4 / 1e9,
+            "scoring_ms": device_ms, "scoring_bound_ms": 1e3 * max(by_bytes, by_ops),
+            "scoring_bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "first_search_s": first_s,
+            **{f"search_{k}_ms_p50": statistics.median(v) for k, v in parts.items()},
+            "store_peak_gb": peak_gb,
+            "tf32_fault": [why for _, why in faulted]}
+
+
+def phase_search() -> dict:
+    """Indexer -> Searcher on the card over a ~12,600-chunk corpus (see the
+    module docstring), the 1M-row store and /v1/search; one JSON line."""
+    import threading
+    import urllib.request
+    import numpy as np
+    import torch
+    from kjarni_tpu_torch import Indexer, Searcher, serve
+    from kjarni_tpu_torch.models.encoder_models import CrossEncoder, SentenceEncoder
+    from kjarni_tpu_torch.rag.index import IndexReader
+    from kjarni_tpu_torch.rag.loader import DocumentLoader
+    from kjarni_tpu_torch.search import vector
+    from kjarni_tpu_torch.search.hybrid import hybrid_search
+    from kjarni_tpu_torch.search.types import SearchMode
+    from kjarni_tpu_torch.tasks.searcher import SearchOptions
+    counts = _counts()
+    row = {"phase": "search"}
+    with tempfile.TemporaryDirectory(prefix="kjarni_search_") as tmp:
+        tmp = Path(tmp)
+        mini, ce = tmp / "minilm-l6-v2", tmp / "minilm-l6-v2-cross-encoder"
+        write_encoder_dir(mini, MINILM_L6, seed=40)
+        write_encoder_dir(ce, MINILM_CROSS, seed=41)
+        docs, idx = tmp / "docs", tmp / "index"
+        write_corpus(docs, SEARCH_FILES, seed=42)
+        chunks = DocumentLoader().load_paths([docs])
+
+        indexer = Indexer(str(mini), quiet=True)
+        check(indexer.embedder._encoder.device.type == "cuda", "the Indexer on the card")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = indexer.create(idx, [docs])
+        index_s = time.perf_counter() - t0
+        check(stats.chunks == len(chunks) and stats.documents == SEARCH_FILES,
+              f"indexed {stats.chunks} chunks of {stats.documents} files; the loader "
+              f"reads {len(chunks)} of {SEARCH_FILES}")
+        reader = IndexReader.open(idx)
+        sizes = [len(s) for s in reader.segments]
+        check(sizes[0] == 10_000 and len(sizes) == 2 and
+              sizes[1] < vector._DEVICE_MIN_ROWS,
+              f"segments {sizes}: one on the device branch and a numpy tail")
+        E = np.concatenate([np.asarray(s.embeddings, np.float32) for s in reader.segments])
+        pick = np.linspace(0, len(E) - 1, 256).astype(int)
+        f32 = SentenceEncoder(mini, dtype="f32").encode_batch(
+            [reader.get_document(int(i)) for i in pick])
+        cos = (E[pick] * f32).sum(-1) / (np.linalg.norm(E[pick], axis=-1)
+                                         * np.linalg.norm(f32, axis=-1))
+        check(cos.min() >= EMBED_COS_MIN,
+              f"stored embeddings against the f32 encoder: cosine {cos.min()}")
+        row.update({"chunks": stats.chunks, "files": stats.documents, "segments": sizes,
+                    "index_s": index_s, "chunks_per_s": stats.chunks / index_s,
+                    "stored_min_cosine": float(cos.min())})
+
+        queries = _sentences(SEARCH_QUERIES, 8, 16, seed=43)
+        searcher = Searcher(str(mini), reranker_model=str(ce), quiet=True)
+        cpu = Searcher(str(mini), device="cpu", quiet=True)
+        q_embs = [searcher.embedder.embed(q) for q in queries]
+        check(all(np.array_equal(searcher.embedder.embed(q), e)
+                  for q, e in zip(queries[:4], q_embs)), "the query embedding repeats")
+        answers, times = {}, {}
+        for mode in ("semantic", "keyword", "hybrid"):
+            for rerank in (False, True):
+                opts = SearchOptions(mode=SearchMode.parse(mode), top_k=SEARCH_TOP_K,
+                                     rerank=rerank)
+                res, ms = [], []
+                for q in queries:
+                    t0 = time.perf_counter()
+                    res.append(searcher.search_with_options(idx, q, opts))
+                    ms.append(1e3 * (time.perf_counter() - t0))
+                answers[mode, rerank] = res
+                ms.sort()
+                times[mode + ("+rerank" if rerank else "")] = \
+                    {"p50_ms": ms[len(ms) // 2], "p95_ms": ms[int(0.95 * len(ms))]}
+        row["query_ms"] = times
+
+        ce32 = CrossEncoder(ce, dtype="f32")
+        rerank_err = 0.0
+        for i, (q, qe) in enumerate(zip(queries, q_embs)):
+            ref = f64_scores(E, qe)
+            sem = answers["semantic", False][i]
+            ok, why = topk_agrees([r.document_id for r in sem], [r.score for r in sem],
+                                  ref, SEARCH_TOP_K)
+            check(ok, f"semantic top-{SEARCH_TOP_K} equals numpy f64's: {why}")
+            kw = answers["keyword", False][i]
+            want = cpu.search_with_options(idx, q, SearchOptions(
+                mode=SearchMode.KEYWORD, top_k=SEARCH_TOP_K, rerank=False))
+            check([(r.document_id, r.score, r.text) for r in kw] ==
+                  [(r.document_id, r.score, r.text) for r in want] and kw,
+                  "keyword results equal the CPU searcher's")
+            kw2 = reader._search_keyword_ids(q, 2 * SEARCH_TOP_K)
+            check(kw2 == cpu._reader(idx)._search_keyword_ids(q, 2 * SEARCH_TOP_K),
+                  "keyword candidates equal the CPU reader's")
+            sem2 = reader._search_semantic_ids(qe, 2 * SEARCH_TOP_K)
+            ok, why = topk_agrees([d for d, _ in sem2], [s for _, s in sem2], ref,
+                                  2 * SEARCH_TOP_K)
+            check(ok, f"semantic candidates equal numpy f64's: {why}")
+            hyb = answers["hybrid", False][i]
+            check([r.document_id for r in hyb] ==
+                  [d for d, _ in hybrid_search(kw2, sem2, SEARCH_TOP_K)],
+                  "hybrid ids are the RRF of the checked lists")
+            for (mode, rerank), res in answers.items():
+                check(all(r.text == reader.get_document(r.document_id) for r in res[i]),
+                      f"{mode} result texts are their documents")
+                if rerank and res[i]:
+                    got = np.array([r.score for r in res[i]])
+                    want = ce32.predict_pairs([(q, r.text) for r in res[i]])
+                    rerank_err = max(rerank_err, float(np.abs(got - want).max()))
+                    check((np.diff(got) <= 0).all(), "reranked scores descend")
+        check(rerank_err <= RERANK_ATOL, f"rerank scores within {RERANK_ATOL} of the f32 "
+                                         f"cross-encoder: {rerank_err}")
+        row["rerank_max_abs_err"] = rerank_err
+
+        # planted faults: each must fail its check
+        faults = {}
+        seg = vector.VectorStore(np.asarray(reader.segments[0].embeddings, np.float32))
+        for name in ("stale_device_matrix_after_add", None):
+            with search_fault(name) if name else contextlib.nullcontext():
+                s = vector.VectorStore(seg.matrix.copy())
+                s.search(q_embs[0], 1)
+                new = s.add(q_embs[0] * 3.0)
+                found = s.search(q_embs[0], 1)[0][0] == new
+            check(found == (name is None), f"a row added after a search is found "
+                                           f"({name or 'sound'}: {found})")
+        faults["stale_device_matrix_after_add"] = "row not found"
+        for name in ("global_ids_not_offset", "tf32_scoring"):
+            with search_fault(name):
+                ok, why = _search_ok(reader, E, q_embs[:8], queries[:8])
+            check(not ok, f"the {name} fault fails the f64 check")
+            faults[name] = why
+        row["faults"] = faults
+
+        # /v1/search through serve.py's server
+        engine = serve._Engine({"search": str(mini)})
+        srv = serve.KjarniHTTPServer(("127.0.0.1", 0), serve.make_handler(engine))
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        http_ms = []
+        try:
+            for i in (0, 1):   # the first request loads the server's Searcher
+                body = {"index": str(idx), "query": queries[i], "mode": "hybrid",
+                        "top_k": SEARCH_TOP_K}
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{srv.server_port}/v1/search",
+                    data=json.dumps(body).encode(),
+                    headers={"Content-Type": "application/json"})
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    code, out = r.status, json.loads(r.read())
+                http_ms.append(1e3 * (time.perf_counter() - t0))
+                want = answers["hybrid", False][i]
+                check(code == 200 and [(x["text"], x["metadata"]) for x in out["results"]]
+                      == [(r.text, r.metadata) for r in want] and
+                      max(abs(x["score"] - r.score) for x, r in zip(out["results"], want))
+                      <= 1e-6, "/v1/search answers as the Searcher")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        row["http_search_ms"] = {"first (loads the Searcher)": http_ms[0],
+                                 "second": http_ms[1]}
+        del searcher, cpu, ce32, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    row.update(store_at_scale())
+    check(_counts() == counts, f"the search phase launched neither hand-written kernel "
+                               f"(flash, int4 launches {counts} -> {_counts()})")
+    print(json.dumps(row))
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 14: execution plans, the native checkpoint, profiling
+# ---------------------------------------------------------------------------
+
+INFRA_NEW_TOKENS = 32
+# the offload plan's first prefill logits against the device plan's: the
+# embedding rows are the same bf16 values and the host head rounds once to
+# bf16, so a sound run reads ~1 bf16 ulp of the largest logit; the fed-in
+# pre-norm state scales every logit by the residual stream's rms
+INFRA_COS_MIN, INFRA_REL_MAX = 0.999, 0.02
+INFRA_FAULTS = ("head_fed_pre_norm", "embed_ids_shifted")
+
+
+@contextlib.contextmanager
+def infra_fault(name: str, lm):
+    """Plant one of INFRA_FAULTS in the llama forward for the block: the
+    final norm skipped before the (offloaded) head, or the host gather
+    reading the ids shifted by one."""
+    from kjarni_tpu_torch.models import llama as kllama
+    attr = {"head_fed_pre_norm": "rms_norm", "embed_ids_shifted": "host_gather"}[name]
+    orig = getattr(kllama, attr)
+    if name == "head_fed_pre_norm":
+        final = lm.params["final_norm"]
+        kllama.rms_norm = lambda x, w, eps: x if w is final else orig(x, w, eps)
+    else:
+        kllama.host_gather = lambda t, ids: orig(t, (ids + 1) % t.shape[0])
+    try:
+        yield
+    finally:
+        setattr(kllama, attr, orig)
+
+
+def _plan_logits(got, ref) -> dict:
+    return {"cosine": _cosine(got, ref),
+            "rel_err": (got - ref).abs().max().item() / ref.abs().max().item()}
+
+
+def _plan_ok(st: dict) -> bool:
+    return st["cosine"] >= INFRA_COS_MIN and st["rel_err"] <= INFRA_REL_MAX
+
+
+def _plan_request(gen, text: str, tag: str, flash_want: int | None,
+                  int4_per_forward: int = 0) -> dict:
+    """One greedy generate of INFRA_NEW_TOKENS, its launches checked; returns
+    the prompt and generated ids and the seconds."""
+    import torch
+    from kjarni_tpu_torch.generate.sampling import GenerationConfig
+    lm = gen.lm
+    ids = lm.encode_prompt(text)
+    f0, i0 = _counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen.generate(text, config=GenerationConfig.greedy(max_new_tokens=INFRA_NEW_TOKENS,
+                                                      max_length=4096))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    out = lm._session_ids[len(ids):]
+    flash_n, int4_n = _counts()[0] - f0, _counts()[1] - i0
+    if flash_want is not None:
+        check(flash_n == flash_want, f"{tag}: {flash_n} flash launches, expected {flash_want}")
+    check(int4_n == int4_per_forward * (1 + len(out)),
+          f"{tag}: {int4_n} int4 launches, expected {int4_per_forward} per forward")
+    check(len(out) > 0, f"{tag}: generated tokens")
+    return {"ids": ids, "out": out, "seconds": secs, "flash": flash_n, "int4": int4_n}
+
+
+def _tie_band(ref_lm, req: dict) -> float:
+    """The largest margin of a request's greedy tokens in a teacher-forced
+    single-stream forward of the reference model (plain kernels)."""
+    ids, out = req["ids"], req["out"]
+    ref = _teacher_forced(ref_lm, ids + out[:-1],
+                          list(range(len(ids) - 1, len(ids) - 1 + len(out))))
+    return max(_margins(ref, out))
+
+
+def _stream_rate(gen, text: str) -> dict:
+    """Time to first token and decode tok/s of a 32-token greedy stream."""
+    import torch
+    from kjarni_tpu_torch.generate.sampling import GenerationConfig
+    cfg = GenerationConfig.greedy(max_new_tokens=32, max_length=4096)
+    n, first = 0, None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in gen.generate_stream(text, config=cfg):
+        if n == 0:
+            torch.cuda.synchronize()
+            first = time.perf_counter()
+        n += 1
+    torch.cuda.synchronize()
+    return {"ttft_ms": 1e3 * (first - t0), "tok_per_s": (n - 1) / (time.perf_counter() - first)}
+
+
+def _prefill_ms(lm, ids) -> float:
+    """Median of 3 synchronised first prefills (their launches restored)."""
+    import torch
+    counts, runs = _counts(), []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill_logits(lm, ids)
+        torch.cuda.synchronize()
+        runs.append(1e3 * (time.perf_counter() - t0))
+    _restore(counts)
+    return statistics.median(runs)
+
+
+def _loaded(fn):
+    """(object, seconds, device bytes it holds) of one synchronised load."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    obj = fn()
+    torch.cuda.synchronize()
+    return obj, time.perf_counter() - t0, torch.cuda.memory_allocated() - before
+
+
+def _same_tree(a, b) -> bool:
+    import torch
+    if isinstance(a, dict) or isinstance(b, dict):
+        return isinstance(a, dict) and isinstance(b, dict) and a.keys() == b.keys() and \
+            all(_same_tree(a[k], b[k]) for k in a)
+    return a.dtype == b.dtype and a.shape == b.shape and a.device == b.device and \
+        bool(torch.equal(a, b))
+
+
+def phase_infra(d: Path, tmp: Path) -> dict:
+    """Execution plans, the native checkpoint and profiling over the phase-3
+    Llama-3.2-1B-width weights (see the module docstring); one JSON line."""
+    import torch
+    from kjarni_tpu_torch import Generator
+    from kjarni_tpu_torch.core import placement, profiling
+    from kjarni_tpu_torch.generate.sampling import GenerationConfig
+    from kjarni_tpu_torch.models.decoder_lm import DecoderLM
+    from kjarni_tpu_torch.weights.checkpoint import convert_model
+    text, text2 = _prompt(700, 1), _prompt(600, 2)
+    table_bytes = LLAMA_1B["vocab_size"] * LLAMA_1B["hidden_size"] * 2
+    row = {"phase": "infra"}
+
+    # offload_ends in bf16 against the device plan
+    dev, dev_s, dev_bytes = _loaded(lambda: Generator(str(d)))
+    off, off_s, off_bytes = _loaded(lambda: Generator(str(d), execution_plan="offload_ends"))
+    p = off.lm.params
+    check(off.lm.config.embed_on_host and off.lm.config.lm_head_on_host and
+          p["embed"].device.type == "cpu" and p["embed"].is_pinned() and
+          p["lm_head"].untyped_storage().data_ptr() == p["embed"].untyped_storage().data_ptr(),
+          "offload_ends: the table in pinned host memory once, the tied head a view of it")
+    check(dev_bytes - off_bytes >= table_bytes,
+          f"offload_ends holds {dev_bytes - off_bytes} fewer device bytes than the device "
+          f"plan, at least the table's {table_bytes}")
+    ids = dev.lm.encode_prompt(text)
+    counts = _counts()
+    ref = prefill_logits(dev.lm, ids)
+    got = prefill_logits(off.lm, ids)
+    st = _plan_logits(got, ref)
+    check(_plan_ok(st), f"offload_ends first prefill logits against the device plan: {st}")
+    faults = {}
+    for name in INFRA_FAULTS:
+        with infra_fault(name, off.lm):
+            bad = _plan_logits(prefill_logits(off.lm, ids), ref)
+        check(not _plan_ok(bad), f"the {name} fault fails the logits check: {bad}")
+        faults[name] = bad
+    _restore(counts)
+    req = _plan_request(off, text, "offload_ends", FLASH_PER_PREFILL)
+    margin = _tie_band(dev.lm, req)
+    check(margin <= SERVE_TIE_BAND, f"offload_ends greedy tokens within the tie band "
+                                    f"of the device plan: {margin}")
+    dev_req = _plan_request(dev, text, "device plan", FLASH_PER_PREFILL)
+    x = torch.randn(1, LLAMA_1B["hidden_size"], dtype=torch.bfloat16, device="cuda")
+    tok = torch.tensor([[12345]], device="cuda")
+    row["bf16"] = {
+        "load_s": {"device": dev_s, "offload_ends": off_s},
+        "device_gb": {"device": dev_bytes / 1e9, "offload_ends": off_bytes / 1e9},
+        "logits": st, "faults": faults, "tie_band_max_margin": margin,
+        "generate_s": {"device": dev_req["seconds"], "offload_ends": req["seconds"]},
+        "prefill_ms": {"device": _prefill_ms(dev.lm, ids), "offload_ends": _prefill_ms(off.lm, ids)},
+        "stream": {"device": _stream_rate(dev, text2), "offload_ends": _stream_rate(off, text2)},
+        "head_ms_per_token": {"host": host_ms(lambda: placement.host_matmul(x, p["lm_head"])),
+                              "device": cuda_ms(lambda: x @ dev.lm.params["lm_head"])},
+        "gather_ms_per_token": {"host": host_ms(lambda: placement.host_gather(p["embed"], tok)),
+                                "device": cuda_ms(lambda: torch.nn.functional.embedding(
+                                    tok, dev.lm.params["embed"]))},
+    }
+    del dev, off, p, got, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # int4 under offload_embeddings and offload_head, and the native checkpoint
+    dev4, dev4_s, _ = _loaded(lambda: Generator(str(d), quantize="int4"))
+    emb4 = Generator(str(d), quantize="int4", execution_plan="offload_embeddings")
+    check(emb4.lm.config.embed_on_host and not emb4.lm.config.lm_head_on_host,
+          "offload_embeddings in int4: the table on the host, the head on the card")
+    req4 = _plan_request(emb4, text, "int4 offload_embeddings", FLASH_PER_PREFILL,
+                         INT4_PER_FORWARD)
+    margin4 = _tie_band(dev4.lm, req4)
+    check(margin4 <= SERVE_TIE_BAND, f"int4 offload_embeddings tokens within the tie "
+                                     f"band of the device plan: {margin4}")
+    del emb4
+    head4 = Generator(str(d), quantize="int4", execution_plan="offload_head")
+    h = head4.lm.params["lm_head"]
+    check(not head4.lm.config.lm_head_on_host and isinstance(h, dict) and h["w4"].is_cuda
+          and head4.lm.params["embed"].is_cuda,
+          "offload_head in int4: the quantized head stays on the card")
+    del head4, h
+    gc.collect()
+    torch.cuda.empty_cache()
+    ck = tmp / "llama-3.2-1b-int4-ckpt"
+    t0 = time.perf_counter()
+    convert_model(d, ck, quantize="int4")
+    convert_s = time.perf_counter() - t0
+    lm_ck, ck_s, _ = _loaded(lambda: DecoderLM(ck))
+    check(_same_tree(lm_ck.params, dev4.lm.params),
+          "the int4 checkpoint loads params bit-equal to the in-memory quantized tree")
+    cfg = GenerationConfig.greedy(max_new_tokens=INFRA_NEW_TOKENS, max_length=4096)
+    lm_ck.generate(text, config=cfg)
+    dev4.lm.generate(text, config=cfg)
+    check(lm_ck._session_ids == dev4.lm._session_ids,
+          "the checkpoint's greedy ids equal the safetensors load's")
+    row["int4"] = {"tie_band_max_margin": margin4, "int4_launches": req4["int4"],
+                   "flash_launches": req4["flash"], "generate_s": req4["seconds"],
+                   "load_s": {"safetensors": dev4_s, "checkpoint": ck_s},
+                   "convert_s": convert_s,
+                   "checkpoint_gb": sum(f.stat().st_size for f in ck.rglob("*")) / 1e9}
+
+    # profiling around one request
+    with profiling.trace(tmp / "trace") as prof:
+        with profiling.annotate("kjarni-request"):
+            lm_ck.generate(_prompt(300, 5), config=GenerationConfig.greedy(
+                max_new_tokens=8, max_length=4096))
+    events = json.loads((tmp / "trace" / profiling.TRACE_FILE).read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    check(any(e.get("name") == "kjarni-request" for e in events) and kernels,
+          "the trace holds the annotated span and the card's kernels")
+    report = profiling.device_memory_report()
+    check(torch.cuda.get_device_name(0) in report[0]["device"] and
+          0 < report[0]["live_buffer_mb"] <= report[0]["peak_mb"],
+          f"the memory report names the card with live and peak MB: {report[0]}")
+    row["profile"] = {"events": len(events), "kernels": len(kernels),
+                      "kernel_ms": sum(e.get("dur", 0) for e in kernels) / 1e3,
+                      "ops": len(prof.key_averages()), "memory": report[0]}
+    del lm_ck, dev4
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps(row))
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(["env", "kernels", *GENERATION, *ENC_DEC,
-                                                  "embed"]))
+                                                  "embed", "search"]))
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="the checkout whose kjarni_tpu_torch is imported")
     args = ap.parse_args()
@@ -3505,9 +4156,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     phase_env()   # builds the kernels; every later phase needs them
+    print(json.dumps({"phase": "env", "seconds": time.perf_counter() - t_start}))
+    t0 = time.perf_counter()
     kern = phase_kernels() if "kernels" in phases else None
     if "flash" in phases and kern is None:
         phase_flash()
+    print(json.dumps({"phase": "kernels", "seconds": time.perf_counter() - t0}))
     flash_attention.launches = 0
     int4_matvec.launches = 0
     if set(GENERATION) & set(phases):
@@ -3517,13 +4171,15 @@ def main() -> int:
             before = _counts()
             _counted(name, phase)
             check(_counts()[1] == before[1], f"the {name} phase launched no int4")
-    launches = {"flash": flash_attention.launches, "int4": int4_matvec.launches}
-    if {"bf16", "int4", "int8", "chat", "serve", "whisper"} & set(phases):
-        check(launches["flash"] > 0, "the main path launched the flash kernel")
-    if {"int4", "batch", "serve"} & set(phases):
-        check(launches["int4"] > 0, "the main path launched the int4 kernel")
     if "embed" in phases:
-        phase_embed()
+        _counted("embed", phase_embed)
+    if "search" in phases:
+        _counted("search", phase_search)
+    launches = {"flash": flash_attention.launches, "int4": int4_matvec.launches}
+    if {"bf16", "int4", "int8", "chat", "serve", "infra", "whisper"} & set(phases):
+        check(launches["flash"] > 0, "the main path launched the flash kernel")
+    if {"int4", "batch", "serve", "infra"} & set(phases):
+        check(launches["int4"] > 0, "the main path launched the int4 kernel")
     if kern is not None:
         f0 = kern["flash"][0]
         tok = kern["int4_token"]

@@ -30,6 +30,12 @@ def __getattr__(name):
     if name == "Reranker":
         from .tasks.reranker import Reranker
         return Reranker
+    if name == "Indexer":
+        from .tasks.indexer import Indexer
+        return Indexer
+    if name == "Searcher":
+        from .tasks.searcher import Searcher
+        return Searcher
     if name in _TASKS:
         from . import tasks
         return getattr(tasks, name)
@@ -40,4 +46,4 @@ _TASKS = ("Summarizer", "Translator", "Seq2SeqGenerator", "Seq2SeqOverrides",
           "Transcriber", "TranscriptionResult")
 
 __all__ = ["Generator", "Chat", "chat_send", "Embedder", "Classifier", "Reranker",
-           *_TASKS, "Device", "KjarniError"]
+           "Indexer", "Searcher", *_TASKS, "Device", "KjarniError"]

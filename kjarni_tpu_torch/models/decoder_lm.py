@@ -29,12 +29,14 @@ from ..core.bucketing import seq_bucket
 from ..core.cancellation import CancellationToken
 from ..core.errors import GenerationError, InvalidConfigError
 from ..core.kvcache import slice_working
+from ..core.placement import ExecutionPlan, resolve_device, to_host_memory
 from ..core.stats import GenerationStats
 from ..generate.sampling import (GenerationConfig, SamplingParams, process_logits,
                                  sample_token)
 from ..generate.stream import StreamDecoder, StreamedToken, TokenType
 from ..tokenizer import KjarniTokenizer
 from ..tokenizer_native import bpe_from_gguf_metadata
+from ..weights.checkpoint import load_checkpoint
 from ..weights.gguf import GgufWeights
 from ..weights.safetensors_loader import ModelWeights
 from . import gpt2 as kgpt2
@@ -57,18 +59,6 @@ logger = logging.getLogger(__name__)
 def not_ported(what: str, item: str) -> InvalidConfigError:
     return InvalidConfigError(
         f"{what} is not ported to kjarni_tpu_torch yet (ROADMAP.md, {item})")
-
-
-def resolve_device(device) -> torch.device:
-    """None / "auto" / "cuda" mean the card, and a missing card raises; the
-    CPU runs only when asked for."""
-    d = torch.device("cuda" if device in (None, "auto", "gpu") else device)
-    if d.type == "cuda" and not torch.cuda.is_available():
-        raise InvalidConfigError(
-            "no CUDA device is available; pass device='cpu' to run on the CPU")
-    if d.type not in ("cuda", "cpu"):
-        raise InvalidConfigError(f"unsupported device '{device}'")
-    return d
 
 
 def auto_dtype(dtype, device: torch.device) -> torch.dtype:
@@ -106,28 +96,27 @@ class DecoderLM:
             raise InvalidConfigError(f"unknown quantize mode '{quantize}'")
         if kv_cache not in (None, "int8"):
             raise InvalidConfigError(f"unknown kv_cache mode '{kv_cache}'")
+        plan = ExecutionPlan.resolve(execution_plan)   # an unknown plan raises here
         # options of the JAX DecoderLM that the port does not have yet
         if tp is not None and tp > 1:
             raise not_ported("tensor parallelism (tp>1)", "queue 1, item 9")
-        if execution_plan is not None:
-            raise not_ported("execution_plan host offload", "queue 1, item 8")
 
         self.device = resolve_device(device)
         dtype = resolve_dtype(dtype, self.device)
         model_dir = Path(model_dir)
         self.model_dir = model_dir
-        # weights source priority: safetensors > GGUF (the JAX package puts
-        # its native checkpoint first; the port has no such format yet)
+        # weights source priority: native checkpoint > safetensors > GGUF
+        # (gguf_loader.rs fallback order, plus the native fast path)
         gguf_path = model_dir / "model.gguf"
         has_safetensors = (model_dir / "model.safetensors").exists() or \
             (model_dir / "model.safetensors.index.json").exists()
+        ws = None
+        params = load_checkpoint(model_dir, self.device)   # None without one
         if has_safetensors:
             ws = ModelWeights(model_dir)
         elif gguf_path.exists():
             ws = GgufWeights(gguf_path)
-        elif (model_dir / "kjarni_ckpt").exists():
-            raise not_ported(f"the native checkpoint of {model_dir}", "queue 1, item 8")
-        else:
+        elif params is None:
             ws = ModelWeights(model_dir)  # raises with a clear error
         cfg_path = model_dir / "config.json"
         if cfg_path.exists():
@@ -148,16 +137,46 @@ class DecoderLM:
         self._kv_quantized = kv_cache == "int8"
 
         self.max_context = min(cfg.max_seq_len, max_context or DEFAULT_MAX_CONTEXT)
-        if self.family is kllama:
+        if params is not None:
+            # the checkpoint's dtype rules (the card takes bf16 alone)
+            dtype = resolve_dtype(params["embed"].dtype, self.device)
+        elif self.family is kllama:
             params = kllama.load_params(ws, cfg, dtype, rope_cache_len=self.max_context,
                                         device=self.device)
-            # quantize is ignored for gpt2, as in the JAX package
+        else:
+            params = kgpt2.load_params(ws, cfg, dtype, device=self.device)
+        # quantize is ignored for gpt2, and for a checkpoint already quantized,
+        # as in the JAX package
+        if self.family is kllama and not isinstance(params["lm_head"], dict):
             if quantize == "int8":
                 params = kllama.quantize_params_int8(params)
             elif quantize == "int4":
                 params = kllama.quantize_params_int4(params)
-        else:
-            params = kgpt2.load_params(ws, cfg, dtype, device=self.device)
+
+        # per-stage host offload (ExecutionPlan, execution/plan.rs:4): the
+        # embedding table and/or the lm head in host memory, their lookup
+        # and matmul on the host (core/placement.py). Llama family only, as
+        # in the JAX package: gpt2 ties everything through wte. A quantized
+        # (dict) head stays on the device, 4x smaller already. A tied head
+        # is a view of the table: under offload_ends it stays a view of the
+        # one host copy; offload_head alone copies it to the host and the
+        # table stays on the card for the lookup.
+        self.execution_plan = plan
+        if self.family is kllama and plan != ExecutionPlan():
+            head = params["lm_head"]
+            embed_host = plan.embeddings == "host"
+            head_host = plan.lm_head == "host" and not isinstance(head, dict)
+            tied = not isinstance(head, dict) and \
+                head.untyped_storage().data_ptr() == \
+                params["embed"].untyped_storage().data_ptr()
+            params = dict(params)
+            if embed_host:
+                params["embed"] = to_host_memory(params["embed"])
+            if head_host:
+                params["lm_head"] = (params["embed"].t() if tied and embed_host
+                                     else to_host_memory(head))
+            self.config = cfg = dataclasses.replace(
+                cfg, embed_on_host=embed_host, lm_head_on_host=head_host)
         self.params = params
         self._cache_dtype = dtype
         self._cache = None  # allocated lazily, reused across generations

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from ..core.errors import GenerationError, InvalidConfigError
 from ..core.metadata import RopeScaling
+from ..core.placement import host_gather, host_matmul
 from ..ops.attention import NEG_INF, attention, merge_heads
 from ..ops.kernels.flash_attention import flash_attention
 from ..ops.kernels.int4_matvec import int4_matvec
@@ -52,6 +53,11 @@ class DecoderConfig:
     tie_word_embeddings: bool = False
     bos_token_id: Optional[int] = None
     eos_token_ids: tuple[int, ...] = ()
+    # per-stage host offload (ExecutionPlan, execution/plan.rs:4): when set,
+    # the table lives in host memory and its lookup or matmul runs there
+    # (core/placement.py)
+    embed_on_host: bool = False
+    lm_head_on_host: bool = False
 
     @staticmethod
     def from_hf(cfg: dict) -> "DecoderConfig":
@@ -330,8 +336,11 @@ def _mm(x: torch.Tensor, p: dict) -> torch.Tensor:
     return y
 
 
-def _head_mm(x: torch.Tensor, head) -> torch.Tensor:
-    return _mm(x, head) if isinstance(head, dict) else x @ head
+def _head_mm(x: torch.Tensor, head, cfg: DecoderConfig) -> torch.Tensor:
+    """lm-head projection, on the host when the plan offloads it."""
+    if isinstance(head, dict):
+        return _mm(x, head)
+    return host_matmul(x, head) if cfg.lm_head_on_host else x @ head
 
 
 # ---------------------------------------------------------------------------
@@ -448,7 +457,8 @@ def _run_stack(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
         raise GenerationError("a per-row decode position takes one token per row "
                               "and the plain attention")
     pos_start = pos_start if per_row else int(pos_start)
-    x = F.embedding(ids, params["embed"])
+    x = (host_gather(params["embed"], ids) if cfg.embed_on_host
+         else F.embedding(ids, params["embed"]))
     if per_row:     # per-row tables [B, 1, 1, D]
         cos = params["rope_cos"][pos_start][:, None, None]
         sin = params["rope_sin"][pos_start][:, None, None]
@@ -519,7 +529,7 @@ def forward(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
                    positions, pad_mask, kv_bucket)
     if last_idx is None:
         last_idx = ids.shape[1] - 1
-    logits = _head_mm(x[:, int(last_idx)], params["lm_head"])
+    logits = _head_mm(x[:, int(last_idx)], params["lm_head"], cfg)
     return logits, cache_k, cache_v
 
 
@@ -527,7 +537,7 @@ def forward_all_logits(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
                        cache_k: torch.Tensor, cache_v: torch.Tensor, pos_start: int):
     """Like forward() but returns logits at every position."""
     x = _run_stack(params, cfg, ids, cache_k, cache_v, pos_start)
-    return _head_mm(x, params["lm_head"]), cache_k, cache_v
+    return _head_mm(x, params["lm_head"], cfg), cache_k, cache_v
 
 
 def forward_hidden(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
@@ -544,4 +554,4 @@ def forward_hidden(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
 
 def head_logits(params: dict, cfg: DecoderConfig, x: torch.Tensor) -> torch.Tensor:
     """lm-head projection of gathered hidden rows."""
-    return _head_mm(x, params["lm_head"])
+    return _head_mm(x, params["lm_head"], cfg)

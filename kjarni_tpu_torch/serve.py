@@ -7,6 +7,7 @@ A dependency-free stdlib HTTP server wrapping the task objects:
   POST /v1/embed      {"text": ... | "texts": [...]}
   POST /v1/similarity {"a": ..., "b": ...}
   POST /v1/rerank     {"query": ..., "documents": [...]}
+  POST /v1/search     {"index": ..., "query": ..., "mode": ...}
   POST /v1/generate   {"prompt": ..., "max_new_tokens": ...}
   POST /v1/chat       {"message": ...} (stateful per session id)
   POST /v1/completions, /v1/chat/completions (OpenAI shape, serve_openai.py)
@@ -14,7 +15,7 @@ A dependency-free stdlib HTTP server wrapping the task objects:
 
 Models run on the CUDA card unless `device="cpu"` (`--device cpu`) is given.
 Not ported yet, and answered with an HTTP error naming the ROADMAP.md item:
-`/v1/search` (item 7) and tensor / data parallelism, `--tp` / `--dp` (item 9).
+tensor / data parallelism, `--tp` / `--dp` (item 9).
 
 Run: python -m kjarni_tpu_torch.serve --port 8000
 """
@@ -29,7 +30,6 @@ from typing import Any
 
 from . import registry
 from .core.errors import KjarniError
-from .models.decoder_lm import not_ported
 
 
 class KjarniHTTPServer(ThreadingHTTPServer):
@@ -88,6 +88,7 @@ class _Engine:
             "rerank": "minilm-l6-v2-cross-encoder",
             "generate": "qwen2.5-0.5b-instruct",
             "chat": "qwen2.5-0.5b-instruct",
+            "search": "minilm-l6-v2",
         }
         self.defaults.update(default_models or {})
         self.quiet = quiet
@@ -150,6 +151,9 @@ class _Engine:
             from .tasks.chat import Chat
             obj = Chat(model, quiet=self.quiet, tp=self.tp,
                        kv_cache=self.kv_cache, device=dev)
+        elif kind == "search":
+            from .tasks.searcher import Searcher
+            obj = Searcher(model, quiet=self.quiet, device=dev)
         else:
             raise KjarniError(f"unknown task kind '{kind}'")
         return obj
@@ -336,7 +340,12 @@ class _Engine:
                 return {"reply": chat.send(body["message"]),
                         "session": session}
         if path == "/v1/search":
-            raise not_ported("/v1/search (the Searcher task)", "queue 1, item 7")
+            s = self.get("search", model)
+            results = s.search(body["index"], body["query"],
+                               mode=body.get("mode", "hybrid"),
+                               top_k=body.get("top_k", 10))
+            return {"results": [{"score": r.score, "text": r.text,
+                                 "metadata": r.metadata} for r in results]}
         raise KjarniError(f"unknown endpoint {path}")
 
 

@@ -471,3 +471,95 @@ def test_whisper_transcribe_on_the_card_matches_the_cpu(encdec_dirs):
     assert max(margins) <= _TIE_BAND, margins
     text, _ = bf16.transcribe(audio, cfg)
     assert isinstance(text, str) and np.isfinite(max(margins))
+
+
+def test_vector_store_on_the_card_matches_numpy_f64(card):
+    """The device branch at 20,000 x 384: top-10 ids and scores against an
+    exact numpy f64 top-k (chip_smoke.topk_agrees: scores within 1e-5, ties
+    closer than that as a set), and scores that do not move when TF32 is
+    allowed for matmuls."""
+    import numpy as np
+    import chip_smoke
+    from kjarni_tpu_torch.search import vector
+    rng = np.random.default_rng(50)
+    emb = rng.standard_normal((20_000, 384)).astype(np.float32)
+    store = vector.VectorStore(emb)
+    assert store.device.type == "cuda"
+    queries = rng.standard_normal((8, 384)).astype(np.float32)
+    for q in queries:
+        res = store.search(q, 10)
+        ok, why = chip_smoke.topk_agrees([i for i, _ in res], [s for _, s in res],
+                                         chip_smoke.f64_scores(emb, q), 10)
+        assert ok, why
+    assert store._device_matrix.is_cuda
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32 = store._scores(queries[0])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert np.array_equal(tf32, store._scores(queries[0]))
+
+
+def test_offload_ends_on_the_card_holds_the_tie_band(decoder_dir):
+    """offload_ends on the card: the table and head in host memory, flash
+    prefill, and every greedy token within the 0.5-logit tie band of a
+    teacher-forced device-plan forward."""
+    import chip_smoke
+    from kjarni_tpu_torch import Generator
+    d, prompts = decoder_dir
+    dev = Generator(str(d))
+    off = Generator(str(d), execution_plan="offload_ends")
+    assert off.lm.params["embed"].device.type == "cpu" and off.lm.config.lm_head_on_host
+    req = chip_smoke._plan_request(off, prompts[3], "offload_ends", _TINY_LLAMA[
+        "num_hidden_layers"])
+    assert chip_smoke._tie_band(dev.lm, req) <= chip_smoke.SERVE_TIE_BAND
+
+
+def test_int4_checkpoint_loads_to_the_card_bit_equal(decoder_dir, tmp_path):
+    import chip_smoke
+    from kjarni_tpu_torch.models.decoder_lm import DecoderLM
+    from kjarni_tpu_torch.weights.checkpoint import convert_model
+    d, _ = decoder_dir
+    out = convert_model(d, tmp_path / "ckpt", quantize="int4")
+    got, want = DecoderLM(out), DecoderLM(d, quantize="int4")
+    assert got.params["layers"]["q"]["w4"].is_cuda
+    assert chip_smoke._same_tree(got.params, want.params)
+
+
+def test_searcher_on_the_card_matches_the_cpu(encoder_dir, tmp_path):
+    """Indexer and Searcher on the card against device="cpu": keyword
+    results equal, the query embeddings within cosine 0.999, semantic top-k
+    against numpy f64 with the card's own query vector; and an index reader
+    over a 5,000-row segment (the device branch) equal to the CPU's."""
+    import numpy as np
+    import chip_smoke
+    from kjarni_tpu_torch import Indexer, Searcher
+    from kjarni_tpu_torch.rag.index import IndexConfig, IndexReader, IndexWriter
+    d, texts = encoder_dir
+    chip_smoke.write_corpus(tmp_path / "docs", 40, seed=7, chars=1500)
+    Indexer(str(d), quiet=True).create(tmp_path / "idx", [tmp_path / "docs"])
+    emb = np.load(tmp_path / "idx" / "segment_000000" / "embeddings.npy")
+    card, cpu = Searcher(str(d), quiet=True), Searcher(str(d), device="cpu", quiet=True)
+    for q in texts[:4]:
+        kw = [(r.document_id, r.score) for r in card.search(tmp_path / "idx", q, "keyword")]
+        assert kw == [(r.document_id, r.score) for r in cpu.search(tmp_path / "idx", q,
+                                                                    "keyword")]
+        qe, qc = card.embedder.embed(q), cpu.embedder.embed(q)
+        assert float(qe @ qc / np.linalg.norm(qe) / np.linalg.norm(qc)) >= 0.999
+        sem = card.search(tmp_path / "idx", q, "semantic")
+        ok, why = chip_smoke.topk_agrees([r.document_id for r in sem], [r.score for r in sem],
+                                         chip_smoke.f64_scores(emb, qe), 10)
+        assert ok, why
+    rng = np.random.default_rng(51)
+    vecs = rng.standard_normal((5000, 128)).astype(np.float32)
+    w = IndexWriter.open(tmp_path / "big", IndexConfig())
+    w.add_batch([f"w{i}" for i in range(5000)], vecs, [{} for _ in range(5000)])
+    w.commit()
+    on_card, on_cpu = IndexReader.open(tmp_path / "big"), IndexReader.open(tmp_path / "big",
+                                                                           "cpu")
+    for q in rng.standard_normal((4, 128)).astype(np.float32):
+        a, b = on_card.search_semantic(q, 10), on_cpu.search_semantic(q, 10)
+        assert [r.document_id for r in a] == [r.document_id for r in b]
+        assert max(abs(x.score - y.score) for x, y in zip(a, b)) <= 1e-5
+    assert on_card.segments[0].store._device_matrix.is_cuda

@@ -103,14 +103,18 @@ def test_no_card_and_no_cpu_request_raises(llama_dir):
 
 @pytest.mark.parametrize("kw", [dict(tp=2), dict(execution_plan="balanced")])
 def test_options_outside_the_slice_raise(llama_dir, kw):
-    with pytest.raises(InvalidConfigError, match="ROADMAP.md"):
+    # tp is not ported yet; execution plans are, and "balanced" is none of them
+    match = "ROADMAP.md" if "tp" in kw else "unknown execution plan 'balanced'"
+    with pytest.raises(InvalidConfigError, match=match):
         Generator(str(llama_dir), device="cpu", **kw)
 
 
 def test_native_checkpoint_dir_raises(tmp_path):
+    """A kjarni_ckpt dir the port did not write (the JAX package's Orbax
+    format) raises, naming the port's converter."""
     (tmp_path / "config.json").write_text("{}")
     (tmp_path / "kjarni_ckpt").mkdir()
-    with pytest.raises(InvalidConfigError, match="native checkpoint.*ROADMAP.md"):
+    with pytest.raises(InvalidConfigError, match="native checkpoint.*convert_model"):
         Generator(str(tmp_path), device="cpu")
 
 

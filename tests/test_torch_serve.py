@@ -8,8 +8,8 @@ answer is compared: health, models, classify, embed, similarity, rerank
 (scores within 1e-5), generate (single, batch and under the continuous
 scheduler: texts equal), chat sessions, both OpenAI routes (texts, finish
 reasons and usage equal) and their SSE streams, batch_stats, and the error
-codes. The port refuses /v1/search and tp > 1 with an HTTP 400 naming the
-ROADMAP.md item. A request whose device work outlives the watchdog's deadline
+codes. The port refuses tp > 1 with an HTTP 400 naming the ROADMAP.md item
+(/v1/search is held in tests/test_torch_search_tasks.py). A request whose device work outlives the watchdog's deadline
 answers 503.
 """
 
@@ -255,8 +255,6 @@ def test_error_codes_equal_jax(servers, path, body, code):
 def test_refusals_name_the_roadmap_item(dirs):
     srv, base, _ = _start(tserve, dirs, device="cpu", tp=2)
     try:
-        code, out = post(base, "/v1/search", {"index": "x", "query": "y"})
-        assert code == 400 and "ROADMAP.md, queue 1, item 7" in out["error"]
         code, out = post(base, "/v1/generate", GEN)
         assert code == 400 and "ROADMAP.md, queue 1, item 9" in out["error"]
     finally:
