@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive kjarni_tpu_torch's generation, encoder-decoder, embed and search
-paths and the decoder's infrastructure on one CUDA card and check them.
+paths, the decoder's infrastructure, f32 on the card and the user surfaces
+(the CLI, the C ABI) on one CUDA card and check them.
 
     python3 chip_smoke.py [--phases env,kernels,bf16,int4,int8,batch,chat,gpt2,serve,
-                                    infra,seq2seq,whisper,embed,search]
+                                    infra,f32,surfaces,seq2seq,whisper,embed,search]
                           [--root DIR]
 
 --root DIR imports kjarni_tpu_torch from another checkout (an older commit,
@@ -12,7 +13,9 @@ say) instead of this one, to time its kernels on these same cases.
 Phases, in order (all by default); any failure raises and exits non-zero:
 
 1. env: torch/CUDA versions, the card's name and power limit, which optional
-   packages import, and the build of every kernel from kjarni_tpu_torch/csrc.
+   packages import, python3-config, Python.h, g++ and gcc (the C ABI embeds
+   CPython; missing, the phase fails), and the build of every kernel from
+   kjarni_tpu_torch/csrc.
 2. kernels: each hand-written kernel against its plain PyTorch version on the
    card, in bf16, at the generation path's shapes (flash: Llama-1B prefill at
    1024 and 512, Phi-3.5-mini's D = 96 prefill, the follow-up request's
@@ -36,8 +39,17 @@ Phases, in order (all by default); any failure raises and exits non-zero:
    plain version first) for int4. The cache-reuse lines also time the
    materialized attention that _run_stack runs where flash is not taken
    (materialized_ms). At M = 1 the int4 line also has gemm_ms: the prefill
-   GEMM on the same input, beside the GEMV that decode takes. `--phases
-   env,flash` runs the flash cases alone.
+   GEMM on the same input, beside the GEMV that decode takes. Then f32: the
+   f32 flash kernel at the Llama-1B prefill, the follow-up's cache reuse,
+   Phi-3.5-mini's D = 96, a window of 64 and D = 128 and 32, each within
+   1e-5 of the plain output's largest magnitude, bit-identical on a repeat,
+   a call dropping the last key outside that bound, SDPA on the same f32
+   tensors as the yardstick (its backend named), the bound from the f32
+   bytes and the 66.9 TFLOP/s f32 FFMA rate; and int4 with f32 activations
+   at M = 1 (every projection and the head), 8 and 1024: f32 output, held to
+   the plain version with x rounded to bf16 (x_as_bf16) by the int4 check,
+   bit-identical on a repeat. `--phases env,flash` runs the flash cases
+   alone, bf16 and f32.
 3. bf16: Generator over a Llama-3.2-1B-shaped checkpoint (full width, 16
    layers, random bf16 weights from a seeded generator on the card) answers
    three requests: a greedy generate on a ~700-token prompt (flash prefill), a
@@ -210,18 +222,52 @@ Phases, in order (all by default); any failure raises and exits non-zero:
    the card's kernels; device_memory_report names the card. `--phases
    env,infra`.
 
-After each of phases 3-14 a line gives its own launches (the counts are set
+15. f32 (run after phase 14, over its weights): Generator(dtype="f32") at
+   full width (the bf16 weights loaded as f32, ~4.9 GB), plain and under
+   quantize="int4": the first prefill's logits against the same forward on
+   the plain versions (within F32_LOGITS_REL of the largest logit; under
+   int4, whose kernel rounds x to bf16, no further from the plain f32 forward
+   than twice the plain forward with x rounded to bf16 is), the 701-token
+   request with 32 new tokens and a 32-token stream,
+   each prefill 16 f32 flash launches and no bf16 one, 113 int4 launches per
+   forward under int4; prefill ms, time to first token, decode tok/s and peak
+   memory beside phase 3's bf16. Then the first 2 layers (a 2-layer dir of
+   the same seeded weights, checked) in f32 on the card and on the CPU: 32
+   greedy ids equal, or parting only where the CPU's top-2 logits lie within
+   1e-4 (the gap reported). `--phases env,kernels,f32,surfaces`.
+16. surfaces (over the same weights): the port's CLI in this process
+   (kjarni_tpu_torch.cli.main.main) in a cwd whose kjarni.toml sets
+   quantize = "int4" for the dir: generate --format json on the 701-token
+   prompt (16 flash and 113 int4 launches; the text equals Generator's with
+   the same options, which is empty: the CLI has no --max-length and the
+   default max_length of 100 counts the prompt, as in the JAX CLI) and on a
+   60-token prompt (32 tokens, int4 launches, the text equals Generator's);
+   `python -m kjarni_tpu_torch embed` as a real subprocess on a MiniLM dir
+   (within 1e-6 of the in-process Embedder); the port's libkjarni.so built
+   by kjarni_tpu_torch/ffi/build.py from the checkout and driven through
+   ctypes in this process (kjarni_init finds this interpreter): a generator
+   with quantize int4, one kjarni_call and then one pull stream on the
+   701-token prompt with max_length 4096 (both kernels launch; both texts
+   equal a Generator's making the same two calls); the port's compiled C
+   host as a subprocess on MiniLM,
+   DistilBERT-SST-2 and a small llama dir with device cuda. Seconds of each
+   step, and each surface's seconds beyond the Python API's for the same step
+   (overhead_s; the CLI's include its model load).
+
+After each of phases 3-16 a line gives its own launches (the counts are set
 to 0 just before it and read just after; 10 and 11 must launch no int4, 12
 and 13 nothing). At
 the end come three lines: a JSON object {"kernels": [...]} (per kernel the
-launches of phases 3-14,
+launches of phases 3-16,
 max_abs_err over its cases, and ms / plain_ms / bound_ms / library_ms -- for
-flash one launch at the Llama-1B prefill shape, for int4 the 113 launches of
-one decoded token; also printed before it: the 7 launches of one layer at
+flash and f32 flash one launch at the Llama-1B prefill shape, for int4 the
+113 launches of one decoded token, with its f32-output max_abs_err and
+time beside; also printed before it: the 7 launches of one layer at
 each M), then
 "total <seconds>", then the card's name and power limit as nvidia-smi gives
-them. bound_ms is the larger of the bytes moved over 3.35 TB/s and the bf16
-operations over 989 TFLOP/s (H100 SXM data sheet). The last line is
+them. bound_ms is the larger of the bytes moved over 3.35 TB/s and the
+operations over their peak: 989 TFLOP/s bf16 on the tensor cores, 66.9
+TFLOP/s f32 FFMA for the f32 kernel (H100 SXM data sheet). The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -244,6 +290,8 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+# f32 outside the tensor cores: 132 SMs x 128 FFMA x 2 x 1.98 GHz (H100 SXM)
+F32_FLOP_PER_S = 66.9e12
 ROOT = Path(__file__).resolve().parent
 
 # Llama-3.2-1B's public config.json values
@@ -260,7 +308,8 @@ LLAMA_1B = {
 INT4_PER_FORWARD = 7 * LLAMA_1B["num_hidden_layers"] + 1
 # the phases over the Llama-3.2-1B-width weights (3-9 and 14), between the
 # launch counts' reset and their reading
-GENERATION = ("bf16", "int4", "int8", "batch", "chat", "gpt2", "serve", "infra")
+GENERATION = ("bf16", "int4", "int8", "batch", "chat", "gpt2", "serve", "infra", "f32",
+              "surfaces")
 # the encoder-decoder phases (10 and 11), also on the main path
 ENC_DEC = ("seq2seq", "whisper")
 FLASH_PER_PREFILL = LLAMA_1B["num_hidden_layers"]
@@ -354,10 +403,12 @@ def host_ms(fn, iters: int = 20) -> float:
     return 1e3 * (time.perf_counter() - t0) / iters
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             flop_rate: float = BF16_FLOP_PER_S) -> tuple[float, str]:
     """The least time the card could take, and what sets it: the bytes moved
-    over the memory rate or the bf16 operations over the tensor-core rate."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    over the memory rate or the operations over their peak rate (bf16 on the
+    tensor cores unless `flop_rate` says otherwise)."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
@@ -374,6 +425,16 @@ def phase_env() -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0])
+    # the C ABI embeds CPython: g++, python3-config and Python.h must be there
+    from kjarni_tpu_torch.ffi import build as ffi_build
+    import shutil
+    inc, _ = ffi_build.embed_flags()
+    header = next((Path(f[2:]) / "Python.h" for f in inc
+                   if (Path(f[2:]) / "Python.h").exists()), None)
+    print(f"python-config {ffi_build.python_config()} Python.h {header} "
+          f"g++ {shutil.which('g++')} gcc {shutil.which('gcc')}")
+    check(header is not None and shutil.which("g++") and shutil.which("gcc"),
+          "python3-config, Python.h, g++ and gcc for the C ABI")
     for mod in ("tokenizers", "regex", "ml_dtypes", "safetensors", "triton"):
         try:
             importlib.import_module(mod)
@@ -390,7 +451,7 @@ def phase_env() -> None:
         entry = ""
         for line in log.read_text().splitlines():
             if "Compiling entry function" in line:   # the kernel and its template values
-                m = re.search(r"\d((?:flash|int4)_[a-z_]+_kernel)(?:I(.*?)EEv)?", line)
+                m = re.search(r"\d((?:flash|int4)_[a-z0-9_]+_kernel)(?:I(.*?)EEv)?", line)
                 entry = (m.group(1) + (f"<{','.join(re.findall(r'L[ib](\d+)', m.group(2)))}>"
                                        if m.group(2) else "")
                          if m else line.split("'")[1][:60])
@@ -432,13 +493,15 @@ def _device_kernel(fn) -> str:
 
 def flash_case(name, B, H, Hkv, S, T, D, causal=True, window=None, q_offset=0,
                kv_len=None, poison=False, seed=0, cache_len=None, ref_tol=None,
-               controls=None) -> dict:
+               controls=None, f32=False) -> dict:
     """One flash case against the plain version, within 3e-2 or, given
-    ref_tol, within ref_tol * max|plain output|. cache_len: K/V are the
-    first T slots of a [B, Hkv, cache_len, D] cache, and the line also times
-    the materialized attention of _run_stack over the whole cache. controls:
-    name -> keyword overrides of a wrong kernel call, each of which must
-    fall outside the bound."""
+    ref_tol, within ref_tol * max|plain output|; two calls must give
+    bit-identical outputs. cache_len: K/V are the first T slots of a
+    [B, Hkv, cache_len, D] cache, and the line also times the materialized
+    attention of _run_stack over the whole cache. controls: name -> keyword
+    overrides of a wrong kernel call, each of which must fall outside the
+    bound. f32: f32 inputs (the f32 kernel; its bound counts 4-byte elements
+    and the f32 FFMA rate), else bf16."""
     import torch
     import torch.nn.functional as F
     from kjarni_tpu_torch.ops.kernels import flash_attention as fa
@@ -448,33 +511,41 @@ def flash_case(name, B, H, Hkv, S, T, D, causal=True, window=None, q_offset=0,
         print(json.dumps({"case": f"flash {name}", "skipped":
                           f"this checkout's kernel takes D in {fa.HEAD_DIMS}"}))
         return None
+    if f32 and not hasattr(flash_attention, "launches_f32"):
+        print(json.dumps({"case": f"flash {name}", "skipped":
+                          "this checkout's kernel takes bf16 only"}))
+        return None
     g = torch.Generator(device="cuda").manual_seed(seed)
-    dev, bf = "cuda", torch.bfloat16
+    dev, bf = "cuda", (torch.float32 if f32 else torch.bfloat16)
+    counter = "launches_f32" if f32 else "launches"
     q = torch.randn(B, H, S, D, generator=g, device=dev).to(bf)
     kc = torch.randn(B, Hkv, cache_len or T, D, generator=g, device=dev).to(bf)
     vc = torch.randn(B, Hkv, cache_len or T, D, generator=g, device=dev).to(bf)
     k, v = kc[:, :, :T], vc[:, :, :T]
     kv = T if kv_len is None else kv_len
     kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
-    launches0 = flash_attention.launches
+    launches0 = getattr(flash_attention, counter)
     ref = flash_attention_plain(q, k, v, **kw)
     if poison:   # garbage past kv_len must not change the output
         k[:, :, kv:] = 1e3
         v[:, :, kv:] = -1e3
     out = flash_attention(q, k, v, **kw)
+    again = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out).all()), f"flash {name}: finite output")
+    check(out.dtype == bf, f"flash {name}: output dtype {out.dtype}")
+    check(torch.equal(out, again), f"flash {name}: two calls give bit-identical outputs")
     err = (out.float() - ref.float()).abs().max().item()
     tol = 3e-2 if ref_tol is None else ref_tol * ref.float().abs().max().item()
     check(err <= tol, f"flash {name}: max_abs_err {err} <= {tol}")
-    launches = flash_attention.launches - launches0
+    launches = getattr(flash_attention, counter) - launches0
     control_errs = {}
     for control, over in (controls or {}).items():
         bad = flash_attention(q, k, v, **{**kw, **over})
         control_errs[control] = (bad.float() - ref.float()).abs().max().item()
         check(control_errs[control] > tol, f"flash {name}: control {control} reads "
                                            f"{control_errs[control]}, outside {tol}")
-    flash_attention.launches = launches0 + launches
+    setattr(flash_attention, counter, launches0 + launches)
     kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, **kw))
     eager_ms = host_ms(lambda: flash_attention(q, k, v, **kw))
     plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), iters=5)
@@ -507,10 +578,10 @@ def flash_case(name, B, H, Hkv, S, T, D, causal=True, window=None, q_offset=0,
     library_ms = cuda_ms(sdpa)
     library_kernel = _device_kernel(sdpa)
     pairs = _attended_pairs(S, T, causal, window, q_offset, kv)
-    nbytes = 2 * (2 * B * H * S * D + 2 * B * Hkv * min(kv, T) * D)
+    nbytes = q.element_size() * (2 * B * H * S * D + 2 * B * Hkv * min(kv, T) * D)
     flops = 4 * D * pairs * B * H
-    bound, bound_by = bound_ms(nbytes, flops)
-    row = {"case": f"flash {name}", "launches": flash_attention.launches - launches0,
+    bound, bound_by = bound_ms(nbytes, flops, F32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
+    row = {"case": f"flash {name}", "launches": getattr(flash_attention, counter) - launches0,
            "max_abs_err": err, "bound": tol, "kernel_ms": kernel_ms,
            "eager_ms": eager_ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "library_kernel": library_kernel, "bound_ms": bound, "bound_by": bound_by}
@@ -565,38 +636,72 @@ def _tinygemm_weights(w4, scale):
     return wp, sz, K // G
 
 
-def int4_case(name, M, K, N, seed=0) -> dict:
+# int4 with f32 activations against the plain version in its form
+# (x_as_bf16): both round x to bf16 and sum f32 products in f32, so they
+# differ only in the order of their sums. Held to this share of the plain
+# output's largest magnitude; the same output stored through bf16 (the round
+# trip the f32 output exists to avoid, ~0.4% of a value) must fall outside.
+INT4_F32_REF_TOL = 1e-5
+
+
+def _int4_f32_close(tag, out, ref) -> dict:
+    """The f32-output int4 check: within INT4_F32_REF_TOL of the largest
+    plain output, and the planted control (out rounded through bf16) not."""
+    import torch
+    tol = INT4_F32_REF_TOL * ref.abs().max().item()
+    err = (out - ref).abs().max().item()
+    control = (out.to(torch.bfloat16).float() - ref).abs().max().item()
+    check(out.dtype == torch.float32 and err <= tol,
+          f"{tag}: {out.dtype} output within {tol} of the plain version (max_abs_err {err})")
+    check(control > tol, f"{tag}: the output stored through bf16 falls outside {tol} "
+                         f"(control error {control})")
+    return {"max_abs_err": err, "tol": tol, "bf16_store_control_err": control}
+
+
+def int4_case(name, M, K, N, seed=0, f32=False) -> dict:
+    """One int4 case against the plain version, bit-identical on a repeat,
+    timed beside its bound and tinygemm. f32: f32 activations, which the
+    kernel rounds to bf16 before writing f32, held to the plain version in
+    that form (x_as_bf16) by _int4_f32_close; no GEMM beside the GEMV, and no
+    library time (tinygemm takes bf16 x alone)."""
+    import functools
     import torch
     from kjarni_tpu_torch.ops.kernels import int4_matvec as i4
     from kjarni_tpu_torch.ops.kernels.int4_matvec import int4_matvec, int4_matvec_plain
+    tag = f"int4 f32 {name}" if f32 else f"int4 {name}"
     G = K // 128
     w4, scale = _int4_weights(K, N, G, seed)
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
-    x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+    x = torch.randn(M, K, generator=g, device="cuda")
+    if not f32:
+        x = x.to(torch.bfloat16)
     launches0 = int4_matvec.launches
     # the plain version on the same bf16 inputs, evaluated in f32: in bf16 it
     # rounds each half's product before adding the two, up to a bf16 ulp of
     # the halves, which atol 2e-2 does not cover at K = 8192
-    ref = int4_matvec_plain(x.float(), w4, scale)
+    plain = functools.partial(int4_matvec_plain, x_as_bf16=True) if f32 else int4_matvec_plain
+    ref = plain(x, w4, scale) if f32 else int4_matvec_plain(x.float(), w4, scale)
     out = int4_matvec(x, w4, scale)
     again = int4_matvec(x, w4, scale)
     torch.cuda.synchronize()
-    err, cos = _close_to_plain(f"int4 {name}", out, ref)
-    check(torch.equal(out, again), f"int4 {name}: two calls give bit-identical outputs")
+    check(out.dtype == x.dtype, f"{tag}: output dtype {out.dtype}")
+    err, cos = _close_to_plain(tag, out, ref)
+    tight = _int4_f32_close(tag, out, ref) if f32 else {}
+    check(torch.equal(out, again), f"{tag}: two calls give bit-identical outputs")
     launches = int4_matvec.launches - launches0
     # at M = 1, the GEMM beside the GEMV that the plan picks (not in an older
     # checkout, whose wrapper has no gemm_plan)
     gemm = None
-    if M == 1 and hasattr(i4, "gemm_plan"):
+    if M == 1 and hasattr(i4, "gemm_plan") and not f32:
         plan = i4.gemm_plan(M, K, N)
 
         def gemm(a, w, s):
             return i4._launch(a, w, s, plan)
         _close_to_plain(f"int4 {name} gemm", gemm(x, w4, scale), ref)
     # the library yardstick, checked like the kernel before it is timed
-    tg = _tinygemm_weights(w4, scale)
+    tg = "tinygemm takes bf16 x" if f32 else _tinygemm_weights(w4, scale)
     if isinstance(tg, str):
-        print(f"int4 {name}: library_ms null: {tg}")
+        print(f"{tag}: library_ms null: {tg}")
     else:
         lib = torch._weight_int4pack_mm(x, tg[0], tg[2], tg[1])
         torch.cuda.synchronize()
@@ -604,7 +709,7 @@ def int4_case(name, M, K, N, seed=0) -> dict:
     # decode and short prefills find their weights cold: cycle through copies
     # filling > 2x L2; M = 1024 is bound by its operations and cycles through two
     wbytes = w4.numel() + scale.numel() * 4
-    nbytes = M * K * 2 + wbytes + M * N * 2
+    nbytes = (M * K + M * N) * x.element_size() + wbytes
     copies = max(1, min(64, math.ceil(100e6 / wbytes))) if M <= 128 else 2
     ws = [(w4.clone(), scale.clone()) for _ in range(copies)]
     it = [0]
@@ -619,7 +724,7 @@ def int4_case(name, M, K, N, seed=0) -> dict:
     iters = max(20, copies)
     kernel_ms = cuda_ms(cycle(int4_matvec, ws), iters=iters)
     eager_ms = host_ms(cycle(int4_matvec, ws), iters=iters)
-    plain_ms = cuda_ms(cycle(int4_matvec_plain, ws), iters=10)
+    plain_ms = cuda_ms(cycle(plain, ws), iters=10)
     gemm_ms = None if gemm is None else cuda_ms(cycle(gemm, ws), iters=iters)
     library_ms = None
     if not isinstance(tg, str):
@@ -630,11 +735,14 @@ def int4_case(name, M, K, N, seed=0) -> dict:
                                    libs), iters=iters)
         del libs
     bound, bound_by = bound_ms(nbytes, 2 * M * K * N)
-    row = {"case": f"int4 {name}", "launches": launches,
+    row = {"case": tag, "launches": launches,
            "max_abs_err": err, "cosine": cos,
            "kernel_ms": kernel_ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by,
            "tb_per_s": 1e-9 * nbytes / kernel_ms}
+    if tight:
+        row["f32_tol"] = tight["tol"]
+        row["bf16_store_control_err"] = tight["bf16_store_control_err"]
     if gemm_ms is not None:
         row["gemm_ms"] = gemm_ms
     print(json.dumps(row))
@@ -688,8 +796,70 @@ def phase_flash() -> list:
     return [r for r in flash if r is not None]
 
 
+FLASH_F32_REF_TOL = 1e-5     # of the plain output's largest magnitude
+
+
+def flash_f32_case(name, B, H, Hkv, S, T, D, **kw) -> dict:
+    """flash_case in f32, held to FLASH_F32_REF_TOL of the largest plain
+    output; a call that drops the last key it attends must fall outside."""
+    kv = kw.get("kv_len") or T
+    return flash_case(f"f32 {name}", B, H, Hkv, S, T, D, f32=True,
+                      ref_tol=FLASH_F32_REF_TOL,
+                      controls={"last key dropped": {"kv_len": kv - 1}}, **kw)
+
+
+def phase_flash_f32() -> list:
+    """The f32 kernel at the f32 generation path's shapes: the Llama-1B
+    prefill and the follow-up's cache reuse, Phi-3.5-mini's D = 96, a window,
+    and the other two head dims."""
+    B, H, Hkv, D = 1, 32, 8, 64
+    flash = [
+        flash_f32_case("llama1b-prefill S=T=1024", B, H, Hkv, 1024, 1024, D, seed=20),
+        flash_f32_case("llama1b-reuse S=1024 q_offset=765 kv_len=1789 T=1792", B, H, Hkv,
+                       1024, 1792, D, q_offset=765, kv_len=1789, poison=True, seed=21,
+                       cache_len=4096),
+        flash_f32_case("phi3.5-mini-prefill S=T=1024 D=96", B, 32, 32, 1024, 1024, 96,
+                       seed=22),
+        flash_f32_case("window=64", 1, 8, 2, 512, 512, D, window=64, seed=23),
+        flash_f32_case("D=128 gqa", 1, 16, 4, 512, 512, 128, seed=24),
+        flash_f32_case("D=32 gqa", 2, 8, 2, 256, 256, 32, seed=25),
+    ]
+    return [r for r in flash if r is not None]
+
+
+def phase_int4_f32(shapes: dict, per_token: dict) -> dict:
+    """int4_case with f32 activations at M = 1 (every projection and the
+    head: one decoded token's 113 launches in f32), M = 8 and M = 1024 (the
+    layer's four projection shapes)."""
+    layer = [n for n in shapes if n != "lm_head 2048x128256"]
+    rows = {f"M=1 {n}": int4_case(f"M=1 {n}", 1, *shapes[n], seed=40 + i, f32=True)
+            for i, n in enumerate(shapes)}
+    for M in (8, 1024):
+        rows.update({f"M={M} {n}": int4_case(f"M={M} {n}", M, *shapes[n], seed=50 + i,
+                                             f32=True)
+                     for i, n in enumerate(layer)})
+    tok = {key: sum(per_token[n] * rows[f"M=1 {n}"][key] for n in shapes)
+           for key in ("kernel_ms", "plain_ms", "bound_ms")}
+    tok.update(_x_cast_cost(shapes, per_token))
+    print(json.dumps({"case": "int4 f32 one decoded token (113 launches)", **tok}))
+    return {"rows": list(rows.values()), "token": tok}
+
+
+def _x_cast_cost(shapes: dict, per_token: dict) -> dict:
+    """What the wrapper's separate rounding of an f32 x to bf16 costs one
+    decoded token (one cast launch before each of its 113 int4 launches): the
+    casts' device ms (graph-timed) and their eager ms on the host."""
+    import torch
+    xs = {n: torch.randn(1, K, device="cuda") for n, (K, _) in shapes.items()}
+    dev = sum(per_token[n] * cuda_ms(lambda x=x: x.to(torch.bfloat16)) for n, x in xs.items())
+    eager = sum(per_token[n] * host_ms(lambda x=x: x.to(torch.bfloat16), iters=200)
+                for n, x in xs.items())
+    return {"x_cast_ms": dev, "x_cast_eager_ms": eager}
+
+
 def phase_kernels() -> dict:
     flash = phase_flash()
+    flash_f32 = phase_flash_f32()
     shapes = {"q/o 2048x2048": (2048, 2048), "k/v 2048x512": (2048, 512),
               "gate/up 2048x8192": (2048, 8192), "down 8192x2048": (8192, 2048),
               "lm_head 2048x128256": (2048, 128256)}
@@ -731,7 +901,8 @@ def phase_kernels() -> dict:
         total(rows, per_layer, f"int4 one layer at M = {M} (7 launches)")
     total({**prefill[8], "lm_head 2048x128256": head8}, per_token,
           "int4 one batched decode step of 8 rows (113 launches)")
-    return {"flash": flash,
+    int4_f32 = phase_int4_f32(shapes, per_token)
+    return {"flash": flash, "flash_f32": flash_f32, "int4_f32": int4_f32,
             "int4": list(int4.values()) + [head8] + [r for rows in prefill.values()
                                                      for r in rows.values()],
             "int4_token": tok}
@@ -838,15 +1009,20 @@ def f32_params(p: dict) -> dict:
 
 
 @contextlib.contextmanager
-def plain_kernels():
+def plain_kernels(x_as_bf16: bool = False):
     """Within the block the llama forward runs both kernels' plain versions
-    (for f32 forwards, and as the reference the kernels are held to)."""
+    (for f32 forwards, and as the reference the kernels are held to).
+    x_as_bf16: int4's plain version in the kernel's form for f32 x (x rounded
+    to bf16, f32 out), the reference of f32 on the card."""
+    import functools
     from kjarni_tpu_torch.models import llama as kllama
     from kjarni_tpu_torch.ops.kernels import flash_attention as fa
     from kjarni_tpu_torch.ops.kernels import int4_matvec as i4
     saved = kllama.flash_attention, kllama.int4_matvec
-    kllama.flash_attention, kllama.int4_matvec = (fa.flash_attention_plain,
-                                                  i4.int4_matvec_plain)
+    kllama.flash_attention, kllama.int4_matvec = (
+        fa.flash_attention_plain,
+        functools.partial(i4.int4_matvec_plain, x_as_bf16=True) if x_as_bf16
+        else i4.int4_matvec_plain)
     try:
         yield
     finally:
@@ -1060,16 +1236,17 @@ def run_slice(model_dir: Path, quantize) -> dict:
 def _counted(name: str, fn, *args):
     """Run one main-path phase with the launch counts set to 0 just before
     it and read just after; print them and add them to the counts so far."""
-    before = _counts()
-    _restore((0, 0))
+    before = _all_counts()
+    _restore((0, 0, 0))
     t0 = time.perf_counter()
     try:
         return fn(*args)
     finally:
-        got = _counts()
-        _restore((before[0] + got[0], before[1] + got[1]))
+        got = _all_counts()
+        _restore(tuple(b + g for b, g in zip(before, got)))
         print(json.dumps({"phase": name, "seconds": time.perf_counter() - t0,
-                          "flash_launches": got[0], "int4_launches": got[1]}))
+                          "flash_launches": got[0], "int4_launches": got[1],
+                          "flash_f32_launches": got[2]}))
 
 
 def phase_slices(phases) -> None:
@@ -1102,21 +1279,35 @@ def phase_slices(phases) -> None:
                   f"the serve phase launched both kernels (flash, int4: {serve_n})")
         if "infra" in phases:
             _counted("infra", phase_infra, d, Path(tmp))
+        if "f32" in phases:
+            _counted("f32", phase_f32, d, Path(tmp), ran)
+        if "surfaces" in phases:
+            _counted("surfaces", phase_surfaces, d, Path(tmp))
 
 
 def _counts() -> tuple[int, int]:
-    """(flash, int4) launches so far."""
+    """(flash, int4) launches so far: the bf16 flash kernel's and int4's."""
     from kjarni_tpu_torch.ops.kernels.flash_attention import flash_attention
     from kjarni_tpu_torch.ops.kernels.int4_matvec import int4_matvec
     return flash_attention.launches, int4_matvec.launches
 
 
-def _restore(counts: tuple[int, int]) -> None:
+def _all_counts() -> tuple[int, int, int]:
+    """(flash, int4, f32 flash) launches so far (an older checkout has no
+    f32 kernel: 0)."""
+    from kjarni_tpu_torch.ops.kernels.flash_attention import flash_attention
+    return (*_counts(), getattr(flash_attention, "launches_f32", 0))
+
+
+def _restore(counts: tuple) -> None:
     """Put the launch counts back: launches made to compare or to build a
-    reference are not the main path's."""
+    reference are not the main path's. A 3-tuple (_all_counts) puts back the
+    f32 kernel's count too."""
     from kjarni_tpu_torch.ops.kernels.flash_attention import flash_attention
     from kjarni_tpu_torch.ops.kernels.int4_matvec import int4_matvec
-    flash_attention.launches, int4_matvec.launches = counts
+    flash_attention.launches, int4_matvec.launches = counts[:2]
+    if len(counts) > 2 and hasattr(flash_attention, "launches_f32"):
+        flash_attention.launches_f32 = counts[2]
 
 
 def _common_prefix(a: list, b: list) -> int:
@@ -3539,7 +3730,6 @@ SEARCH_TOP_K = 10
 # TF32 inputs move a score ~2e-5)
 SEARCH_TIE = 1e-5
 STORE_ROWS, STORE_DIM = 1_000_000, 384
-F32_FLOP_PER_S = 67e12                  # H100 SXM, f32 outside the tensor cores
 SEARCH_FAULTS = ("stale_device_matrix_after_add", "global_ids_not_offset",
                  "tf32_scoring")
 
@@ -4137,6 +4327,473 @@ def phase_infra(d: Path, tmp: Path) -> dict:
     return row
 
 
+
+# ---------------------------------------------------------------------------
+# phase 15: f32 on the card
+# ---------------------------------------------------------------------------
+
+F32_NEW_TOKENS = 32
+F32_TIE = 1e-4          # a card / CPU greedy parting is allowed only below this top-2 gap
+# the first prefill's f32 logits (no int4) against the plain versions: only
+# the order of the sums differs (f32 flash, cuBLAS), as a share of the
+# largest logit
+F32_LOGITS_REL = 1e-4
+
+
+def _int4_teacher_forced(lm, ids: list, tag: str) -> dict:
+    """Each int4 launch of a full-depth f32 prefill, held on its own input,
+    and the cause of the forward's end-to-end drift.
+
+    The plain forward in the kernels' form (plain_kernels(x_as_bf16=True))
+    first keeps every int4 input rounded to bf16. The kernels' forward then
+    holds each int4 launch, on the x it was given, to the plain version in
+    that form with _int4_f32_close (INT4_F32_REF_TOL, and the bf16-store
+    control outside it), and counts the elements whose bf16 rounding differs
+    from the plain forward's at the same call: none at the first call (the
+    same embedding and norm), then more with depth, as the f32 sums' order
+    differs upstream."""
+    import torch
+    from kjarni_tpu_torch.models import llama as kllama
+    from kjarni_tpu_torch.ops.kernels import int4_matvec as i4
+    kernel = kllama.int4_matvec
+    kept, calls = [], []
+
+    def keep(x, w4, scale):
+        kept.append(x.to(torch.bfloat16))
+        return i4.int4_matvec_plain(x, w4, scale, x_as_bf16=True)
+
+    def held(x, w4, scale):
+        out = kernel(x, w4, scale)
+        ref = i4.int4_matvec_plain(x, w4, scale, x_as_bf16=True)
+        i = len(calls)
+        row = _int4_f32_close(f"{tag} teacher-forced int4 call {i}", out, ref)
+        xb = x.to(torch.bfloat16)
+        row["flips"] = int((xb != kept[i]).sum().item()) if i < len(kept) and \
+            kept[i].shape == xb.shape else None
+        row["elements"] = xb.numel()
+        calls.append(row)
+        return out
+
+    with plain_kernels(x_as_bf16=True):
+        kllama.int4_matvec = keep
+        prefill_logits(lm, ids)
+    counts = _all_counts()
+    kllama.int4_matvec = held
+    try:
+        prefill_logits(lm, ids)
+    finally:
+        kllama.int4_matvec = kernel
+        _restore(counts)
+    check(len(calls) == len(kept) == INT4_PER_FORWARD,
+          f"{tag} teacher-forced: {len(calls)} int4 calls, {len(kept)} kept, "
+          f"expected {INT4_PER_FORWARD}")
+    check(calls[0]["flips"] == 0, f"{tag} teacher-forced: the first int4 input rounds "
+                                  f"alike in both forwards ({calls[0]['flips']} flips)")
+    per = INT4_PER_FORWARD // LLAMA_1B["num_hidden_layers"]
+    flips = [sum(c["flips"] for c in calls[i:i + per]) / sum(c["elements"]
+                                                              for c in calls[i:i + per])
+             for i in range(0, per * LLAMA_1B["num_hidden_layers"], per)]
+    out = {"teacher_forced_calls": len(calls),
+           "teacher_forced_err_over_tol": max(c["max_abs_err"] / c["tol"] for c in calls),
+           "teacher_forced_control_over_tol": min(c["bf16_store_control_err"] / c["tol"]
+                                                  for c in calls),
+           "x_bf16_flip_share_by_layer": flips}
+    print(json.dumps({"case": f"{tag} int4 teacher-forced", **out}))
+    del kept
+    return out
+
+
+def _f32_logits_vs_plain(lm, text: str, tag: str) -> dict:
+    """The first prefill's f32 logits through the kernels against the same
+    forward on the plain versions, and prefill ms as the median of 5.
+
+    Without int4 both are f32 throughout and differ only in the order of
+    their sums: within F32_LOGITS_REL of the largest logit. Under int4 the
+    kernel rounds each x to bf16, as the Pallas kernel does, so an element
+    whose f32 value differs in its last bits from the plain forward's can
+    round to another bf16 value; 16 layers of random weights carry such
+    flips forward. _int4_teacher_forced holds every int4 launch on its own
+    input (the tight bound) and counts the flips per layer (the cause). The
+    logits then are held as the bf16 path is: no further from the plain f32
+    forward (x not rounded) than twice the plain forward in the kernels'
+    form (x rounded to bf16) is."""
+    import torch
+    ids = lm.encode_prompt(text)
+    counts = _all_counts()
+    got = prefill_logits(lm, ids)
+    runs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill_logits(lm, ids)
+        torch.cuda.synchronize()
+        runs.append(1e3 * (time.perf_counter() - t0))
+    _restore(counts)
+    with plain_kernels(x_as_bf16=True):
+        ref = prefill_logits(lm, ids)
+    with plain_kernels():
+        ref32 = prefill_logits(lm, ids)
+    err = (got - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    out = {"logits_max_abs_err": err, "logits_rel_err": rel,
+           "logits_cosine": _cosine(got, ref),
+           "prefill_ms_1024": statistics.median(runs), "prefill_ms_1024_runs": runs}
+    check(bool(torch.isfinite(got).all()) and got.shape == (1, LLAMA_1B["vocab_size"]),
+          f"{tag}: finite logits of shape {tuple(got.shape)}")
+    if "int4" not in tag:
+        check(rel <= F32_LOGITS_REL, f"{tag} prefill logits vs plain: {rel} of the "
+                                     f"largest logit <= {F32_LOGITS_REL}")
+        return out
+    out.update(_int4_teacher_forced(lm, ids, tag))
+    out["kernels_vs_f32_max_abs_err"] = (got - ref32).abs().max().item()
+    out["plain_x_bf16_vs_f32_max_abs_err"] = (ref - ref32).abs().max().item()
+    check(out["kernels_vs_f32_max_abs_err"] <= 2 * out["plain_x_bf16_vs_f32_max_abs_err"],
+          f"{tag} prefill logits vs f32: kernels {out['kernels_vs_f32_max_abs_err']} <= "
+          f"2 x plain with x in bf16 {out['plain_x_bf16_vs_f32_max_abs_err']}")
+    return out
+
+
+def f32_request(d: Path, quantize) -> dict:
+    """Generator(dtype="f32") at full width: the first prefill's logits
+    against the plain versions, the phase-3 request (701-token prompt, 32 new
+    tokens) with 16 f32 flash launches per prefill and no bf16 flash launch
+    (113 int4 per forward under int4), then a 32-token stream: time to first
+    token, decode tok/s, peak memory."""
+    import torch
+    from kjarni_tpu_torch import Generator
+    from kjarni_tpu_torch.generate.sampling import GenerationConfig
+    from kjarni_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from kjarni_tpu_torch.ops.kernels.int4_matvec import int4_matvec
+    tag = "f32" + (f" {quantize}" if quantize else "")
+    t0 = time.perf_counter()
+    gen = Generator(str(d), dtype="f32", quantize=quantize)
+    lm = gen.lm
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(lm.device.type == "cuda" and lm._cache_dtype == torch.float32
+          and lm.params["embed"].dtype == torch.float32, f"{tag}: f32 on the card")
+    stats = _f32_logits_vs_plain(lm, _prompt(700, 1), tag)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = GenerationConfig.greedy(max_new_tokens=F32_NEW_TOKENS, max_length=4096)
+    rows = {}
+    for name, text in (("generate 700", _prompt(700, 1)), ("stream 600", _prompt(600, 2))):
+        before = flash_attention.launches, flash_attention.launches_f32, int4_matvec.launches
+        n_prompt = len(lm.encode_prompt(text))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        first = None
+        if name.startswith("stream"):
+            for _ in gen.generate_stream(text, config=cfg):
+                if first is None:
+                    torch.cuda.synchronize()
+                    first = time.perf_counter()
+        else:
+            gen.generate(text, config=cfg)
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        n_new = len(lm._session_ids) - n_prompt
+        got = (flash_attention.launches - before[0], flash_attention.launches_f32 - before[1],
+               int4_matvec.launches - before[2])
+        want_int4 = INT4_PER_FORWARD * (1 + n_new) if quantize == "int4" else 0
+        check(n_new > 0 and got == (0, FLASH_PER_PREFILL, want_int4),
+              f"{tag} {name}: launches (bf16 flash, f32 flash, int4) {got}, expected "
+              f"(0, {FLASH_PER_PREFILL}, {want_int4})")
+        row = {"request": f"{tag} {name}", "prompt_tokens": n_prompt, "new_tokens": n_new,
+               "seconds": end - t, "flash_f32_launches": got[1], "int4_launches": got[2]}
+        if first is not None:
+            row["ttft_ms"] = 1e3 * (first - t)
+            row["decode_tok_per_s"] = (n_new - 1) / (end - first)
+        rows[name] = row
+        print(json.dumps(row))
+    summary = {"slice": tag, "load_s": load_s, **stats,
+               "stream_ttft_ms": rows["stream 600"]["ttft_ms"],
+               "stream_decode_tok_per_s": rows["stream 600"]["decode_tok_per_s"],
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(json.dumps(summary))
+    del gen, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def f32_ids_vs_cpu(d: Path, tmp: Path, text: str) -> dict:
+    """The first 2 layers of the phase-3 weights (write_model_dir's seeded
+    order gives a 2-layer dir the 16-layer dir's table and first two layers)
+    in f32 on the card and on the CPU: 32 greedy ids, equal, or parting only
+    where the CPU's top-2 logits lie within F32_TIE (the gap is reported)."""
+    import torch
+    from kjarni_tpu_torch import Generator
+    from kjarni_tpu_torch.generate.sampling import GenerationConfig
+    d2 = tmp / "llama-3.2-1b-2-layers"
+    write_model_dir(d2, c={**LLAMA_1B, "num_hidden_layers": 2})
+    write_tokenizer(d2 / "tokenizer.json", LLAMA_1B["vocab_size"])
+    from kjarni_tpu_torch.weights.safetensors_loader import ModelWeights
+    for name in ("model.embed_tokens.weight", "model.layers.1.mlp.down_proj.weight"):
+        check(torch.equal(ModelWeights(d2).get(name), ModelWeights(d).get(name)),
+              f"the 2-layer dir holds the phase-3 dir's {name}")
+    cfg = GenerationConfig.greedy(max_new_tokens=F32_NEW_TOKENS, max_length=4096)
+    out = {}
+    for where in ("cuda", "cpu"):
+        gen = Generator(str(d2), dtype="f32", device=where)
+        ids = gen.lm.encode_prompt(text)
+        gen.generate(text, config=cfg)
+        out[where] = gen.lm._session_ids[len(ids):]
+        if where == "cpu":
+            cpu_lm, prompt_ids = gen.lm, ids
+        del gen
+    torch.cuda.empty_cache()
+    n = _common_prefix(out["cuda"], out["cpu"])
+    row = {"case": "f32 greedy ids, 2 layers, card vs CPU", "tokens": len(out["cpu"]),
+           "equal_prefix": n}
+    if n < min(len(out["cuda"]), len(out["cpu"])):
+        logits = prefill_logits(cpu_lm, prompt_ids + out["cpu"][:n], device="cpu")[0]
+        top2 = torch.topk(logits, 2).values
+        row["parting_step"] = n
+        row["cpu_top2_gap"] = (top2[0] - top2[1]).item()
+        check(row["cpu_top2_gap"] < F32_TIE, f"f32 card ids part from the CPU's at step "
+                                             f"{n} with a top-2 gap {row['cpu_top2_gap']}")
+    else:
+        check(out["cuda"] == out["cpu"], "f32 card ids equal the CPU's")
+    del cpu_lm
+    gc.collect()
+    print(json.dumps(row))
+    return row
+
+
+def phase_f32(d: Path, tmp: Path, ran: dict) -> dict:
+    """Phase 15: Generator(dtype="f32") on the card, plain weights and int4,
+    beside phase 3's bf16 numbers; then 2-layer greedy ids against the CPU."""
+    rows = {q or "f32": f32_request(d, q) for q in (None, "int4")}
+    ids = f32_ids_vs_cpu(d, tmp, _prompt(700, 1))
+    bf16 = ran.get("bf16") or {}
+    line = {"case": "f32 on the card", **{
+        f"{k}_{key}": rows[k][key] for k in rows
+        for key in ("prefill_ms_1024", "stream_ttft_ms", "stream_decode_tok_per_s",
+                    "peak_mem_gb", "logits_rel_err", "load_s")},
+        **{f"bf16_{key}": bf16.get(key) for key in ("prefill_ms_1024", "stream_ttft_ms",
+                                                     "stream_decode_tok_per_s",
+                                                     "peak_mem_gb")},
+        "ids_equal_prefix": ids["equal_prefix"], "ids_tokens": ids["tokens"],
+        "ids_cpu_top2_gap": ids.get("cpu_top2_gap")}
+    print(json.dumps(line))
+    return line
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the user surfaces (CLI, C ABI)
+# ---------------------------------------------------------------------------
+
+SURFACE_NEW_TOKENS = 32
+SURFACE_EMBED_TOL = 1e-6
+TINY_LLAMA = {"model_type": "llama", "vocab_size": 4096, "hidden_size": 256,
+              "intermediate_size": 512, "num_hidden_layers": 2, "num_attention_heads": 4,
+              "num_key_value_heads": 2, "head_dim": 64, "max_position_embeddings": 2048,
+              "rope_theta": 10000.0, "rms_norm_eps": 1e-5, "tie_word_embeddings": False,
+              "bos_token_id": 1, "eos_token_id": 2, "torch_dtype": "bfloat16"}
+
+
+def _python_env() -> dict:
+    """The environment of a process that embeds CPython through
+    libkjarni.so: that interpreter knows nothing of this one's site-packages
+    or the checkout, so both come in through PYTHONPATH."""
+    import os
+    import site
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT)] + site.getsitepackages()
+                                        + [env.get("PYTHONPATH", "")])
+    return env
+
+
+def _ctypes_lib(path: Path):
+    import ctypes
+    L = ctypes.CDLL(str(path))
+    L.kjarni_init.restype = ctypes.c_int
+    L.kjarni_last_error.restype = ctypes.c_char_p
+    L.kjarni_new.restype = ctypes.c_longlong
+    L.kjarni_new.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+    L.kjarni_call.restype = ctypes.c_void_p
+    L.kjarni_call.argtypes = [ctypes.c_longlong, ctypes.c_char_p, ctypes.c_char_p]
+    L.kjarni_string_free.argtypes = [ctypes.c_void_p]
+    L.kjarni_free.argtypes = [ctypes.c_longlong]
+    L.kjarni_stream_start.restype = ctypes.c_int
+    L.kjarni_stream_start.argtypes = [ctypes.c_longlong, ctypes.c_char_p, ctypes.c_char_p]
+    L.kjarni_stream_next.restype = ctypes.c_void_p
+    L.kjarni_stream_next.argtypes = [ctypes.c_longlong]
+    return L
+
+
+def phase_surfaces(d: Path, tmp: Path) -> dict:
+    """Phase 16: the port's CLI in this process in a cwd whose kjarni.toml
+    sets quantize = "int4" for the phase-3 dir: generate --format json on the
+    701-token prompt (flash and int4 launch; its text equals Generator's with
+    the same options, and is empty: the CLI has no --max-length, and the
+    default max_length of 100 counts the prompt, in the JAX CLI too), and on
+    a 60-token prompt that generates 32 tokens (int4 launches, the text
+    equals Generator's); `python -m kjarni_tpu_torch embed` as a
+    subprocess on a MiniLM dir (its vector within 1e-6 of the in-process
+    Embedder's); the port's libkjarni.so built from the checkout and driven
+    through ctypes in this process (one kjarni_call and then one pull stream
+    of a generator with quantize int4 on the 701-token prompt, with
+    max_length 4096 in the args: both kernels launch, texts equal a
+    Generator's making the same two calls); the
+    port's compiled C host as a subprocess against MiniLM,
+    DistilBERT-SST-2 and a small llama dir on the card. Seconds per step,
+    and each surface's beyond the Python API's (overhead_s)."""
+    import contextlib as cl
+    import ctypes
+    import io
+    import os
+    import numpy as np
+    import torch
+    from kjarni_tpu_torch import Embedder, Generator
+    from kjarni_tpu_torch.cli.main import main as cli_main
+    from kjarni_tpu_torch.ffi import build as ffi_build
+    from kjarni_tpu_torch.tasks.generator import resolve_generation_config
+    secs, row = {"write_dirs": 0.0}, {"case": "surfaces"}
+    text, short = _prompt(700, 1), _prompt(59, 9)
+    cli_cfg = resolve_generation_config("greedy", None, max_new_tokens=SURFACE_NEW_TOKENS)
+    abi_cfg = dataclasses.replace(cli_cfg, max_length=4096)
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[key] = time.perf_counter() - t0
+        return out
+
+    # the Python API, step by step: the reference texts and the yardstick of
+    # the CLI and the ABI. The ABI's handle runs generate, then a stream of the
+    # same prompt over the cache the generate left (prefix reuse): the
+    # reference does the same. The first pass warms what a first call pays
+    # (the page cache, allocator, cuBLAS); the second is timed
+    for rep in range(2):
+        tag = "api" if rep else "warm"
+        ref = timed(f"{tag}_load", lambda: Generator(str(d), quantize="int4"))
+        got = {"cli_700": timed(f"{tag}_cli_700", lambda: ref.generate(text, config=cli_cfg)),
+               "cli_60": timed(f"{tag}_cli_60", lambda: ref.generate(short, config=cli_cfg)),
+               "abi_700": timed(f"{tag}_abi_700", lambda: ref.generate(text, config=abi_cfg)),
+               "abi_stream": timed(f"{tag}_abi_stream", lambda: "".join(
+                   st.text for st in ref.generate_stream(text, config=abi_cfg)))}
+        check(not rep or got == want, "the Python API repeats its texts")
+        want = got
+        del ref
+    check(want["cli_700"] == "" and want["cli_60"] and want["abi_700"] and want["abi_stream"],
+          "the reference texts: empty under max_length 100, else generated")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the CLI, in this process, under a kjarni.toml
+    cwd = tmp / "cli_cwd"
+    cwd.mkdir()
+    (cwd / "kjarni.toml").write_text(f'[models."{d}"]\nquantize = "int4"\n')
+    old = os.getcwd()
+    for key, prompt, flash_want in (("cli_700", text, FLASH_PER_PREFILL), ("cli_60", short, 0)):
+        before = _counts()
+        buf = io.StringIO()
+        try:
+            os.chdir(cwd)
+            with cl.redirect_stdout(buf):
+                rc = timed(key, lambda: cli_main(
+                    ["generate", prompt, "--model", str(d), "--max-tokens",
+                     str(SURFACE_NEW_TOKENS), "--preset", "greedy", "--format", "json"]))
+        finally:
+            os.chdir(old)
+        got = [a - b for a, b in zip(_counts(), before)]
+        check(rc == 0, f"CLI generate ({key}) exited {rc}")
+        cli_text = json.loads(buf.getvalue())["text"]
+        check(got[0] == flash_want and got[1] > 0, f"CLI generate ({key}) launched flash "
+                                                   f"{got[0]} (want {flash_want}), int4 {got[1]}")
+        check(cli_text == want[key], f"CLI generate's text ({key}) equals Generator's")
+        row.update({f"{key}_flash_launches": got[0], f"{key}_int4_launches": got[1],
+                    f"{key}_chars": len(cli_text)})
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # python -m kjarni_tpu_torch embed, a real subprocess on the card
+    mini = tmp / "minilm-l6-v2"
+    t0 = time.perf_counter()
+    write_encoder_dir(mini, MINILM_L6, seed=20)
+    secs["write_dirs"] += time.perf_counter() - t0
+    sentence = "the quick brown fox jumps over the lazy dog near the river bank"
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "kjarni_tpu_torch", "embed", sentence,
+                        "--model", str(mini), "--format", "json"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    secs["subprocess_embed"] = time.perf_counter() - t0
+    check(r.returncode == 0, f"python -m kjarni_tpu_torch embed exited {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    sub = np.asarray(json.loads(r.stdout)["embedding"], dtype=np.float32)
+    here = np.asarray(Embedder(str(mini)).embed(sentence), dtype=np.float32)
+    row["embed_subprocess_max_abs_err"] = float(np.abs(sub - here).max())
+    check(row["embed_subprocess_max_abs_err"] <= SURFACE_EMBED_TOL,
+          f"subprocess embed within {SURFACE_EMBED_TOL} of the in-process Embedder "
+          f"({row['embed_subprocess_max_abs_err']})")
+
+    # the port's libkjarni.so through ctypes, in this process
+    t0 = time.perf_counter()
+    lib_path = ffi_build.build_library()
+    secs["ffi_build"] = time.perf_counter() - t0
+    L = _ctypes_lib(lib_path)
+    check(L.kjarni_init() == 0, f"kjarni_init: {L.kjarni_last_error().decode()}")
+    before = _counts()
+    h = timed("abi_new", lambda: L.kjarni_new(
+        b"generator", json.dumps({"model": str(d), "quantize": "int4"}).encode()))
+    check(h > 0, f"kjarni_new generator: {L.kjarni_last_error().decode()}")
+    args = json.dumps({"prompt": text, "preset": "greedy", "max_length": 4096,
+                       "max_new_tokens": SURFACE_NEW_TOKENS}).encode()
+    p = timed("abi_call", lambda: L.kjarni_call(h, b"generate", args))
+    check(bool(p), f"kjarni_call generate: {L.kjarni_last_error().decode()}")
+    abi_text = json.loads(ctypes.string_at(p).decode())["text"]
+    L.kjarni_string_free(p)
+
+    def pull():
+        check(L.kjarni_stream_start(h, b"generate_stream", args) == 0,
+              f"kjarni_stream_start: {L.kjarni_last_error().decode()}")
+        out = []
+        while (q := L.kjarni_stream_next(h)):
+            out.append(ctypes.string_at(q).decode())
+            L.kjarni_string_free(q)
+        return out
+    pieces = timed("abi_stream", pull)
+    L.kjarni_free(h)
+    got = [a - b for a, b in zip(_counts(), before)]
+    check(got[0] > 0 and got[1] > 0, f"the C ABI launched flash {got[0]} and int4 {got[1]}")
+    check(abi_text == want["abi_700"], "kjarni_call generate's text equals Generator's")
+    check("".join(pieces) == want["abi_stream"],
+          f"the C ABI's stream equals Generator's: {''.join(pieces)[:200]!r} against "
+          f"{want['abi_stream'][:200]!r}")
+    row.update(abi_flash_launches=got[0], abi_int4_launches=got[1], abi_stream_pieces=len(pieces))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the port's compiled C host, as a subprocess, on the card
+    clf, small = tmp / "distilbert-sentiment", tmp / "llama-small"
+    t0 = time.perf_counter()
+    write_encoder_dir(clf, DISTILBERT_SST2, seed=22)
+    write_model_dir(small, seed=5, c=TINY_LLAMA)
+    write_tokenizer(small / "tokenizer.json", TINY_LLAMA["vocab_size"])
+    secs["write_dirs"] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = ffi_build.build_test_host()
+    r = subprocess.run([str(host), str(mini), str(clf), str(small), "cuda"],
+                       capture_output=True, text=True, timeout=600, env=_python_env())
+    secs["c_host"] = time.perf_counter() - t0
+    check(r.returncode == 0 and r.stdout.startswith("OK "),
+          f"the C host exited {r.returncode}: {r.stdout[-500:]} {r.stderr[-2000:]}")
+    row["c_host"] = r.stdout.strip()
+    row["seconds"] = secs
+    # each surface's seconds beyond the Python API's for the same step (the
+    # CLI's include its model load)
+    row["overhead_s"] = {
+        "cli_700": secs["cli_700"] - secs["api_load"] - secs["api_cli_700"],
+        "cli_60": secs["cli_60"] - secs["api_load"] - secs["api_cli_60"],
+        "abi_new": secs["abi_new"] - secs["api_load"],
+        "abi_call": secs["abi_call"] - secs["api_abi_700"],
+        "abi_stream": secs["abi_stream"] - secs["api_abi_stream"]}
+    print(json.dumps(row))
+    return row
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(["env", "kernels", *GENERATION, *ENC_DEC,
@@ -4161,9 +4818,9 @@ def main() -> int:
     kern = phase_kernels() if "kernels" in phases else None
     if "flash" in phases and kern is None:
         phase_flash()
+        phase_flash_f32()
     print(json.dumps({"phase": "kernels", "seconds": time.perf_counter() - t0}))
-    flash_attention.launches = 0
-    int4_matvec.launches = 0
+    _restore((0, 0, 0))
     if set(GENERATION) & set(phases):
         phase_slices(phases)
     for name, phase in (("seq2seq", phase_seq2seq), ("whisper", phase_whisper)):
@@ -4175,14 +4832,15 @@ def main() -> int:
         _counted("embed", phase_embed)
     if "search" in phases:
         _counted("search", phase_search)
-    launches = {"flash": flash_attention.launches, "int4": int4_matvec.launches}
-    if {"bf16", "int4", "int8", "chat", "serve", "infra", "whisper"} & set(phases):
+    launches = dict(zip(("flash", "int4", "flash_f32"), _all_counts()))
+    if {"bf16", "int4", "int8", "chat", "serve", "infra", "whisper", "surfaces"} & set(phases):
         check(launches["flash"] > 0, "the main path launched the flash kernel")
-    if {"int4", "batch", "serve", "infra"} & set(phases):
+    if {"int4", "batch", "serve", "infra", "f32", "surfaces"} & set(phases):
         check(launches["int4"] > 0, "the main path launched the int4 kernel")
+    if "f32" in phases:
+        check(launches["flash_f32"] > 0, "the main path launched the f32 flash kernel")
     if kern is not None:
-        f0 = kern["flash"][0]
-        tok = kern["int4_token"]
+        f0, tok = kern["flash"][0], kern["int4_token"]
         line = {"kernels": [
             {"name": "flash_attention", "route": "cuda",
              "source": "kjarni_tpu_torch/csrc/flash_attention.cu",
@@ -4199,8 +4857,25 @@ def main() -> int:
              "max_abs_err": max(r["max_abs_err"] for r in kern["int4"]),
              "ms": tok["kernel_ms"], "plain_ms": tok["plain_ms"],
              "bound_ms": tok["bound_ms"], "bound_by": tok["bound_by"],
-             "library_ms": tok["library_ms"]},
+             "library_ms": tok["library_ms"],
+             "f32_out_max_abs_err": max(r["max_abs_err"] for r in kern["int4_f32"]["rows"]),
+             "f32_out_err_over_tol": max(r["max_abs_err"] / r["f32_tol"]
+                                         for r in kern["int4_f32"]["rows"]),
+             "f32_out_control_over_tol": min(r["bf16_store_control_err"] / r["f32_tol"]
+                                             for r in kern["int4_f32"]["rows"]),
+             "f32_out_ms": kern["int4_f32"]["token"]["kernel_ms"]},
         ]}
+        if kern["flash_f32"]:   # not in an older checkout (--root)
+            f32 = kern["flash_f32"][0]
+            line["kernels"].append({
+                "name": "flash_attention_f32", "route": "cuda",
+                "source": "kjarni_tpu_torch/csrc/flash_attention_f32.cu",
+                "replaces": "kjarni_tpu/ops/pallas/flash_attention.py:135",
+                "launches": launches["flash_f32"],
+                "max_abs_err": max(r["max_abs_err"] for r in kern["flash_f32"]),
+                "ms": f32["kernel_ms"], "plain_ms": f32["plain_ms"],
+                "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
+                "library_ms": f32["library_ms"]})
         print(json.dumps(line))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

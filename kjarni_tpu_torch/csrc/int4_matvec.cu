@@ -4,8 +4,12 @@
 // Same function: x [M,K] bf16, w4 [K/2,N] int8 holding two nibbles per byte
 // (low nibble = row r, high nibble = row r + K/2), scale [G,N] f32 over groups
 // of g = K/G rows; the group scale multiplies the f32 partial of its group,
-// not the weight. Output [M,N] bf16. G == 1 (one scale per column) is taken
-// as well as even G. Two kernels; the wrapper's launch_plan picks one by M.
+// not the weight. Output [M,N] bf16, or f32 where x came in f32: the Pallas
+// kernel rounds x to bf16 in its body and writes x's dtype, so the wrapper
+// rounds an f32 x to bf16 and the kernels store their f32 sums as f32 (the
+// store is a template on the output type; nothing else differs). G == 1 (one
+// scale per column) is taken as well as even G. Two kernels; the wrapper's
+// launch_plan picks one by M.
 //
 // Decode (M == 1): int4_gemv_kernel. Every packed byte is read once and used
 // for 4 flops, so it is bound by device-memory bytes (K*N/2 weight bytes).
@@ -56,7 +60,7 @@ struct Int4Params {
   const __nv_bfloat16* x;      // [M, K]
   const uint8_t* w4;           // [K/2, N]
   const float* scale;          // [G, N]
-  __nv_bfloat16* y;            // [M, N]
+  void* y;                     // [M, N], bf16 or f32 (the kernels' OutT)
   int M, K, N, G;
   float* ws;                   // prefill, split K: [splits, M, N] f32 partials
   int* counters;               // prefill, split K: arrivals per output tile
@@ -67,6 +71,29 @@ struct Int4Params {
   int vec_s;                   // decode: scale rows load as float4
   int vec_x;                   // decode: x rows load as 16-byte vectors
 };
+
+// the output stores, by output type
+__device__ __forceinline__ void store1(__nv_bfloat16* dst, float v) {
+  *dst = __float2bfloat16(v);
+}
+__device__ __forceinline__ void store1(float* dst, float v) { *dst = v; }
+// two neighbouring columns, the first even
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+}
+__device__ __forceinline__ void store2(float* dst, float v0, float v1) {
+  *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+}
+// four neighbouring columns, the first a multiple of 4
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 v) {
+  uint2 out;
+  out.x = kj::pack_bf16(v.x, v.y);
+  out.y = kj::pack_bf16(v.z, v.w);
+  *reinterpret_cast<uint2*>(dst) = out;
+}
+__device__ __forceinline__ void store4(float* dst, float4 v) {
+  *reinterpret_cast<float4*>(dst) = v;
+}
 
 // ---------------------------------------------------------------------------
 // decode GEMV
@@ -134,6 +161,7 @@ __device__ __forceinline__ void load_step(const Int4Params& p, int r, int rb, in
 
 // one row of x; block = col_threads threads across 8 * col_threads columns x
 // kThreads / col_threads threads down K, each over rows_per_lane packed rows.
+template <typename OutT>
 __global__ void __launch_bounds__(kThreads, 2) int4_gemv_kernel(const Int4Params p) {
   constexpr int kWarps = kThreads / 32;
   __shared__ __align__(16) float red[kWarps][kV * kMaxColThreads];
@@ -224,7 +252,7 @@ __global__ void __launch_bounds__(kThreads, 2) int4_gemv_kernel(const Int4Params
     float s = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) s += red[w][t];
-    if (col < p.N) p.y[col] = __float2bfloat16(s);
+    if (col < p.N) store1(static_cast<OutT*>(p.y) + col, s);
   }
 }
 
@@ -373,8 +401,9 @@ __device__ __forceinline__ void mma_bf16_first(float (&d)[4], const uint32_t (&a
 // order. Each thread owns kMI * 4 runs of 4 columns; all of a split's loads
 // start before any is added, and nothing is stored until every split is
 // read, so the loads stay in flight together.
-template <int kMI>
+template <int kMI, typename OutT>
 __device__ __forceinline__ void sum_splits(const Int4Params& p, int m0, int n0, int splits) {
+  OutT* y = static_cast<OutT*>(p.y);
   constexpr int kItems = 32 * kMI * (kBN / 4) / kThreads;   // = 4 * kMI
   const int64_t plane = (int64_t)p.M * p.N;
   if (p.N % 4 == 0) {
@@ -403,10 +432,7 @@ __device__ __forceinline__ void sum_splits(const Int4Params& p, int m0, int n0, 
       const int t = threadIdx.x + it * kThreads;
       const int m = m0 + t / (kBN / 4), col = n0 + (t % (kBN / 4)) * 4;
       if (m >= p.M || col >= p.N) continue;
-      uint2 out;
-      out.x = kj::pack_bf16(sum[it].x, sum[it].y);
-      out.y = kj::pack_bf16(sum[it].z, sum[it].w);
-      *reinterpret_cast<uint2*>(p.y + (int64_t)m * p.N + col) = out;
+      store4(y + (int64_t)m * p.N + col, sum[it]);
     }
     return;
   }
@@ -416,7 +442,7 @@ __device__ __forceinline__ void sum_splits(const Int4Params& p, int m0, int n0, 
     const float* src = p.ws + (int64_t)m * p.N + col;
     float s = 0.f;
     for (int z = 0; z < splits; ++z) s += __ldcg(src + z * plane);
-    p.y[(int64_t)m * p.N + col] = __float2bfloat16(s);
+    store1(y + (int64_t)m * p.N + col, s);
   }
 }
 
@@ -424,7 +450,7 @@ __device__ __forceinline__ void sum_splits(const Int4Params& p, int m0, int n0, 
 // so the products of a stage run without a branch and its staged scales serve
 // one flush per half; otherwise a group may end at any 16-row step.
 // blockIdx.z is the block's split of K: stages [z * split_stages, ...).
-template <int kMI, bool kAligned, bool kUniform>
+template <int kMI, bool kAligned, bool kUniform, typename OutT>
 __global__ void __launch_bounds__(kThreads, 1) int4_gemm_kernel(const Int4Params p) {
   using T = GemmTile<kMI>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -571,12 +597,12 @@ __global__ void __launch_bounds__(kThreads, 1) int4_gemm_kernel(const Int4Params
           if (col + 1 < p.N) dst[1] = v1;
           continue;
         }
-        __nv_bfloat16* dst = p.y + (int64_t)m * p.N + col;
+        OutT* dst = static_cast<OutT*>(p.y) + (int64_t)m * p.N + col;
         if (col + 1 < p.N && p.N % 2 == 0) {
-          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+          store2(dst, v0, v1);
         } else {
-          if (col < p.N) dst[0] = __float2bfloat16(v0);
-          if (col + 1 < p.N) dst[1] = __float2bfloat16(v1);
+          if (col < p.N) store1(dst, v0);
+          if (col + 1 < p.N) store1(dst + 1, v1);
         }
       }
     }
@@ -592,46 +618,45 @@ __global__ void __launch_bounds__(kThreads, 1) int4_gemm_kernel(const Int4Params
   __syncthreads();
   if (!last_split) return;
   __threadfence();
-  sum_splits<kMI>(p, m0, n0, gridDim.z);
+  sum_splits<kMI, OutT>(p, m0, n0, gridDim.z);
 }
 
+template <typename OutT>
 cudaError_t launch_gemv(const Int4Params& p, cudaStream_t st) {
   const int BN = kV * p.col_threads;
-  int4_gemv_kernel<<<(p.N + BN - 1) / BN, kThreads, 0, st>>>(p);
+  int4_gemv_kernel<OutT><<<(p.N + BN - 1) / BN, kThreads, 0, st>>>(p);
   return cudaGetLastError();
 }
 
-template <int kMI, bool kAligned, bool kUniform>
+template <int kMI, bool kAligned, bool kUniform, typename OutT>
 cudaError_t launch_gemm(const Int4Params& p, int splits, cudaStream_t st) {
   using T = GemmTile<kMI>;
   // above 48 KB a kernel's dynamic shared memory must be allowed, once
   static bool allowed = false;
   if (!allowed) {
     const cudaError_t err =
-        cudaFuncSetAttribute(int4_gemm_kernel<kMI, kAligned, kUniform>,
+        cudaFuncSetAttribute(int4_gemm_kernel<kMI, kAligned, kUniform, OutT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
     if (err != cudaSuccess) return err;
     allowed = true;
   }
   const dim3 grid((p.N + kBN - 1) / kBN, (p.M + T::kBM - 1) / T::kBM, splits);
-  int4_gemm_kernel<kMI, kAligned, kUniform><<<grid, kThreads, T::kSmem, st>>>(p);
+  int4_gemm_kernel<kMI, kAligned, kUniform, OutT><<<grid, kThreads, T::kSmem, st>>>(p);
   return cudaGetLastError();
 }
 
-template <int kMI>
+template <int kMI, typename OutT>
 cudaError_t launch_gemm_tile(const Int4Params& p, int splits, cudaStream_t st) {
   const bool aligned = p.K % 16 == 0 && p.N % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(p.x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(p.w4) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(p.scale) % 16 == 0;
   const bool uniform = p.G == 1 || (p.K / p.G) % kBKP == 0;
-  return aligned ? (uniform ? launch_gemm<kMI, true, true>(p, splits, st)
-                            : launch_gemm<kMI, true, false>(p, splits, st))
-                 : (uniform ? launch_gemm<kMI, false, true>(p, splits, st)
-                            : launch_gemm<kMI, false, false>(p, splits, st));
+  return aligned ? (uniform ? launch_gemm<kMI, true, true, OutT>(p, splits, st)
+                            : launch_gemm<kMI, true, false, OutT>(p, splits, st))
+                 : (uniform ? launch_gemm<kMI, false, true, OutT>(p, splits, st)
+                            : launch_gemm<kMI, false, false, OutT>(p, splits, st));
 }
-
-}  // namespace
 
 // path 0: decode GEMV (M == 1), `col_threads` in {2, 4, 8, 16, 32} threads
 // across each block's columns, `rows_per_lane` packed rows per thread (a
@@ -641,15 +666,15 @@ cudaError_t launch_gemm_tile(const Int4Params& p, int splits, cudaStream_t st) {
 // With splits > 1, `ws` holds splits * M * N floats and `counters` one int per
 // output tile, all zero; the kernel leaves them zero. Returns a cudaError_t;
 // 0 means the launch was accepted.
-extern "C" int kj_int4_matvec_bf16(const void* x, const void* w4, const void* scale,
-                                   void* y, void* ws, void* counters, int M, int K, int N,
-                                   int G, int path, int col_threads, int rows_per_lane,
-                                   int row_tile, int splits, void* stream) {
+template <typename OutT>
+int run(const void* x, const void* w4, const void* scale, void* y, void* ws, void* counters,
+        int M, int K, int N, int G, int path, int col_threads, int rows_per_lane,
+        int row_tile, int splits, void* stream) {
   Int4Params p;
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.w4 = static_cast<const uint8_t*>(w4);
   p.scale = static_cast<const float*>(scale);
-  p.y = static_cast<__nv_bfloat16*>(y);
+  p.y = y;
   p.ws = static_cast<float*>(ws);
   p.counters = static_cast<int*>(counters);
   p.M = M; p.K = K; p.N = N; p.G = G;
@@ -666,9 +691,9 @@ extern "C" int kj_int4_matvec_bf16(const void* x, const void* w4, const void* sc
         (splits > 1 && (ws == nullptr || counters == nullptr)))
       return static_cast<int>(cudaErrorInvalidValue);
     switch (row_tile) {
-      case 32: return static_cast<int>(launch_gemm_tile<1>(p, splits, st));
-      case 64: return static_cast<int>(launch_gemm_tile<2>(p, splits, st));
-      case 128: return static_cast<int>(launch_gemm_tile<4>(p, splits, st));
+      case 32: return static_cast<int>(launch_gemm_tile<1, OutT>(p, splits, st));
+      case 64: return static_cast<int>(launch_gemm_tile<2, OutT>(p, splits, st));
+      case 128: return static_cast<int>(launch_gemm_tile<4, OutT>(p, splits, st));
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -677,5 +702,26 @@ extern "C" int kj_int4_matvec_bf16(const void* x, const void* w4, const void* sc
       (col_threads & (col_threads - 1)) != 0 ||
       rows_per_lane % kUnroll != 0 || (int64_t)lanes * rows_per_lane < K / 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_gemv(p, st));
+  return static_cast<int>(launch_gemv<OutT>(p, st));
+}
+
+}  // namespace
+
+// y bf16 (x bf16)
+extern "C" int kj_int4_matvec_bf16(const void* x, const void* w4, const void* scale,
+                                   void* y, void* ws, void* counters, int M, int K, int N,
+                                   int G, int path, int col_threads, int rows_per_lane,
+                                   int row_tile, int splits, void* stream) {
+  return run<__nv_bfloat16>(x, w4, scale, y, ws, counters, M, K, N, G, path, col_threads,
+                            rows_per_lane, row_tile, splits, stream);
+}
+
+// y f32 (x bf16, an f32 input rounded by the wrapper)
+extern "C" int kj_int4_matvec_bf16_f32(const void* x, const void* w4, const void* scale,
+                                       void* y, void* ws, void* counters, int M, int K,
+                                       int N, int G, int path, int col_threads,
+                                       int rows_per_lane, int row_tile, int splits,
+                                       void* stream) {
+  return run<float>(x, w4, scale, y, ws, counters, M, K, N, G, path, col_threads,
+                    rows_per_lane, row_tile, splits, stream);
 }

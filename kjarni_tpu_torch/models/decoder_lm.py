@@ -73,12 +73,12 @@ def auto_dtype(dtype, device: torch.device) -> torch.dtype:
 
 
 def resolve_dtype(dtype, device: torch.device) -> torch.dtype:
-    """The decoder's dtype: auto_dtype, and the card's kernels take bf16, so
-    the card runs bf16."""
+    """The decoder's dtype: auto_dtype, bf16 or f32 on either device. Both
+    kernels take both on the card, as the Pallas kernels do: flash has an f32
+    kernel, and int4 rounds an f32 x to bf16 and answers in f32."""
     dtype = auto_dtype(dtype, device)
-    if device.type == "cuda" and dtype != torch.bfloat16:
-        raise not_ported(f"dtype {dtype} on the card (its kernels take bf16)",
-                          "queue 1, item 3.6")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise InvalidConfigError(f"unsupported decoder dtype {dtype} (bf16 or f32)")
     return dtype
 
 
@@ -138,7 +138,7 @@ class DecoderLM:
 
         self.max_context = min(cfg.max_seq_len, max_context or DEFAULT_MAX_CONTEXT)
         if params is not None:
-            # the checkpoint's dtype rules (the card takes bf16 alone)
+            # the checkpoint's dtype rules
             dtype = resolve_dtype(params["embed"].dtype, self.device)
         elif self.family is kllama:
             params = kllama.load_params(ws, cfg, dtype, rope_cache_len=self.max_context,

@@ -1,12 +1,15 @@
 """Flash attention: a hand-written Hopper kernel and its plain PyTorch version.
 
-Replaces kjarni_tpu/ops/pallas/flash_attention.py::flash_attention. The CUDA
-source is csrc/flash_attention.cu; its header says what bounds it on the H100
-(tensor-core flops at long prefills) and what the design does about that.
+Replaces kjarni_tpu/ops/pallas/flash_attention.py::flash_attention, at both
+dtypes the Pallas kernel takes. Two CUDA sources: csrc/flash_attention.cu
+(bf16, wgmma) and csrc/flash_attention_f32.cu (f32, FFMA); each header says
+what bounds it on the H100 and what its design does about that.
 
-`flash_attention` launches the kernel for CUDA tensors and raises on what the
-kernel does not take (`check_shapes` holds the shape rules); it runs the plain
-version only for tensors on the CPU.
+`flash_attention` launches the kernel of its inputs' dtype for CUDA tensors
+(bf16 or f32; anything else raises TypeError) and raises on what the kernel
+does not take (`check_shapes` holds the shape rules); it runs the plain
+version only for tensors on the CPU. `flash_attention.launches` counts the
+bf16 kernel's launches, `flash_attention.launches_f32` the f32 kernel's.
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ NEG_INF = -1e30  # the kernel's mask value, as in the Pallas kernel
 HEAD_DIMS = (32, 64, 96, 128)
 _BLOCK_ROWS = 64        # query rows per block (4 warps x 16)
 _MAX_GRID_Y = 65535     # row blocks per (batch, KV head)
+# dtype -> (kernel library in csrc/, its C entry point)
+_KERNELS = {torch.bfloat16: ("flash_attention", "kj_flash_attention_bf16"),
+            torch.float32: ("flash_attention_f32", "kj_flash_attention_f32")}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -92,8 +98,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention: tensors on {q.device}/{k.device}/"
                          f"{v.device}; the kernel takes one CUDA device")
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError(f"flash_attention kernel takes bf16, got {q.dtype}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _KERNELS:
+        raise TypeError(f"flash_attention kernels take bf16 or f32 q/k/v of one "
+                        f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     check_shapes(q, k, v)
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
@@ -104,8 +111,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty(B, S, H, D, dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, o)
                                       for s in t.stride()[:3]))
-    lib = build.load("flash_attention")
-    fn = lib.kj_flash_attention_bf16
+    name, symbol = _KERNELS[q.dtype]
+    lib = build.load(name)
+    fn = getattr(lib, symbol)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int64)] + \
             [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
@@ -114,9 +122,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              B, H, Hkv, S, T, D, int(q_offset), int(T if kv_len is None else kv_len),
              int(causal), int(window or 0), float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, err, "flash_attention")
-    flash_attention.launches += 1
+    build.check(lib, err, name)
+    if q.dtype == torch.float32:
+        flash_attention.launches_f32 += 1
+    else:
+        flash_attention.launches += 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.launches_f32 = 0

@@ -10,6 +10,9 @@ what the design does about it.
 
 `int4_matvec` launches the kernel for CUDA tensors and raises on what the
 kernel does not take; it runs the plain version only for tensors on the CPU.
+As the Pallas kernel, it takes x in bf16 or f32 and answers in x's dtype: an
+f32 x is rounded to bf16 (the Pallas body's first step) and the kernel
+writes its f32 sums as f32.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ _GEMM_MAX_SPLITS = 16
 _GEMM_STAGE_US = {32: 1.3, 64: 2.0, 128: 3.5}
 _SUM_BYTES_PER_US = 60e3
 _SMS = 132              # H100 SXM
+# x's dtype -> the C entry point writing y in that dtype (x goes in as bf16)
+_OUTPUTS = {torch.bfloat16: "kj_int4_matvec_bf16", torch.float32: "kj_int4_matvec_bf16_f32"}
 
 
 class Plan(NamedTuple):
@@ -115,10 +120,16 @@ def unpack_int4(w4: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def int4_matvec_plain(x: torch.Tensor, w4: torch.Tensor,
-                      scale: torch.Tensor) -> torch.Tensor:
+                      scale: torch.Tensor, x_as_bf16: bool = False) -> torch.Tensor:
     """The same function in plain torch ops, computed in x's dtype with the
     products accumulated in f32 (models/llama.py::_mm's w4 branch in the JAX
-    package): x [M, K], w4 [K/2, N], scale [G, N] -> [M, N]."""
+    package): x [M, K], w4 [K/2, N], scale [G, N] -> [M, N].
+
+    x_as_bf16: the kernel's form instead, as the Pallas kernel computes it:
+    x rounded to bf16, the product in f32, the result in x's dtype."""
+    if x_as_bf16:
+        y = int4_matvec_plain(x.to(torch.bfloat16).float(), w4, scale)
+        return y.to(x.dtype)
     K2, N = w4.shape
     G = scale.shape[0]
     lo, hi = (t.to(x.dtype) for t in unpack_int4(w4))
@@ -146,10 +157,10 @@ def int4_matvec(x: torch.Tensor, w4: torch.Tensor, scale: torch.Tensor) -> torch
     if x.device.type != "cuda" or w4.device != x.device or scale.device != x.device:
         raise ValueError(f"int4_matvec: tensors on {x.device}/{w4.device}/"
                          f"{scale.device}; the kernel takes one CUDA device")
-    if x.dtype != torch.bfloat16 or w4.dtype != torch.int8 \
+    if x.dtype not in _OUTPUTS or w4.dtype != torch.int8 \
             or scale.dtype != torch.float32:
-        raise TypeError(f"int4_matvec kernel takes bf16 x, int8 w4, f32 scale; "
-                        f"got {x.dtype}, {w4.dtype}, {scale.dtype}")
+        raise TypeError(f"int4_matvec kernel takes bf16 or f32 x, int8 w4, f32 "
+                        f"scale; got {x.dtype}, {w4.dtype}, {scale.dtype}")
     g = K // G if G else 0
     if 2 * K2 != K or scale.shape[1] != N or G < 1 or g * G != K or \
             (G > 1 and (G % 2 or g % 16 or K2 % 16)):
@@ -163,16 +174,19 @@ def int4_matvec(x: torch.Tensor, w4: torch.Tensor, scale: torch.Tensor) -> torch
 
 def _launch(x: torch.Tensor, w4: torch.Tensor, scale: torch.Tensor,
             plan: Plan) -> torch.Tensor:
-    """One launch of the kernel by `plan`, on inputs int4_matvec has checked."""
+    """One launch of the kernel by `plan`, on inputs int4_matvec has checked:
+    the output in x's dtype, an f32 x rounded to bf16 first."""
     M, K = x.shape
     N, G = w4.shape[1], scale.shape[0]
     y = torch.empty(M, N, dtype=x.dtype, device=x.device)
+    symbol = _OUTPUTS[x.dtype]
+    x = x.to(torch.bfloat16)
     ws = counters = None
     if plan.path == "gemm" and plan.splits > 1:
         ws = torch.empty(plan.splits * M * N, dtype=torch.float32, device=x.device)
         counters = _counters(x.device, -(-N // _GEMM_COLS) * -(-M // plan.row_tile))
     lib = build.load("int4_matvec")
-    fn = lib.kj_int4_matvec_bf16
+    fn = getattr(lib, symbol)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int

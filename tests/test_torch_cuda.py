@@ -10,8 +10,12 @@ and bit-identical repeat calls. Also the encoder (the embed path, which has no
 hand-written kernel): its bf16 embeddings against f32 on the card, and that it
 launches neither kernel; and a tiny decoder's generation, batch, continuous
 engine (flash admission forced by a shrunk score gate) and speculative
-decoding on the card, each held against its plain kernels' forward. Skipped
-without a card; on the machine with the card
+decoding on the card, each held against its plain kernels' forward. f32 on
+the card: the f32 flash kernel over the same tile classes and head dims
+(within 1e-5 of the largest output), int4 with f32 activations (rounded to
+bf16, f32 out) against the plain version in that form, f16 refused,
+Generator(dtype="f32") against the CPU's greedy ids, and the CLI's generate
+against Generator's text. Skipped without a card; on the machine with the card
 (which has no jax, hence --noconftest):
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -25,6 +29,7 @@ per-element rtol would misfire on outputs near zero.
 """
 
 import contextlib
+import json
 
 import pytest
 import torch
@@ -165,12 +170,63 @@ def test_flash_kernel_refuses_unsupported_head_dims(card):
             flash_attention(q, q, q)
 
 
-def test_kernels_refuse_f32_on_the_card(card):
-    q = torch.zeros(1, 2, 8, 64, device=card)
+@pytest.mark.parametrize("B,H,Hkv,S,T,D,causal,window,q_offset,kv_len", _FLASH_TILES)
+def test_flash_f32_kernel_tile_classes(card, B, H, Hkv, S, T, D, causal, window,
+                                       q_offset, kv_len):
+    """The f32 kernel over the same tile classes and all four head dims:
+    within 1e-5 of the plain output's largest magnitude (both compute in f32;
+    they differ in the order of their sums), bit-identical on a repeat, and
+    counted as the f32 kernel's launch."""
+    g = torch.Generator(device=card).manual_seed(B + H + S + T + D + 1)
+    q = torch.randn(B, S, H, D, generator=g, device=card).transpose(1, 2)
+    k = torch.randn(B, Hkv, T, D, generator=g, device=card)
+    v = torch.randn(B, Hkv, T, D, generator=g, device=card)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    ref = flash_attention_plain(q, k, v, **kw)
+    if kv_len is not None:
+        k[:, :, kv_len:], v[:, :, kv_len:] = 1e3, -1e3
+    before = flash_attention.launches, flash_attention.launches_f32
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (B, H, S, D)
+    assert (flash_attention.launches, flash_attention.launches_f32) == \
+        (before[0], before[1] + 1)
+    err = (got - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), err
+    assert torch.equal(flash_attention(q, k, v, **kw), got)
+
+
+@pytest.mark.parametrize("M,K,N,group", [(1, 2048, 8192, 128), (1, 2048, 128256, 128),
+                                         (1, 200, 128, 200), (8, 2048, 1002, 128),
+                                         (8, 8192, 2048, 128), (33, 512, 264, 128),
+                                         (1024, 2048, 8192, 128), (1024, 2048, 512, 2048)])
+def test_int4_kernel_f32_activations(card, M, K, N, group):
+    """An f32 x: the kernel rounds it to bf16 (as the Pallas body does) and
+    writes f32, held to the plain version in the same form (x_as_bf16)
+    within 1e-5 of its largest output (the two differ only in the order of
+    their f32 sums); the same output stored through bf16 must fall outside
+    that bound; a repeat is bit-identical."""
+    x, w4, scale = _int4_inputs(card, M, K, N, group)
+    x = x.float() + torch.randn(M, K, device=card) * 1e-3   # not already bf16
+    got = int4_matvec(x, w4, scale)
+    ref = int4_matvec_plain(x, w4, scale, x_as_bf16=True)
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype == torch.float32 and got.shape == (M, N)
+    tol = 1e-5 * ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    assert err <= tol, (err, tol)
+    assert (got.to(torch.bfloat16).float() - ref).abs().max().item() > tol
+    assert torch.equal(int4_matvec(x, w4, scale), got)
+
+
+def test_kernels_refuse_f16_on_the_card(card):
+    q = torch.zeros(1, 2, 8, 64, device=card, dtype=torch.float16)
     with pytest.raises(TypeError):
         flash_attention(q, q, q)
     with pytest.raises(TypeError):
-        int4_matvec(torch.zeros(1, 256, device=card),
+        flash_attention(q.float(), q.float(), q)
+    with pytest.raises(TypeError):
+        int4_matvec(torch.zeros(1, 256, device=card, dtype=torch.float16),
                     torch.zeros(128, 64, dtype=torch.int8, device=card),
                     torch.ones(2, 64, device=card))
 
@@ -563,3 +619,170 @@ def test_searcher_on_the_card_matches_the_cpu(encoder_dir, tmp_path):
         assert [r.document_id for r in a] == [r.document_id for r in b]
         assert max(abs(x.score - y.score) for x, y in zip(a, b)) <= 1e-5
     assert on_card.segments[0].store._device_matrix.is_cuda
+
+
+def _f32_ids_agree(cpu_lm, prompt_ids, card_ids, cpu_ids):
+    """f32 greedy ids on the card against the CPU's: equal, or parting only
+    where the CPU's top-2 logits lie within 1e-4 (sums in another order)."""
+    import chip_smoke
+    n = chip_smoke._common_prefix(card_ids, cpu_ids)
+    if n < min(len(card_ids), len(cpu_ids)):
+        ids = list(prompt_ids) + list(cpu_ids[:n])
+        top2 = torch.topk(chip_smoke.prefill_logits(cpu_lm, ids, device="cpu")[0], 2)
+        assert (top2.values[0] - top2.values[1]).item() < 1e-4, (n, card_ids, cpu_ids)
+    else:
+        assert card_ids == cpu_ids
+
+
+def test_generator_f32_on_the_card_matches_the_cpu(decoder_dir):
+    """Generator(dtype="f32") on the card against the CPU's f32 greedy ids:
+    equal, or parting only where the CPU's top-2 logits lie within 1e-4. The
+    300- and 600-word prompts (buckets 512 and 1024) prefill through the f32
+    flash kernel (one launch per layer), and no bf16 flash launches."""
+    import chip_smoke
+    from kjarni_tpu_torch import Generator
+    from kjarni_tpu_torch.core.bucketing import seq_bucket
+    d, prompts = decoder_dir
+    card = Generator(str(d), dtype="f32")
+    cpu = Generator(str(d), device="cpu")
+    assert card.lm._cache_dtype == cpu.lm._cache_dtype == torch.float32
+    for text in prompts[2:]:
+        before = flash_attention.launches, flash_attention.launches_f32
+        kw = dict(preset="greedy", max_new_tokens=8, max_length=2048)
+        card.generate(text, **kw)
+        cpu.generate(text, **kw)
+        n_prompt = len(cpu.lm.encode_prompt(text))
+        a, b = card.lm._session_ids[n_prompt:], cpu.lm._session_ids[n_prompt:]
+        flash = (flash_attention.launches - before[0], flash_attention.launches_f32 - before[1])
+        bucket = seq_bucket(n_prompt, card.lm.max_context)
+        assert flash == (0, _TINY_LLAMA["num_hidden_layers"] if bucket >= 512 else 0)
+        _f32_ids_agree(cpu.lm, cpu.lm._session_ids[:n_prompt], a, b)
+
+
+def test_generate_batch_f32_on_the_card_matches_the_cpu(decoder_dir):
+    """generate_batch in f32 on the card (the padded batch: no flash, the
+    plain attention with the pad mask) gives the CPU's f32 texts."""
+    from kjarni_tpu_torch import Generator
+    d, prompts = decoder_dir
+    card = Generator(str(d), dtype="f32")
+    cpu = Generator(str(d), device="cpu")
+    kw = dict(preset="greedy", max_new_tokens=8, max_length=2048)
+    before = flash_attention.launches, flash_attention.launches_f32
+    got = card.generate_batch(prompts, **kw)
+    assert (flash_attention.launches, flash_attention.launches_f32) == before
+    assert got == cpu.generate_batch(prompts, **kw) and all(got)
+
+
+def test_continuous_engine_f32_on_the_card_matches_the_cpu(decoder_dir):
+    """The ContinuousEngine in f32 on the card, every admission wave forced
+    onto flash: the waves run the f32 kernel (one launch per layer of each
+    wave, no bf16 launch), and every request's greedy ids equal those of the
+    same engine on the CPU."""
+    from kjarni_tpu_torch import Generator
+    d, prompts = decoder_dir
+    card = Generator(str(d), dtype="f32").lm
+    cpu = Generator(str(d), device="cpu").lm
+    before = flash_attention.launches, flash_attention.launches_f32
+    run = _engine_run(card, prompts, None)
+    waves = run["probe"].modes.get("flash", 0)
+    assert set(run["probe"].modes) == {"flash"} and waves > 0
+    assert (flash_attention.launches - before[0], flash_attention.launches_f32 - before[1]) \
+        == (0, _TINY_LLAMA["num_hidden_layers"] * waves)
+    ref = _engine_run(cpu, prompts, None)
+    assert sorted(run["done"]) == sorted(ref["done"])
+    for rid, fr in run["done"].items():
+        ids, _ = run["meta"][rid]
+        _f32_ids_agree(cpu, ids, fr.token_ids, ref["done"][rid].token_ids)
+
+
+def test_speculative_f32_on_the_card_matches_the_cpu(decoder_dir):
+    """A self-drafting SpeculativeGenerator in f32 on the card: the target's
+    and the draft's prefills run the f32 kernel, and the emitted ids equal
+    the same generator's on the CPU."""
+    from kjarni_tpu_torch import Generator
+    from kjarni_tpu_torch.generate.sampling import GenerationConfig
+    from kjarni_tpu_torch.generate.speculative import SpeculativeGenerator
+    d, prompts = decoder_dir
+    cfg = GenerationConfig.greedy(max_new_tokens=24, max_length=2048)
+    out = {}
+    for where in ("cuda", "cpu"):
+        lm = Generator(str(d), dtype="f32", device=where).lm
+        ids = lm.encode_prompt(prompts[3])
+        spec = SpeculativeGenerator(lm, lm, num_tokens=4)
+        before = flash_attention.launches, flash_attention.launches_f32
+        out[where] = [st.id for st in spec.generate_stream(token_ids=ids, config=cfg)]
+        got = (flash_attention.launches - before[0], flash_attention.launches_f32 - before[1])
+        assert got == ((0, 2 * _TINY_LLAMA["num_hidden_layers"]) if where == "cuda" else (0, 0))
+    assert len(out["cuda"]) == 24
+    _f32_ids_agree(lm, ids, out["cuda"], out["cpu"])
+
+
+def test_offload_ends_f32_on_the_card_matches_the_cpu(decoder_dir):
+    """offload_ends in f32 on the card (the table and head in host memory,
+    f32 flash prefill): greedy ids equal the CPU's."""
+    from kjarni_tpu_torch import Generator
+    d, prompts = decoder_dir
+    off = Generator(str(d), dtype="f32", execution_plan="offload_ends")
+    cpu = Generator(str(d), device="cpu")
+    assert off.lm.params["embed"].device.type == "cpu" and off.lm.config.lm_head_on_host
+    assert off.lm.params["embed"].dtype == torch.float32
+    kw = dict(preset="greedy", max_new_tokens=8, max_length=2048)
+    before = flash_attention.launches_f32
+    off.generate(prompts[3], **kw)
+    cpu.generate(prompts[3], **kw)
+    assert flash_attention.launches_f32 - before == _TINY_LLAMA["num_hidden_layers"]
+    n_prompt = len(cpu.lm.encode_prompt(prompts[3]))
+    _f32_ids_agree(cpu.lm, cpu.lm._session_ids[:n_prompt], off.lm._session_ids[n_prompt:],
+                   cpu.lm._session_ids[n_prompt:])
+
+
+@pytest.mark.parametrize("quantize", [None, "int4"])
+def test_f32_checkpoint_loads_to_the_card_bit_equal(decoder_dir, tmp_path, quantize):
+    """convert_model in f32 (plain and int4) on the card: the checkpoint
+    loads as f32, bit-equal to the model dir's f32 params."""
+    import chip_smoke
+    from kjarni_tpu_torch.models.decoder_lm import DecoderLM
+    from kjarni_tpu_torch.weights.checkpoint import convert_model
+    d, _ = decoder_dir
+    out = convert_model(d, tmp_path / "ckpt", dtype="f32", quantize=quantize)
+    got, want = DecoderLM(out), DecoderLM(d, dtype="f32", quantize=quantize)
+    assert got._cache_dtype == torch.float32 and got.params["embed"].is_cuda
+    assert chip_smoke._same_tree(got.params, want.params)
+
+
+def test_chat_f32_on_the_card(decoder_dir):
+    """Chat(dtype="f32") on the card: f32 weights, and a 600-word turn
+    prefills through the f32 flash kernel (one launch per layer) and no bf16
+    one; the reply joins the history. (Greedy ids against the CPU's are the
+    Generator test's: the same DecoderLM.)"""
+    from kjarni_tpu_torch import Chat
+    d, prompts = decoder_dir
+    chat = Chat(str(d), dtype="f32")
+    assert chat._lm.params["embed"].dtype == torch.float32
+    before = flash_attention.launches, flash_attention.launches_f32
+    reply = chat.send(prompts[3], preset="greedy", max_new_tokens=8, max_length=2048)
+    assert (flash_attention.launches - before[0], flash_attention.launches_f32 - before[1]) \
+        == (0, _TINY_LLAMA["num_hidden_layers"])
+    assert chat.conversation.messages[-1].content == reply
+
+
+def test_cli_generate_on_the_card_matches_the_generator(decoder_dir, tmp_path, monkeypatch,
+                                                        capsys):
+    """The port's CLI in this process, on the card (no --device), under a
+    kjarni.toml asking for int4: its text equals Generator's with the same
+    options, and int4 launches."""
+    from kjarni_tpu_torch import Generator
+    from kjarni_tpu_torch.cli.main import main
+    from kjarni_tpu_torch.tasks.generator import resolve_generation_config
+    d, prompts = decoder_dir
+    monkeypatch.delenv("KJARNI_CONFIG", raising=False)
+    (tmp_path / "kjarni.toml").write_text(f'[models."{d}"]\nquantize = "int4"\n')
+    monkeypatch.chdir(tmp_path)
+    before = int4_matvec.launches
+    assert main(["generate", prompts[0], "--model", str(d), "--max-tokens", "8",
+                 "--preset", "greedy", "--format", "json"]) == 0
+    got = json.loads(capsys.readouterr().out)["text"]
+    assert int4_matvec.launches > before
+    cfg = resolve_generation_config("greedy", None, max_new_tokens=8)
+    want = Generator(str(d), quantize="int4").generate(prompts[0], config=cfg)
+    assert got == want and got

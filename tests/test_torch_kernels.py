@@ -175,6 +175,26 @@ class TestInt4PlainVsJax:
                                    rtol=2e-2, atol=2e-2)
         assert _cos(got.float().numpy(), ref) > 0.999
 
+    @pytest.mark.parametrize("B,K,N,g", [(1, 256, 512, 64), (5, 512, 1000, 128)])
+    def test_x_as_bf16_matches_the_pallas_kernel(self, B, K, N, g):
+        """The kernel's form for f32 activations: the Pallas kernel rounds an
+        f32 x to bf16, accumulates in f32 and writes f32; the plain version
+        with x_as_bf16 computes the same, and the plain default does not
+        round x."""
+        from kjarni_tpu_torch.ops.kernels.int4_matvec import int4_matvec_plain
+        x, w4, scale, _, ref = make_int4_case(B, K, N, g, seed=K + N + B + 1)
+        got = int4_matvec_plain(to_torch(x), torch.from_numpy(w4), to_torch(scale),
+                                x_as_bf16=True)
+        assert got.dtype == torch.float32
+        jk = np.asarray(jax_int4_matvec(jnp.asarray(x), jnp.asarray(w4),
+                                        jnp.asarray(scale), block_n=256,
+                                        interpret=True))
+        assert jk.dtype == np.float32
+        np.testing.assert_allclose(got.numpy(), jk, rtol=1e-5, atol=1e-5)
+        assert _cos(got.numpy(), ref) > 0.999
+        plain = int4_matvec_plain(to_torch(x), torch.from_numpy(w4), to_torch(scale))
+        assert not torch.equal(plain, got)
+
     def test_single_group_matches_mm(self):
         # K % 256 != 0: quantize_params_int4 falls back to one scale per column
         x, w4, scale, _, ref = make_int4_case(3, 192, 200, 192, seed=7)
