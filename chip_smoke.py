@@ -41,15 +41,21 @@ Phases, in order (all by default); any failure raises and exits non-zero:
    (materialized_ms). At M = 1 the int4 line also has gemm_ms: the prefill
    GEMM on the same input, beside the GEMV that decode takes. Then f32: the
    f32 flash kernel at the Llama-1B prefill, the follow-up's cache reuse,
-   Phi-3.5-mini's D = 96, a window of 64 and D = 128 and 32, each within
-   1e-5 of the plain output's largest magnitude, bit-identical on a repeat,
-   a call dropping the last key outside that bound, SDPA on the same f32
-   tensors as the yardstick (its backend named), the bound from the f32
-   bytes and the 66.9 TFLOP/s f32 FFMA rate; and int4 with f32 activations
+   Phi-3.5-mini's D = 96, a window of 64, D = 128 and 32, and whisper-small's
+   encoder shape (B 1, 12 heads, S = T = 1500, non-causal; off the path, as
+   the f32 Transcriber runs plain attention), each within 1e-5 of the plain
+   output's largest magnitude, bit-identical on a repeat, a call dropping the
+   last key and the TF32-only control (the kernel without its split's small
+   terms) outside that bound, SDPA on the same f32 tensors as the yardstick
+   (its backend named), and two bounds from the f32 bytes: the 3xTF32
+   design's (three TF32 products per operation at 495 TFLOP/s, bound_ms) and
+   the FFMA design's (66.9 TFLOP/s, bound_ms_ffma); and int4 with f32 activations
    at M = 1 (every projection and the head), 8 and 1024: f32 output, held to
    the plain version with x rounded to bf16 (x_as_bf16) by the int4 check,
-   bit-identical on a repeat. `--phases env,flash` runs the flash cases
-   alone, bf16 and f32.
+   bit-identical on a repeat, and per decoded token the parent's form (the
+   wrapper's x cast, then the kernel) against the GEMV that rounds f32 x
+   itself, device and eager ms, bit-identical. `--phases env,flash` runs
+   the flash cases alone, bf16 and f32.
 3. bf16: Generator over a Llama-3.2-1B-shaped checkpoint (full width, 16
    layers, random bf16 weights from a seeded generator on the card) answers
    three requests: a greedy generate on a ~700-token prompt (flash prefill), a
@@ -266,8 +272,10 @@ time beside; also printed before it: the 7 launches of one layer at
 each M), then
 "total <seconds>", then the card's name and power limit as nvidia-smi gives
 them. bound_ms is the larger of the bytes moved over 3.35 TB/s and the
-operations over their peak: 989 TFLOP/s bf16 on the tensor cores, 66.9
-TFLOP/s f32 FFMA for the f32 kernel (H100 SXM data sheet). The last line is
+operations over their peak: 989 TFLOP/s bf16 on the tensor cores; for the
+f32 kernel three TF32 products per operation at 495 TFLOP/s (its 3xTF32
+design), with the 66.9 TFLOP/s f32 FFMA bound beside it as bound_ms_ffma
+(H100 SXM data sheet). The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -290,8 +298,13 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
-# f32 outside the tensor cores: 132 SMs x 128 FFMA x 2 x 1.98 GHz (H100 SXM)
+# f32 outside the tensor cores: 132 SMs x 128 FFMA x 2 x 1.98 GHz (H100 SXM);
+# the f32 flash kernel's earlier FFMA design is bound by it
 F32_FLOP_PER_S = 66.9e12
+# dense TF32 on the tensor cores (H100 SXM data sheet); the f32 flash kernel's
+# 3xTF32 design does three TF32 products per f32 one, so its bound is the f32
+# work at a third of this rate
+TF32_FLOP_PER_S = 495e12
 ROOT = Path(__file__).resolve().parent
 
 # Llama-3.2-1B's public config.json values
@@ -457,6 +470,17 @@ def phase_env() -> None:
                          if m else line.split("'")[1][:60])
             elif "registers" in line or "spill" in line:
                 print(f"  ptxas {entry or name}: {line.strip().replace('ptxas info    : ', '')}")
+    # what each library runs on: its SASS's warpgroup (HGMMA) and warp (HMMA)
+    # tensor-core instructions by operand type
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    for name in build.KERNELS:
+        sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path(name))],
+                              capture_output=True, text=True, timeout=120).stdout
+        ops = {}
+        for op in re.findall(r"\b(H[G]?MMA\.[0-9A-Za-z.]+)", sass):
+            ops[op] = ops.get(op, 0) + 1
+        print(f"  sass {name}: " + (", ".join(f"{k} x{v}" for k, v in sorted(ops.items()))
+                                     or "no tensor-core instruction"))
 
 
 # ---------------------------------------------------------------------------
@@ -500,8 +524,11 @@ def flash_case(name, B, H, Hkv, S, T, D, causal=True, window=None, q_offset=0,
     [B, Hkv, cache_len, D] cache, and the line also times the materialized
     attention of _run_stack over the whole cache. controls: name -> keyword
     overrides of a wrong kernel call, each of which must fall outside the
-    bound. f32: f32 inputs (the f32 kernel; its bound counts 4-byte elements
-    and the f32 FFMA rate), else bf16."""
+    bound; a callable control is called instead of the kernel, with the
+    case's keywords. f32: f32 inputs (the f32 kernel; its bound_ms counts
+    4-byte elements and three TF32 products per operation at the tensor
+    cores' TF32 rate, the 3xTF32 design, and bound_ms_ffma the f32 FFMA
+    rate, the FFMA design), else bf16."""
     import torch
     import torch.nn.functional as F
     from kjarni_tpu_torch.ops.kernels import flash_attention as fa
@@ -541,7 +568,8 @@ def flash_case(name, B, H, Hkv, S, T, D, causal=True, window=None, q_offset=0,
     launches = getattr(flash_attention, counter) - launches0
     control_errs = {}
     for control, over in (controls or {}).items():
-        bad = flash_attention(q, k, v, **{**kw, **over})
+        bad = over(q, k, v, **kw) if callable(over) else flash_attention(q, k, v,
+                                                                         **{**kw, **over})
         control_errs[control] = (bad.float() - ref.float()).abs().max().item()
         check(control_errs[control] > tol, f"flash {name}: control {control} reads "
                                            f"{control_errs[control]}, outside {tol}")
@@ -580,11 +608,16 @@ def flash_case(name, B, H, Hkv, S, T, D, causal=True, window=None, q_offset=0,
     pairs = _attended_pairs(S, T, causal, window, q_offset, kv)
     nbytes = q.element_size() * (2 * B * H * S * D + 2 * B * Hkv * min(kv, T) * D)
     flops = 4 * D * pairs * B * H
-    bound, bound_by = bound_ms(nbytes, flops, F32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
+    if f32:
+        bound, bound_by = bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)
+    else:
+        bound, bound_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
     row = {"case": f"flash {name}", "launches": getattr(flash_attention, counter) - launches0,
            "max_abs_err": err, "bound": tol, "kernel_ms": kernel_ms,
            "eager_ms": eager_ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "library_kernel": library_kernel, "bound_ms": bound, "bound_by": bound_by}
+    if f32:
+        row["bound_ms_ffma"], row["bound_by_ffma"] = bound_ms(nbytes, flops, F32_FLOP_PER_S)
     if materialized_ms is not None:
         row["materialized_ms"] = materialized_ms
     if control_errs:
@@ -801,17 +834,22 @@ FLASH_F32_REF_TOL = 1e-5     # of the plain output's largest magnitude
 
 def flash_f32_case(name, B, H, Hkv, S, T, D, **kw) -> dict:
     """flash_case in f32, held to FLASH_F32_REF_TOL of the largest plain
-    output; a call that drops the last key it attends must fall outside."""
+    output; a call that drops the last key it attends, and the kernel with
+    its split's small terms dropped (TF32 only, where the checkout has that
+    control), must fall outside."""
+    from kjarni_tpu_torch.ops.kernels import flash_attention as fa
     kv = kw.get("kv_len") or T
+    controls = {"last key dropped": {"kv_len": kv - 1}}
+    if hasattr(fa, "flash_attention_f32_tf32only"):
+        controls["TF32 only"] = fa.flash_attention_f32_tf32only
     return flash_case(f"f32 {name}", B, H, Hkv, S, T, D, f32=True,
-                      ref_tol=FLASH_F32_REF_TOL,
-                      controls={"last key dropped": {"kv_len": kv - 1}}, **kw)
+                      ref_tol=FLASH_F32_REF_TOL, controls=controls, **kw)
 
 
 def phase_flash_f32() -> list:
     """The f32 kernel at the f32 generation path's shapes: the Llama-1B
     prefill and the follow-up's cache reuse, Phi-3.5-mini's D = 96, a window,
-    and the other two head dims."""
+    the other two head dims, and whisper-small's encoder shape."""
     B, H, Hkv, D = 1, 32, 8, 64
     flash = [
         flash_f32_case("llama1b-prefill S=T=1024", B, H, Hkv, 1024, 1024, D, seed=20),
@@ -823,6 +861,10 @@ def phase_flash_f32() -> list:
         flash_f32_case("window=64", 1, 8, 2, 512, 512, D, window=64, seed=23),
         flash_f32_case("D=128 gqa", 1, 16, 4, 512, 512, 128, seed=24),
         flash_f32_case("D=32 gqa", 2, 8, 2, 256, 256, 32, seed=25),
+        # off the path: the f32 Transcriber's encoder runs plain attention
+        # (flash is its bf16 form's); the shape is checked and timed all the same
+        flash_f32_case("whisper-encoder B=1 H=12 S=T=1500 non-causal", 1, 12, 12, 1500,
+                       1500, D, causal=False, seed=26),
     ]
     return [r for r in flash if r is not None]
 
@@ -845,16 +887,78 @@ def phase_int4_f32(shapes: dict, per_token: dict) -> dict:
     return {"rows": list(rows.values()), "token": tok}
 
 
-def _x_cast_cost(shapes: dict, per_token: dict) -> dict:
-    """What the wrapper's separate rounding of an f32 x to bf16 costs one
-    decoded token (one cast launch before each of its 113 int4 launches): the
-    casts' device ms (graph-timed) and their eager ms on the host."""
+def _int4_cast_then_kernel(x, w4, scale, plan):
+    """x rounded to bf16 by torch, then int4's bf16-x, f32-output entry
+    point with `plan`: the form that the GEMV's own f32 load replaced."""
+    import ctypes
     import torch
-    xs = {n: torch.randn(1, K, device="cuda") for n, (K, _) in shapes.items()}
-    dev = sum(per_token[n] * cuda_ms(lambda x=x: x.to(torch.bfloat16)) for n, x in xs.items())
-    eager = sum(per_token[n] * host_ms(lambda x=x: x.to(torch.bfloat16), iters=200)
-                for n, x in xs.items())
-    return {"x_cast_ms": dev, "x_cast_eager_ms": eager}
+    from kjarni_tpu_torch.ops.kernels import build
+    xb = x.to(torch.bfloat16)
+    M, K = x.shape
+    N, G = w4.shape[1], scale.shape[0]
+    y = torch.empty(M, N, dtype=torch.float32, device=x.device)
+    lib = build.load("int4_matvec")
+    fn = lib.kj_int4_matvec_bf16_f32
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(xb.data_ptr(), w4.data_ptr(), scale.data_ptr(), y.data_ptr(), None, None,
+             M, K, N, G, 0, plan.col_threads, plan.rows_per_lane, plan.row_tile,
+             plan.splits, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, "int4_matvec")
+    return y
+
+
+def _x_cast_cost(shapes: dict, per_token: dict) -> dict:
+    """What the GEMV's own rounding of an f32 x removed from one decoded
+    token (113 int4 launches at M = 1): the parent's form (x.to(bfloat16),
+    then the bf16-x f32-output entry point, _int4_cast_then_kernel) against
+    the one call that takes
+    f32 x, each checked bit-identical to the other first; device ms
+    (graph-timed, over weight copies filling > 2x L2 as in int4_case) and
+    eager ms on the host, summed over the token. An older checkout (--root),
+    whose wrapper casts, reports the cast alone."""
+    import torch
+    from kjarni_tpu_torch.ops.kernels import int4_matvec as i4
+    if not hasattr(i4, "_ENTRIES"):
+        xs = {n: torch.randn(1, K, device="cuda") for n, (K, _) in shapes.items()}
+        dev = sum(per_token[n] * cuda_ms(lambda x=x: x.to(torch.bfloat16))
+                  for n, x in xs.items())
+        eager = sum(per_token[n] * host_ms(lambda x=x: x.to(torch.bfloat16), iters=200)
+                    for n, x in xs.items())
+        return {"x_cast_ms": dev, "x_cast_eager_ms": eager}
+    keys = ("parent_form_ms", "fused_ms", "parent_form_eager_ms", "fused_eager_ms")
+    out = dict.fromkeys(keys, 0.0)
+    for i, (n, (K, N)) in enumerate(shapes.items()):
+        w4, scale = _int4_weights(K, N, K // 128, seed=60 + i)
+        g = torch.Generator(device="cuda").manual_seed(70 + i)
+        x = torch.randn(1, K, generator=g, device="cuda")
+        plan = i4.launch_plan(1, K, N, K // 128)
+        copies = max(1, min(64, math.ceil(100e6 / (w4.numel() + scale.numel() * 4))))
+        ws = [(w4.clone(), scale.clone()) for _ in range(copies)]
+        it = [0]
+
+        def parent():
+            w, s = ws[it[0] % copies]
+            it[0] += 1
+            return _int4_cast_then_kernel(x, w, s, plan)
+
+        def fused():
+            w, s = ws[it[0] % copies]
+            it[0] += 1
+            return i4.int4_matvec(x, w, s)
+        it[0] = 0
+        a = parent()
+        it[0] = 0
+        check(torch.equal(a, fused()), f"int4 f32 M=1 {n}: one call bit-identical to "
+                                       f"the cast and the bf16-x kernel")
+        iters = max(20, copies)
+        for key, fn in (("parent_form", parent), ("fused", fused)):
+            out[f"{key}_ms"] += per_token[n] * cuda_ms(fn, iters=iters)
+            out[f"{key}_eager_ms"] += per_token[n] * host_ms(fn, iters=max(200, copies))
+        del ws
+    out["removed_ms"] = out["parent_form_ms"] - out["fused_ms"]
+    out["removed_eager_ms"] = out["parent_form_eager_ms"] - out["fused_eager_ms"]
+    return out
 
 
 def phase_kernels() -> dict:
@@ -4863,7 +4967,9 @@ def main() -> int:
                                          for r in kern["int4_f32"]["rows"]),
              "f32_out_control_over_tol": min(r["bf16_store_control_err"] / r["f32_tol"]
                                              for r in kern["int4_f32"]["rows"]),
-             "f32_out_ms": kern["int4_f32"]["token"]["kernel_ms"]},
+             "f32_out_ms": kern["int4_f32"]["token"]["kernel_ms"],
+             "f32_x_removed_ms": kern["int4_f32"]["token"].get("removed_ms"),
+             "f32_x_removed_eager_ms": kern["int4_f32"]["token"].get("removed_eager_ms")},
         ]}
         if kern["flash_f32"]:   # not in an older checkout (--root)
             f32 = kern["flash_f32"][0]
@@ -4875,7 +4981,11 @@ def main() -> int:
                 "max_abs_err": max(r["max_abs_err"] for r in kern["flash_f32"]),
                 "ms": f32["kernel_ms"], "plain_ms": f32["plain_ms"],
                 "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
-                "library_ms": f32["library_ms"]})
+                "library_ms": f32["library_ms"],
+                "bound_ms_ffma": f32.get("bound_ms_ffma"),
+                "tf32_only_control_over_tol": min(
+                    (r["control_max_abs_err"].get("TF32 only", math.inf) / r["bound"]
+                     for r in kern["flash_f32"]), default=None)})
         print(json.dumps(line))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -5,18 +5,22 @@
 // (low nibble = row r, high nibble = row r + K/2), scale [G,N] f32 over groups
 // of g = K/G rows; the group scale multiplies the f32 partial of its group,
 // not the weight. Output [M,N] bf16, or f32 where x came in f32: the Pallas
-// kernel rounds x to bf16 in its body and writes x's dtype, so the wrapper
-// rounds an f32 x to bf16 and the kernels store their f32 sums as f32 (the
-// store is a template on the output type; nothing else differs). G == 1 (one
-// scale per column) is taken as well as even G. Two kernels; the wrapper's
-// launch_plan picks one by M.
+// kernel rounds x to bf16 in its body and writes x's dtype, so the kernels
+// store their f32 sums as f32 (the store is a template on the output type).
+// The decode GEMV also takes an f32 x itself and rounds each element to bf16
+// where it loads it, as torch's .to(bfloat16) rounds (to nearest even), so
+// a decoded f32 token pays no separate cast; the prefill GEMM takes bf16 x,
+// cast by the wrapper (one M x K cast feeds an M x K x N product). G == 1
+// (one scale per column) is taken as well as even G. Two kernels; the
+// wrapper's launch_plan picks one by M.
 //
 // Decode (M == 1): int4_gemv_kernel. Every packed byte is read once and used
 // for 4 flops, so it is bound by device-memory bytes (K*N/2 weight bytes).
 //   * a block owns 8 * col_threads columns and all of K: each thread owns 8
 //     columns (one 8-byte load per packed row) and walks its share of K in
 //     steps of 8 rows, the next step's weight and x loads issued before the
-//     current step is used (x is small and stays in L1/L2); the plan picks
+//     current step is used (x is small and stays in L1/L2; an f32 x is two
+//     16-byte loads a step, rounded to bf16 in registers); the plan picks
 //     col_threads so that even small N fills the card without splitting K
 //     across blocks;
 //   * nibbles are decoded in registers with bit operations: a nibble moved to
@@ -50,6 +54,8 @@
 // One block (8 warps) fits an SM, for its shared memory, and the ldmatrix ->
 // mma latency is poorly hidden. Next (later work): wgmma with TMA-fed,
 // warp-specialised stages.
+#include <type_traits>
+
 #include "mma.cuh"
 
 namespace {
@@ -57,7 +63,7 @@ namespace {
 constexpr int kThreads = 256;
 
 struct Int4Params {
-  const __nv_bfloat16* x;      // [M, K]
+  const void* x;               // [M, K]: bf16, or f32 in the GEMV (its XT)
   const uint8_t* w4;           // [K/2, N]
   const float* scale;          // [G, N]
   void* y;                     // [M, N], bf16 or f32 (the kernels' OutT)
@@ -147,7 +153,24 @@ __device__ __forceinline__ uint4 load_x8(const __nv_bfloat16* src, int r, int r_
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
+// f32 x[m, r..r+7] rounded to 8 bf16 (to nearest even, as torch's
+// .to(bfloat16)), packed as the bf16 version loads them; zeros past r_end
+__device__ __forceinline__ uint4 load_x8(const float* src, int r, int r_end, bool vec) {
+  if (vec && r + kUnroll <= r_end) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(src));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(src) + 1);
+    return make_uint4(kj::pack_bf16(a.x, a.y), kj::pack_bf16(a.z, a.w),
+                      kj::pack_bf16(b.x, b.y), kj::pack_bf16(b.z, b.w));
+  }
+  float f[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) f[u] = r + u < r_end ? __ldg(src + u) : 0.f;
+  return make_uint4(kj::pack_bf16(f[0], f[1]), kj::pack_bf16(f[2], f[3]),
+                    kj::pack_bf16(f[4], f[5]), kj::pack_bf16(f[6], f[7]));
+}
+
 // the weight bytes of rows r..r+7 and x's matching rows of both halves
+template <typename XT>
 __device__ __forceinline__ void load_step(const Int4Params& p, int r, int rb, int col0,
                                           int valid, uint2 (&q)[kUnroll], uint4 (&xv)[2]) {
   const int K2 = p.K / 2;
@@ -155,13 +178,15 @@ __device__ __forceinline__ void load_step(const Int4Params& p, int r, int rb, in
   for (int u = 0; u < kUnroll; ++u)
     q[u] = r + u < rb ? load_bytes(p.w4 + (int64_t)(r + u) * p.N + col0, valid, p.vec_w)
                       : make_uint2(0u, 0u);
-  xv[0] = load_x8(p.x + r, r, rb, p.vec_x);
-  xv[1] = load_x8(p.x + K2 + r, r, rb, p.vec_x);
+  const XT* x = static_cast<const XT*>(p.x);
+  xv[0] = load_x8(x + r, r, rb, p.vec_x);
+  xv[1] = load_x8(x + K2 + r, r, rb, p.vec_x);
 }
 
 // one row of x; block = col_threads threads across 8 * col_threads columns x
 // kThreads / col_threads threads down K, each over rows_per_lane packed rows.
-template <typename OutT>
+// XT: x's type (bf16, or f32 rounded to bf16 where it is loaded).
+template <typename XT, typename OutT>
 __global__ void __launch_bounds__(kThreads, 2) int4_gemv_kernel(const Int4Params p) {
   constexpr int kWarps = kThreads / 32;
   __shared__ __align__(16) float red[kWarps][kV * kMaxColThreads];
@@ -183,13 +208,13 @@ __global__ void __launch_bounds__(kThreads, 2) int4_gemv_kernel(const Int4Params
 
   uint2 qn[kUnroll];
   uint4 xn[2];
-  if (ra < rb) load_step(p, ra, rb, col0, valid, qn, xn);
+  if (ra < rb) load_step<XT>(p, ra, rb, col0, valid, qn, xn);
   for (int r = ra; r < rb; r += kUnroll) {
     uint2 q[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) q[u] = qn[u];
     const uint4 xv[2] = {xn[0], xn[1]};
-    if (r + kUnroll < rb) load_step(p, r + kUnroll, rb, col0, valid, qn, xn);
+    if (r + kUnroll < rb) load_step<XT>(p, r + kUnroll, rb, col0, valid, qn, xn);
     if (r == ra || r % g == 0) {           // a group starts: its scales
       load_scales(slo, p.scale + (int64_t)(r / g) * p.N + col0, valid, p.vec_s);
       load_scales(shi, p.scale + (int64_t)((K2 + r) / g) * p.N + col0, valid, p.vec_s);
@@ -313,7 +338,8 @@ __device__ __forceinline__ void load_stage(const Int4Params& p, unsigned char* s
     const int c = (i % (kBKP / 8)) * 8;
     const int m = m0 + row, k = rs + c;
     __nv_bfloat16* dst = xs + h * (T::kBM * kXStride) + row * kXStride + c;
-    const __nv_bfloat16* src = p.x + (int64_t)m * p.K + h * K2 + k;
+    const __nv_bfloat16* src =
+        static_cast<const __nv_bfloat16*>(p.x) + (int64_t)m * p.K + h * K2 + k;
     if constexpr (kAligned) {
       const bool ok = m < p.M && k < K2;
       cp_async16(dst, ok ? src : p.x, ok);
@@ -621,10 +647,10 @@ __global__ void __launch_bounds__(kThreads, 1) int4_gemm_kernel(const Int4Params
   sum_splits<kMI, OutT>(p, m0, n0, gridDim.z);
 }
 
-template <typename OutT>
+template <typename XT, typename OutT>
 cudaError_t launch_gemv(const Int4Params& p, cudaStream_t st) {
   const int BN = kV * p.col_threads;
-  int4_gemv_kernel<OutT><<<(p.N + BN - 1) / BN, kThreads, 0, st>>>(p);
+  int4_gemv_kernel<XT, OutT><<<(p.N + BN - 1) / BN, kThreads, 0, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -665,13 +691,14 @@ cudaError_t launch_gemm_tile(const Int4Params& p, int splits, cudaStream_t st) {
 // K split across `splits` blocks per output tile (1..16, none of them empty).
 // With splits > 1, `ws` holds splits * M * N floats and `counters` one int per
 // output tile, all zero; the kernel leaves them zero. Returns a cudaError_t;
-// 0 means the launch was accepted.
-template <typename OutT>
+// 0 means the launch was accepted. XT, x's type: bf16 on both paths, f32 on
+// the GEMV alone.
+template <typename XT, typename OutT>
 int run(const void* x, const void* w4, const void* scale, void* y, void* ws, void* counters,
         int M, int K, int N, int G, int path, int col_threads, int rows_per_lane,
         int row_tile, int splits, void* stream) {
   Int4Params p;
-  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.x = x;
   p.w4 = static_cast<const uint8_t*>(w4);
   p.scale = static_cast<const float*>(scale);
   p.y = y;
@@ -685,6 +712,8 @@ int run(const void* x, const void* w4, const void* scale, void* y, void* ws, voi
   p.vec_x = K % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (path == 1) {
+    if constexpr (!std::is_same_v<XT, __nv_bfloat16>)   // the GEMM reads bf16 x
+      return static_cast<int>(cudaErrorInvalidValue);
     const int nst = (K / 2 + kBKP - 1) / kBKP;
     p.split_stages = splits > 0 ? (nst + splits - 1) / splits : 0;
     if (splits < 1 || splits > kMaxSplits || (splits - 1) * p.split_stages >= nst ||
@@ -702,7 +731,7 @@ int run(const void* x, const void* w4, const void* scale, void* y, void* ws, voi
       (col_threads & (col_threads - 1)) != 0 ||
       rows_per_lane % kUnroll != 0 || (int64_t)lanes * rows_per_lane < K / 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_gemv<OutT>(p, st));
+  return static_cast<int>(launch_gemv<XT, OutT>(p, st));
 }
 
 }  // namespace
@@ -712,16 +741,28 @@ extern "C" int kj_int4_matvec_bf16(const void* x, const void* w4, const void* sc
                                    void* y, void* ws, void* counters, int M, int K, int N,
                                    int G, int path, int col_threads, int rows_per_lane,
                                    int row_tile, int splits, void* stream) {
-  return run<__nv_bfloat16>(x, w4, scale, y, ws, counters, M, K, N, G, path, col_threads,
-                            rows_per_lane, row_tile, splits, stream);
+  return run<__nv_bfloat16, __nv_bfloat16>(x, w4, scale, y, ws, counters, M, K, N, G, path,
+                                           col_threads, rows_per_lane, row_tile, splits,
+                                           stream);
 }
 
-// y f32 (x bf16, an f32 input rounded by the wrapper)
+// y f32 (x bf16, an f32 input rounded by the wrapper: the prefill GEMM)
 extern "C" int kj_int4_matvec_bf16_f32(const void* x, const void* w4, const void* scale,
                                        void* y, void* ws, void* counters, int M, int K,
                                        int N, int G, int path, int col_threads,
                                        int rows_per_lane, int row_tile, int splits,
                                        void* stream) {
-  return run<float>(x, w4, scale, y, ws, counters, M, K, N, G, path, col_threads,
-                    rows_per_lane, row_tile, splits, stream);
+  return run<__nv_bfloat16, float>(x, w4, scale, y, ws, counters, M, K, N, G, path,
+                                   col_threads, rows_per_lane, row_tile, splits, stream);
+}
+
+// y f32 (x f32, rounded to bf16 in the kernel's loads): the decode GEMV only
+// (path 0); path 1 is refused. Bit-identical to kj_int4_matvec_bf16_f32 on
+// x.to(bfloat16).
+extern "C" int kj_int4_matvec_f32(const void* x, const void* w4, const void* scale, void* y,
+                                  void* ws, void* counters, int M, int K, int N, int G,
+                                  int path, int col_threads, int rows_per_lane, int row_tile,
+                                  int splits, void* stream) {
+  return run<float, float>(x, w4, scale, y, ws, counters, M, K, N, G, path, col_threads,
+                           rows_per_lane, row_tile, splits, stream);
 }

@@ -12,7 +12,9 @@ what the design does about it.
 kernel does not take; it runs the plain version only for tensors on the CPU.
 As the Pallas kernel, it takes x in bf16 or f32 and answers in x's dtype: an
 f32 x is rounded to bf16 (the Pallas body's first step) and the kernel
-writes its f32 sums as f32.
+writes its f32 sums as f32. The decode GEMV rounds an f32 x itself where it
+loads it (one launch, no M x K temporary); the GEMM takes x cast to bf16 by
+the wrapper.
 """
 
 from __future__ import annotations
@@ -37,8 +39,12 @@ _GEMM_MAX_SPLITS = 16
 _GEMM_STAGE_US = {32: 1.3, 64: 2.0, 128: 3.5}
 _SUM_BYTES_PER_US = 60e3
 _SMS = 132              # H100 SXM
-# x's dtype -> the C entry point writing y in that dtype (x goes in as bf16)
-_OUTPUTS = {torch.bfloat16: "kj_int4_matvec_bf16", torch.float32: "kj_int4_matvec_bf16_f32"}
+# (x's dtype as the kernel reads it, y's dtype) -> the C entry point; the
+# GEMM reads bf16 x only
+_ENTRIES = {(torch.bfloat16, torch.bfloat16): "kj_int4_matvec_bf16",
+            (torch.bfloat16, torch.float32): "kj_int4_matvec_bf16_f32",
+            (torch.float32, torch.float32): "kj_int4_matvec_f32"}
+_X_DTYPES = (torch.bfloat16, torch.float32)
 
 
 class Plan(NamedTuple):
@@ -157,7 +163,7 @@ def int4_matvec(x: torch.Tensor, w4: torch.Tensor, scale: torch.Tensor) -> torch
     if x.device.type != "cuda" or w4.device != x.device or scale.device != x.device:
         raise ValueError(f"int4_matvec: tensors on {x.device}/{w4.device}/"
                          f"{scale.device}; the kernel takes one CUDA device")
-    if x.dtype not in _OUTPUTS or w4.dtype != torch.int8 \
+    if x.dtype not in _X_DTYPES or w4.dtype != torch.int8 \
             or scale.dtype != torch.float32:
         raise TypeError(f"int4_matvec kernel takes bf16 or f32 x, int8 w4, f32 "
                         f"scale; got {x.dtype}, {w4.dtype}, {scale.dtype}")
@@ -175,12 +181,14 @@ def int4_matvec(x: torch.Tensor, w4: torch.Tensor, scale: torch.Tensor) -> torch
 def _launch(x: torch.Tensor, w4: torch.Tensor, scale: torch.Tensor,
             plan: Plan) -> torch.Tensor:
     """One launch of the kernel by `plan`, on inputs int4_matvec has checked:
-    the output in x's dtype, an f32 x rounded to bf16 first."""
+    the output in x's dtype. The GEMV takes an f32 x as it is; the GEMM gets
+    it rounded to bf16 here."""
     M, K = x.shape
     N, G = w4.shape[1], scale.shape[0]
     y = torch.empty(M, N, dtype=x.dtype, device=x.device)
-    symbol = _OUTPUTS[x.dtype]
-    x = x.to(torch.bfloat16)
+    if plan.path == "gemm":
+        x = x.to(torch.bfloat16)
+    symbol = _ENTRIES[(x.dtype, y.dtype)]
     ws = counters = None
     if plan.path == "gemm" and plan.splits > 1:
         ws = torch.empty(plan.splits * M * N, dtype=torch.float32, device=x.device)

@@ -12,10 +12,12 @@ launches neither kernel; and a tiny decoder's generation, batch, continuous
 engine (flash admission forced by a shrunk score gate) and speculative
 decoding on the card, each held against its plain kernels' forward. f32 on
 the card: the f32 flash kernel over the same tile classes and head dims
-(within 1e-5 of the largest output), int4 with f32 activations (rounded to
-bf16, f32 out) against the plain version in that form, f16 refused,
-Generator(dtype="f32") against the CPU's greedy ids, and the CLI's generate
-against Generator's text. Skipped without a card; on the machine with the card
+(within 1e-5 of the largest output), its TF32-only control outside that
+bound, int4 with f32 activations (rounded to bf16, f32 out) against the
+plain version in that form, the decode GEMV's own rounding of f32 x
+bit-identical to torch's cast plus the kernel and one kernel per call, f16
+refused, Generator(dtype="f32") against the CPU's greedy ids, and the CLI's
+generate against Generator's text. Skipped without a card; on the machine with the card
 (which has no jax, hence --noconftest):
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -29,13 +31,16 @@ per-element rtol would misfire on outputs near zero.
 """
 
 import contextlib
+import ctypes
 import json
 
 import pytest
 import torch
 
 from kjarni_tpu_torch.models.llama import _quant_int4
+from kjarni_tpu_torch.ops.kernels import build
 from kjarni_tpu_torch.ops.kernels.flash_attention import (flash_attention,
+                                                          flash_attention_f32_tf32only,
                                                           flash_attention_plain)
 from kjarni_tpu_torch.ops.kernels.int4_matvec import (int4_matvec, int4_matvec_plain,
                                                       launch_plan)
@@ -217,6 +222,86 @@ def test_int4_kernel_f32_activations(card, M, K, N, group):
     assert err <= tol, (err, tol)
     assert (got.to(torch.bfloat16).float() - ref).abs().max().item() > tol
     assert torch.equal(int4_matvec(x, w4, scale), got)
+
+
+# the TF32-only control at the Llama-1B prefill and the D = 128 case of
+# chip_smoke.py's f32 flash phase
+_TF32_CONTROL = [(1, 32, 8, 1024, 1024, 64), (1, 16, 4, 512, 512, 128)]
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,T,D", _TF32_CONTROL)
+def test_flash_f32_tf32_only_control_breaks_the_bound(card, B, H, Hkv, S, T, D):
+    """The f32 kernel's accuracy comes from the split: with its small terms
+    dropped (one TF32 product each) the same call falls outside the 1e-5
+    bound that the kernel holds, by a TF32-sized error (under 1e-2 of the
+    largest output, not a broken call), and is not counted as a launch."""
+    g = torch.Generator(device=card).manual_seed(H + S + D)
+    q = torch.randn(B, H, S, D, generator=g, device=card)
+    k = torch.randn(B, Hkv, T, D, generator=g, device=card)
+    v = torch.randn(B, Hkv, T, D, generator=g, device=card)
+    ref = flash_attention_plain(q, k, v, causal=True)
+    tol = 1e-5 * ref.abs().max().item()
+    before = flash_attention.launches_f32
+    bad = flash_attention_f32_tf32only(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_f32 == before
+    assert tol < (bad - ref).abs().max().item() < 1e3 * tol
+    assert (flash_attention(q, k, v, causal=True) - ref).abs().max().item() <= tol
+
+
+# every M = 1 case of test_int4_kernel_f32_activations, one decoded token's
+# projections at Llama-1B width (q/o, k/v, gate/up, down) and its head
+_F32_GEMV = [(1, 2048, 8192, 128), (1, 2048, 128256, 128), (1, 200, 128, 200),
+             (1, 2048, 2048, 128), (1, 2048, 512, 128), (1, 8192, 2048, 128)]
+
+
+def _int4_cast_then_kernel(x, w4, scale, plan):
+    """The form that the GEMV's own f32 load replaced: x rounded to bf16 by
+    torch, then the bf16-x, f32-output entry point."""
+    xb = x.to(torch.bfloat16)
+    M, K = x.shape
+    N, G = w4.shape[1], scale.shape[0]
+    y = torch.empty(M, N, dtype=torch.float32, device=x.device)
+    lib = build.load("int4_matvec")
+    fn = lib.kj_int4_matvec_bf16_f32
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(xb.data_ptr(), w4.data_ptr(), scale.data_ptr(), y.data_ptr(), None, None,
+             M, K, N, G, 0, plan.col_threads, plan.rows_per_lane, plan.row_tile,
+             plan.splits, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, "int4_matvec")
+    return y
+
+
+@pytest.mark.parametrize("M,K,N,group", _F32_GEMV)
+def test_int4_gemv_takes_f32_x_bit_for_bit(card, M, K, N, group):
+    """The GEMV rounds an f32 x to bf16 where it loads it: bit-identical to
+    the wrapper's cast followed by the bf16-x, f32-output entry point."""
+    x, w4, scale = _int4_inputs(card, M, K, N, group)
+    x = x.float() + torch.randn(M, K, device=card) * 1e-3   # not already bf16
+    plan = launch_plan(M, K, N, K // group)
+    assert plan.path == "gemv"
+    got = int4_matvec(x, w4, scale)
+    cast = _int4_cast_then_kernel(x, w4, scale, plan)
+    torch.cuda.synchronize()
+    assert got.dtype == cast.dtype == torch.float32
+    assert torch.equal(got, cast)
+
+
+def test_int4_f32_gemv_is_one_kernel(card):
+    """One call with f32 x at M = 1 launches exactly one kernel: no cast."""
+    from torch.profiler import ProfilerActivity, profile
+    x, w4, scale = _int4_inputs(card, 1, 2048, 8192, 128)
+    x = x.float()
+    int4_matvec(x, w4, scale)                  # built and loaded outside the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        int4_matvec(x, w4, scale)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+    assert [e.name for e in kernels if "int4_gemv_kernel" in e.name] and len(kernels) == 1, \
+        [e.name for e in kernels]
 
 
 def test_kernels_refuse_f16_on_the_card(card):
