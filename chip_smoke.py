@@ -4,7 +4,8 @@ paths, the decoder's infrastructure, f32 on the card and the user surfaces
 (the CLI, the C ABI) on one CUDA card and check them.
 
     python3 chip_smoke.py [--phases env,kernels,bf16,int4,int8,batch,chat,gpt2,serve,
-                                    infra,f32,surfaces,seq2seq,whisper,embed,search]
+                                    infra,f32,surfaces,parallel,seq2seq,whisper,embed,
+                                    search]
                           [--root DIR]
 
 --root DIR imports kjarni_tpu_torch from another checkout (an older commit,
@@ -260,11 +261,33 @@ Phases, in order (all by default); any failure raises and exits non-zero:
    step, and each surface's seconds beyond the Python API's for the same step
    (overhead_s; the CLI's include its model load).
 
-After each of phases 3-16 a line gives its own launches (the counts are set
+17. parallel (run after 16, over the same weights): the port's parallel
+   paths, each rank a process spawned on this card (every rank on cuda:0,
+   gloo staged through host memory: the card count is 1; the env phase
+   prints the card's compute mode, and anything but Default fails here).
+   Two ranks: DecoderLM(tp=2) in bf16 on the 701-token prompt with 32 new
+   greedy tokens, the ids equal on both ranks and teacher-forced within
+   the 0.5-logit band of tp = 1 on this card (phase 8's gate); f32 tp = 2
+   over the first 2 layers, prefill logits within 1e-4 of the largest f32
+   tp = 1 logit; a dp = 2 MiniLM-L6 SentenceEncoder on 256 texts, f32 rows
+   within 1e-5 of dp = 1 and bf16 rows at cosine >= 0.999 of f32;
+   pipeline_forward at pp = 2 (8 layers a stage, n_micro 4, B 4 at S 1024)
+   and pp_generate (32 tokens on B 2), and sequence_parallel_forward at
+   sp = 2 (S 1024), each in the band of one process. Four ranks:
+   DecoderLM(tp=4) in int4, as tp = 2. Each rank returns its kernel
+   launches, which count as this phase's; prefill ms, decode tok/s and the
+   pp / sp times are printed with the card's name, as ranks sharing one
+   card, not a scale-out number. Phase 2 also holds both kernels at a tp
+   rank's shapes (flash over H16 Hkv4 and H8 Hkv2 at S = T = 1024, the f32
+   kernel over H16 Hkv4; int4 at
+   every tp = 2 and tp = 4 local projection and head shape at M = 1 and
+   1024).
+
+After each of phases 3-17 a line gives its own launches (the counts are set
 to 0 just before it and read just after; 10 and 11 must launch no int4, 12
 and 13 nothing). At
 the end come three lines: a JSON object {"kernels": [...]} (per kernel the
-launches of phases 3-16,
+launches of phases 3-17,
 max_abs_err over its cases, and ms / plain_ms / bound_ms / library_ms -- for
 flash and f32 flash one launch at the Llama-1B prefill shape, for int4 the
 113 launches of one decoded token, with its f32-output max_abs_err and
@@ -322,7 +345,7 @@ INT4_PER_FORWARD = 7 * LLAMA_1B["num_hidden_layers"] + 1
 # the phases over the Llama-3.2-1B-width weights (3-9 and 14), between the
 # launch counts' reset and their reading
 GENERATION = ("bf16", "int4", "int8", "batch", "chat", "gpt2", "serve", "infra", "f32",
-              "surfaces")
+              "surfaces", "parallel")
 # the encoder-decoder phases (10 and 11), also on the main path
 ENC_DEC = ("seq2seq", "whisper")
 FLASH_PER_PREFILL = LLAMA_1B["num_hidden_layers"]
@@ -438,6 +461,7 @@ def phase_env() -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0])
+    print(f"compute mode: {compute_mode()}")
     # the C ABI embeds CPython: g++, python3-config and Python.h must be there
     from kjarni_tpu_torch.ffi import build as ffi_build
     import shutil
@@ -1006,10 +1030,51 @@ def phase_kernels() -> dict:
     total({**prefill[8], "lm_head 2048x128256": head8}, per_token,
           "int4 one batched decode step of 8 rows (113 launches)")
     int4_f32 = phase_int4_f32(shapes, per_token)
-    return {"flash": flash, "flash_f32": flash_f32, "int4_f32": int4_f32,
+    tp = phase_tp_kernels(total, per_token)
+    return {"flash": flash + tp["flash"], "flash_f32": flash_f32 + tp["flash_f32"],
+            "int4_f32": int4_f32,
             "int4": list(int4.values()) + [head8] + [r for rows in prefill.values()
-                                                     for r in rows.values()],
+                                                     for r in rows.values()] + tp["int4"],
             "int4_token": tok}
+
+
+# each projection's and the head's (K, N) on one rank of the tp decoder at
+# Llama-3.2-1B's widths: q, k, v, gate, up and the head column-parallel (N/tp),
+# o and down row-parallel (K/tp)
+def tp_shapes(tp: int) -> dict:
+    c = LLAMA_1B
+    hid, inter, V = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
+    q, kv = c["num_attention_heads"] * c["head_dim"], c["num_key_value_heads"] * c["head_dim"]
+    return {"q": (hid, q // tp), "k/v": (hid, kv // tp), "o": (q // tp, hid),
+            "gate/up": (hid, inter // tp), "down": (inter // tp, hid),
+            "lm_head": (hid, V // tp)}
+
+
+def phase_tp_kernels(total, per_token: dict) -> dict:
+    """Both kernels at the shapes one rank of the tp decoder launches (the
+    parallel phase), against their plain versions with the same bounds:
+    flash over a rank's heads at the 1024 prefill (H16 Hkv4 at tp = 2, H8
+    Hkv2 at tp = 4), int4 at every local shape at M = 1 (decode) and M = 1024
+    (the prefill), with a rank's decoded token summed (113 launches)."""
+    c = LLAMA_1B
+    H, Hkv, D = c["num_attention_heads"], c["num_key_value_heads"], c["head_dim"]
+    flash = [flash_case(f"tp={tp} rank prefill H{H // tp} Hkv{Hkv // tp} S=T=1024",
+                        1, H // tp, Hkv // tp, 1024, 1024, D, seed=60 + tp)
+             for tp in (2, 4)]
+    # phase 17's f32 tp = 2 prefill
+    flash_f32 = [flash_f32_case(f"tp=2 rank prefill H{H // 2} Hkv{Hkv // 2} S=T=1024",
+                                1, H // 2, Hkv // 2, 1024, 1024, D, seed=66)]
+    counts = {"q": 16, "k/v": 32, "o": 16, "gate/up": 32, "down": 16, "lm_head": 1}
+    check(sum(counts.values()) == sum(per_token.values()), "a rank's token: 113 launches")
+    int4 = []
+    for tp in (2, 4):
+        for M in (1, 1024):
+            rows = {n: int4_case(f"tp={tp} M={M} {n} {K}x{N}", M, K, N, seed=70 + i)
+                    for i, (n, (K, N)) in enumerate(tp_shapes(tp).items())}
+            int4 += rows.values()
+            if M == 1:
+                total(rows, counts, f"int4 one decoded token on a tp={tp} rank (113 launches)")
+    return {"flash": flash, "flash_f32": flash_f32, "int4": int4}
 
 
 # ---------------------------------------------------------------------------
@@ -1387,6 +1452,8 @@ def phase_slices(phases) -> None:
             _counted("f32", phase_f32, d, Path(tmp), ran)
         if "surfaces" in phases:
             _counted("surfaces", phase_surfaces, d, Path(tmp))
+        if "parallel" in phases:
+            _counted("parallel", phase_parallel, d, Path(tmp))
 
 
 def _counts() -> tuple[int, int]:
@@ -4898,6 +4965,420 @@ def phase_surfaces(d: Path, tmp: Path) -> dict:
     print(json.dumps(row))
     return row
 
+# ---------------------------------------------------------------------------
+# phase 17: parallelism (tp, dp, pp, sp over torch.distributed)
+# ---------------------------------------------------------------------------
+
+PAR_NEW_TOKENS = 32
+PAR_TIE_BAND = SERVE_TIE_BAND       # teacher-forced logit margins, as in phase 8
+PAR_F32_TOL = 1e-4                  # of the largest f32 logit, as phase 15 holds f32
+PAR_DP_F32_ATOL = 1e-5              # dp rows against dp = 1, f32
+PAR_TIMEOUT_S = 600                 # one group's whole run
+PAR_SEQ = 1024
+
+
+def compute_mode() -> str:
+    """The card's compute mode: ranks sharing one card need "Default"."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+
+
+def _rank_main(rank: int, world: int, init: str, jobs: list, results) -> None:
+    """One rank of a spawned group: gloo over a file rendezvous, every rank
+    on cuda:0, the `_par_<name>` jobs in order. Each job's launches are its
+    own main-path kernel launches (a job puts back those it makes for a
+    reference or a timing)."""
+    import datetime
+    import traceback
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=300))
+        out = {}
+        for name, args in jobs:
+            before = _all_counts()
+            out[name] = globals()[f"_par_{name}"](*args)
+            out[name]["launches"] = [a - b for a, b in zip(_all_counts(), before)]
+            gc.collect()
+            torch.cuda.empty_cache()
+        results.put((rank, True, out))
+    except BaseException:   # reported to the parent, which fails the phase
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _spawn_ranks(world: int, tmp: Path, jobs: list) -> list:
+    """Run `jobs` on `world` spawned ranks sharing cuda:0; each rank's
+    results, in rank order. Any rank that fails or does not answer in
+    PAR_TIMEOUT_S fails the phase; every rank is stopped before return."""
+    import multiprocessing as mp
+    import queue
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    init = tmp / f"rendezvous-{world}-{time.monotonic_ns()}"
+    procs = [ctx.Process(target=_rank_main, args=(r, world, str(init), jobs, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got, errors = {}, []
+    deadline = time.monotonic() + PAR_TIMEOUT_S
+    try:
+        while len(got) < world and not errors:
+            try:
+                rank, ok, value = results.get(timeout=max(1.0, deadline - time.monotonic()))
+            except queue.Empty:
+                errors.append(f"ranks {sorted(set(range(world)) - set(got))} did not "
+                              f"answer in {PAR_TIMEOUT_S} s")
+                break
+            if ok:
+                got[rank] = value
+            else:
+                errors.append(f"rank {rank} failed:\n{value}")
+    finally:
+        for p in procs:
+            p.join(timeout=5 if errors else 60)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+    check(not errors, "; ".join(errors))
+    return [got[r] for r in range(world)]
+
+
+def _leaves(tree):
+    """The tensors of a param tree."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif hasattr(tree, "nbytes"):
+        yield tree
+
+
+def _par_prefill(lm, ids: list):
+    """One from-zero prefill of ids at its seq bucket over a fresh cache of
+    this rank's KV heads (flash at a bucket >= 512): logits [V]."""
+    import torch
+    from kjarni_tpu_torch.core.bucketing import seq_bucket
+    bucket = seq_bucket(len(ids), lm.max_context)
+    x = torch.zeros(1, bucket, dtype=torch.long, device=lm.device)
+    x[0, :len(ids)] = torch.tensor(ids, device=lm.device)
+    ck, cv = lm._new_cache(1, bucket)
+    with torch.inference_mode():
+        return lm.family.forward(lm.params, lm.config, x, ck, cv, 0, len(ids) - 1,
+                                 use_flash=lm._flash_ok and bucket >= lm._flash_min_seq,
+                                 **lm.fwd_kw)[0][0]
+
+
+def _par_tp(model: str, quantize, prompt: str) -> dict:
+    """DecoderLM(tp=world) on the 701-token prompt: PAR_NEW_TOKENS greedy
+    ids streamed, the prefill's median ms over 3 more calls, decode tok/s."""
+    import torch
+    import torch.distributed as dist
+    from kjarni_tpu_torch.generate.sampling import GenerationConfig
+    from kjarni_tpu_torch.models.decoder_lm import DecoderLM
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = DecoderLM(model, quantize=quantize, tp=dist.get_world_size())
+    load_s = time.perf_counter() - t0
+    # what loading held on the card at most, against the shard it keeps
+    load_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    shard_gb = sum(t.nbytes for t in _leaves(lm.params)
+                   if t.device.type == "cuda") / 1e9
+    ids = lm.encode_prompt(prompt)
+    check(lm.device.type == "cuda" and lm._flash_ok, "tp: the model on the card, flash on")
+    cfg = GenerationConfig.greedy(max_new_tokens=PAR_NEW_TOKENS, max_length=4096)
+    torch.cuda.reset_peak_memory_stats()
+    f0, i0, _ = _all_counts()
+    torch.cuda.synchronize()
+    t, first, out = time.perf_counter(), None, []
+    for st in lm.generate_stream(token_ids=ids, config=cfg):
+        first = first or time.perf_counter()
+        out.append(st.id)
+    end = time.perf_counter()
+    flash_n, int4_n = _all_counts()[0] - f0, _all_counts()[1] - i0
+    check(flash_n == FLASH_PER_PREFILL, f"tp: {flash_n} flash launches on a rank's prefill")
+    want = INT4_PER_FORWARD * (1 + len(out)) if quantize == "int4" else 0
+    check(int4_n == want, f"tp: {int4_n} int4 launches on a rank, expected {want}")
+    counts = _all_counts()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _par_prefill(lm, ids)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t1))
+    prefill_ms = statistics.median(times)
+    _restore(counts)
+    # the transport alone: one all-reduce of a decode step's hidden state
+    # (o and down each take one per layer) and of the 1024 prefill's, and the
+    # decode step's as a host tensor (gloo without the card's copies)
+    comm = lm.tp
+    allreduce_ms = {}
+    hid = lm.config.hidden_size
+    for name, shape, dev in (("decode", (1, 1, hid), lm.device),
+                             ("prefill", (1, 1024, hid), lm.device),
+                             ("decode_host_tensor", (1, 1, hid), "cpu")):
+        x = torch.ones(shape, dtype=lm._cache_dtype, device=dev)
+        ar = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            comm.all_reduce(x.clone())
+            torch.cuda.synchronize()
+            ar.append(1e3 * (time.perf_counter() - t1))
+        allreduce_ms[name] = statistics.median(ar[5:])
+    q = lm.params["layers"]["q"]
+    return {"ids": out, "prompt_len": len(ids), "load_s": load_s,
+            "allreduce_ms": allreduce_ms,
+            "ttft_ms": 1e3 * (first - t), "decode_tok_s": (len(out) - 1) / (end - first),
+            "prefill_ms": prefill_ms,
+            "q_cols": (q["w4"] if "w4" in q else q["w"]).shape[-1],
+            "transport": lm.tp.transport(lm.device), "load_peak_gb": load_peak_gb,
+            "shard_gb": shard_gb, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _par_tp_f32(model: str, prompt: str) -> dict:
+    """f32 DecoderLM(tp=world) over the 2-layer dir: the prompt's prefill
+    logits (the f32 flash kernel on this rank's heads)."""
+    import torch.distributed as dist
+    from kjarni_tpu_torch.models.decoder_lm import DecoderLM
+    lm = DecoderLM(model, dtype="f32", tp=dist.get_world_size())
+    return {"logits": _par_prefill(lm, lm.encode_prompt(prompt)).float().cpu().numpy()}
+
+
+def _par_dp(model: str, texts: list) -> dict:
+    """SentenceEncoder(dp=world) on the texts, f32 and bf16, and bf16
+    texts/s (median of 3 calls)."""
+    import torch
+    import torch.distributed as dist
+    from kjarni_tpu_torch.models.encoder_models import SentenceEncoder
+    n = dist.get_world_size()
+    f32 = SentenceEncoder(model, dtype="f32", dp=n).encode_batch(texts)
+    enc = SentenceEncoder(model, dp=n)
+    bf16 = enc.encode_batch(texts)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        enc.encode_batch(texts)
+        times.append(time.perf_counter() - t)
+    return {"f32": f32, "bf16": bf16, "texts_per_s": len(texts) / statistics.median(times),
+            "transport": enc._dp.transport(enc.device)}
+
+
+def _par_params(model: str):
+    import torch
+    from kjarni_tpu_torch.models import llama as kllama
+    from kjarni_tpu_torch.weights.safetensors_loader import ModelWeights
+    cfg = kllama.DecoderConfig.from_hf(json.loads((Path(model) / "config.json").read_text()))
+    return cfg, kllama.load_params(ModelWeights(model), cfg, torch.bfloat16,
+                                   rope_cache_len=2 * PAR_SEQ, device="cuda")
+
+
+def _par_band(params, cfg, ids, logits) -> dict:
+    """The one-process plain forward over ids [B, S] (no kernel): each
+    position's margin max(ref) - ref[argmax(logits)], and the largest
+    |logits - ref|."""
+    import torch
+    from kjarni_tpu_torch.models import llama as kllama
+    counts = _all_counts()
+    B, S = ids.shape
+    margins, diff = [], 0.0
+    with torch.inference_mode():
+        for b in range(B):
+            ck, cv = kllama.init_cache(cfg, 1, S, torch.bfloat16, "cuda")
+            ref = kllama.forward_all_logits(params, cfg, ids[b:b + 1], ck, cv, 0)[0][0]
+            ref = ref.float()
+            got = logits[b].float()
+            pick = got.argmax(-1)
+            margins.append((ref.max(-1).values - ref.gather(-1, pick[:, None])[:, 0]).max().item())
+            diff = max(diff, (got - ref).abs().max().item())
+            del ref, got, ck, cv
+    _restore(counts)
+    return {"band_max": max(margins), "max_abs_diff": diff}
+
+
+def _par_pp(model: str, ids) -> dict:
+    """pipeline_forward (n_micro 4, B 4 at S 1024) and pp_generate
+    (PAR_NEW_TOKENS on B 2) over a ("pp",) mesh of every rank, each stage
+    holding its layers; rank 0 holds both in the tie band of one process."""
+    import torch
+    import torch.distributed as dist
+    from kjarni_tpu_torch.parallel.mesh import shard_params_with
+    from kjarni_tpu_torch.parallel.pipeline import (make_pp_mesh, pipeline_forward,
+                                                    pp_generate, pp_param_sharding)
+    cfg, params = _par_params(model)
+    mesh = make_pp_mesh(dist.get_world_size())
+    local = shard_params_with(params, pp_param_sharding(mesh), mesh)
+    if dist.get_rank():
+        del params
+    x = torch.tensor(ids, device="cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits = pipeline_forward(local, cfg, x, mesh, n_micro=4)
+    torch.cuda.synchronize()
+    fwd_ms = 1e3 * (time.perf_counter() - t)
+    t = time.perf_counter()
+    toks = pp_generate(local, cfg, x[:2], mesh, PAR_NEW_TOKENS)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    out = {"forward_ms": fwd_ms, "generate_s": gen_s,
+           "decode_tok_s": toks.numel() / gen_s, "layers_here": local["layers"]["q"]["w"].shape[0],
+           "transport": mesh.comm("pp").transport("cuda")}
+    if dist.get_rank() == 0:
+        out["forward"] = _par_band(params, cfg, x, logits)
+        full = torch.cat([x[:2], toks[:, :-1]], dim=1)
+        rows = [torch.arange(PAR_SEQ - 1, PAR_SEQ - 1 + PAR_NEW_TOKENS)] * 2
+        out["generate"] = _par_teacher_forced(params, cfg, full, toks, rows)
+    return out
+
+
+def _par_teacher_forced(params, cfg, full, toks, rows) -> dict:
+    """The margins of the generated ids in the one-process plain forward over
+    prompt + generated ids (phase 8's teacher-forced band)."""
+    import torch
+    from kjarni_tpu_torch.models import llama as kllama
+    counts = _all_counts()
+    margins = []
+    with torch.inference_mode():
+        for b in range(full.shape[0]):
+            ck, cv = kllama.init_cache(cfg, 1, full.shape[1], torch.bfloat16, "cuda")
+            ref = kllama.forward_all_logits(params, cfg, full[b:b + 1], ck, cv, 0)[0][0]
+            ref = ref[rows[b].to(ref.device)].float()
+            margins += _margins(ref, toks[b].tolist())
+    _restore(counts)
+    return {"band_max": max(margins)}
+
+
+def _par_sp(model: str, ids) -> dict:
+    """sequence_parallel_forward over B 1 at S 1024 on an ("sp",) mesh of
+    every rank; rank 0 holds its logits in the tie band of one process."""
+    import torch
+    import torch.distributed as dist
+    from kjarni_tpu_torch.parallel.sequence import make_sp_mesh, sequence_parallel_forward
+    cfg, params = _par_params(model)
+    mesh = make_sp_mesh(dist.get_world_size())
+    x = torch.tensor(ids, device="cuda")
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits = sequence_parallel_forward(params, cfg, x, mesh)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+    out = {"forward_ms": min(times), "transport": mesh.comm("sp").transport("cuda")}
+    if dist.get_rank() == 0:
+        out["forward"] = _par_band(params, cfg, x, logits)
+    return out
+
+
+def phase_parallel(d: Path, tmp: Path) -> dict:
+    """Phase 17 (see the module docstring): ranks spawned as processes that
+    share cuda:0 over gloo, staged through host memory, each returning its
+    results and its kernel launches; held against one process on the card."""
+    import numpy as np
+    import torch
+    from kjarni_tpu_torch.models.decoder_lm import DecoderLM
+    from kjarni_tpu_torch.models.encoder_models import SentenceEncoder
+    from kjarni_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from kjarni_tpu_torch.ops.kernels.int4_matvec import int4_matvec
+    mode = compute_mode()
+    check(mode == "Default", f"ranks sharing one card need compute mode Default; the card "
+                             f"reads {mode}, so a second process cannot open it")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    prompt = _prompt(700, 1)
+    d2 = tmp / "llama-3.2-1b-2-layers-parallel"
+    d2.mkdir(exist_ok=True)
+    (d2 / "config.json").write_text(json.dumps({**LLAMA_1B, "num_hidden_layers": 2}))
+    for f in ("model.safetensors", "tokenizer.json"):
+        (d2 / f).symlink_to(d / f)
+    mini = tmp / "minilm-l6-parallel"
+    write_encoder_dir(mini, MINILM_L6)
+    texts = _sentences(EMBED_BATCH, 40, EMBED_SEQ - 2, 7)
+    g = torch.Generator().manual_seed(17)
+    ids = torch.randint(1000, 120000, (4, PAR_SEQ), generator=g).numpy()
+    t0 = time.perf_counter()
+    two = _spawn_ranks(2, tmp, [("tp", (str(d), None, prompt)), ("tp_f32", (str(d2), prompt)),
+                                ("dp", (str(mini), texts)), ("pp", (str(d), ids)),
+                                ("sp", (str(d), ids[:1]))])
+    two_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    four = _spawn_ranks(4, tmp, [("tp", (str(d), "int4", prompt))])
+    four_s = time.perf_counter() - t0
+    launches = [sum(r[job]["launches"][k] for group in (two, four) for r in group
+                    for job in r) for k in range(3)]
+    where = (f"ranks sharing one card ({card}) over gloo staged through host memory, "
+             f"not a scale-out number")
+    rows = {}
+    # the references: one process on the same card; their launches are not
+    # the main path's
+    counts = _all_counts()
+    for tag, group, quantize in (("tp2_bf16", two, None), ("tp4_int4", four, "int4")):
+        runs = [r["tp"] for r in group]
+        check(all(r["ids"] == runs[0]["ids"] for r in runs),
+              f"{tag}: every rank returns the same ids")
+        lm = DecoderLM(d, quantize=quantize)
+        p_ids = lm.encode_prompt(prompt)
+        out = runs[0]["ids"]
+        check(len(out) == PAR_NEW_TOKENS, f"{tag}: {len(out)} new tokens")
+        ref = _teacher_forced(lm, p_ids + out[:-1],
+                              list(range(len(p_ids) - 1, len(p_ids) - 1 + len(out))))
+        band = max(_margins(ref, out))
+        check(band <= PAR_TIE_BAND, f"{tag}: teacher-forced margin {band} within "
+                                    f"{PAR_TIE_BAND} of tp = 1")
+        rows[tag] = {"band_max": band, **{k: runs[0][k] for k in (
+            "prompt_len", "load_s", "ttft_ms", "decode_tok_s", "prefill_ms", "allreduce_ms",
+            "q_cols", "transport", "load_peak_gb", "shard_gb", "peak_gb")},
+            "launches_per_rank": runs[0]["launches"]}
+        del lm, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    lm = DecoderLM(d2, dtype="f32")
+    ref = _par_prefill(lm, lm.encode_prompt(prompt)).float().cpu().numpy()
+    del lm
+    tol = PAR_F32_TOL * float(np.abs(ref).max())
+    errs = [float(np.abs(r["tp_f32"]["logits"] - ref).max()) for r in two]
+    check(max(errs) <= tol, f"f32 tp = 2 (2 layers): logits within {tol} of tp = 1 ({errs})")
+    rows["tp2_f32_2layers"] = {"max_abs_err": max(errs), "tol": tol,
+                               "launches_per_rank": two[0]["tp_f32"]["launches"]}
+    ref32 = SentenceEncoder(mini, dtype="f32").encode_batch(texts)
+    dp_err = max(float(np.abs(r["dp"]["f32"] - ref32).max()) for r in two)
+    cos = min(float((r["dp"]["bf16"] * ref32).sum(-1).min()) for r in two)
+    check(dp_err <= PAR_DP_F32_ATOL, f"dp = 2 f32 rows within {PAR_DP_F32_ATOL} ({dp_err})")
+    check(cos >= EMBED_COS_MIN, f"dp = 2 bf16 rows: cosine {cos} >= {EMBED_COS_MIN}")
+    rows["dp2_minilm"] = {"f32_max_abs_err": dp_err, "bf16_cos_min": cos,
+                          "texts_per_s": two[0]["dp"]["texts_per_s"],
+                          "transport": two[0]["dp"]["transport"]}
+    _restore(counts)
+    pp, sp = two[0]["pp"], two[0]["sp"]
+    for what, band in (("pp forward", pp["forward"]["band_max"]),
+                       ("pp generate", pp["generate"]["band_max"]),
+                       ("sp forward", sp["forward"]["band_max"])):
+        check(band <= PAR_TIE_BAND, f"{what}: margin {band} within {PAR_TIE_BAND} of one process")
+    check([r["pp"]["layers_here"] for r in two] == [8, 8], "pp = 2: 8 layers a stage")
+    rows["pp2"] = {k: pp[k] for k in ("forward_ms", "generate_s", "decode_tok_s",
+                                      "forward", "generate", "transport")}
+    rows["sp2"] = {k: sp[k] for k in ("forward_ms", "forward", "transport")}
+    check(launches[0] > 0 and launches[1] > 0,
+          f"the ranks launched both kernels (flash, int4, f32 flash: {launches})")
+    # the ranks' launches are this phase's main-path launches
+    flash_attention.launches += launches[0]
+    int4_matvec.launches += launches[1]
+    flash_attention.launches_f32 += launches[2]
+    row = {"parallel": rows, "two_ranks_s": two_s, "four_ranks_s": four_s,
+           "rank_launches": launches, "compute_mode": mode, "measured_as": where}
+    print(json.dumps(row))
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(["env", "kernels", *GENERATION, *ENC_DEC,
@@ -4937,9 +5418,10 @@ def main() -> int:
     if "search" in phases:
         _counted("search", phase_search)
     launches = dict(zip(("flash", "int4", "flash_f32"), _all_counts()))
-    if {"bf16", "int4", "int8", "chat", "serve", "infra", "whisper", "surfaces"} & set(phases):
+    if {"bf16", "int4", "int8", "chat", "serve", "infra", "whisper", "surfaces",
+            "parallel"} & set(phases):
         check(launches["flash"] > 0, "the main path launched the flash kernel")
-    if {"int4", "batch", "serve", "infra", "f32", "surfaces"} & set(phases):
+    if {"int4", "batch", "serve", "infra", "f32", "surfaces", "parallel"} & set(phases):
         check(launches["int4"] > 0, "the main path launched the int4 kernel")
     if "f32" in phases:
         check(launches["flash_f32"] > 0, "the main path launched the f32 flash kernel")

@@ -8,13 +8,23 @@ verbosity and the kjarni.toml chain (config_file.py). One addition: a global
 `--device {cuda,cpu}` (before or after the subcommand), the port's
 counterpart of JAX_PLATFORMS=cpu. It reaches every task constructor and the
 server; left out, the tasks run on the card and raise without one.
+
+Under torchrun (WORLD_SIZE > 1), `generate` and `chat` take `--tp N` and
+`embed`, `similarity`, `classify` and `rerank` take `--dp N`: the CLI
+initializes the default process group from torchrun's environment (gloo
+with `--device cpu`, NCCL with one card per rank, `cuda:LOCAL_RANK`), every
+rank runs the command, rank 0 alone reads stdin (a piped text, chat's lines)
+and every rank gets what it read, and only rank 0 writes to stdout. The
+server refuses both (serve.py).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
+import os
 import sys
 
 from .. import registry
@@ -24,10 +34,12 @@ from .display import (format_table, print_scores, print_search_results,
 
 
 def _read_text(arg: str | None) -> str:
-    """Positional text or stdin pipe (cf. kjarni-cli stdin piping)."""
+    """Positional text or stdin pipe (cf. kjarni-cli stdin piping); under
+    torchrun rank 0 alone reads stdin and every rank gets its text."""
     if arg is not None and arg != "-":
         return arg
-    data = sys.stdin.read().strip()
+    from ..parallel.comm import from_rank0
+    data = from_rank0(sys.stdin.read).strip()
     if not data:
         raise KjarniError("no input text (pass as argument or pipe via stdin)")
     return data
@@ -249,9 +261,11 @@ def cmd_chat(args) -> int:
         print(reply)
         return 0
     print(f"Chatting with {chat.model_id} (Ctrl-D or 'exit' to quit)")
+    from ..parallel.comm import from_rank0
     while True:
         try:
-            line = input("> ").strip()
+            # under torchrun rank 0 reads each line and every rank gets it
+            line = from_rank0(lambda: input("> ")).strip()
         except (EOFError, KeyboardInterrupt):
             print()
             break
@@ -620,6 +634,38 @@ def _device_everywhere(parser: argparse.ArgumentParser) -> None:
                 _device_everywhere(sp)
 
 
+@contextlib.contextmanager
+def _ranks(args):
+    """Under torchrun (WORLD_SIZE > 1 in the environment), initialize the
+    default process group from it for the command, unless the caller has
+    already: gloo with --device cpu, else NCCL on cuda:LOCAL_RANK, which
+    must exist. Ranks other than 0 write nothing to stdout."""
+    import torch
+    import torch.distributed as dist
+    ours = False
+    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        if getattr(args, "device", None) == "cpu":
+            dist.init_process_group("gloo")
+        else:
+            local = int(os.environ.get("LOCAL_RANK", "0"))
+            if local >= (torch.cuda.device_count() if torch.cuda.is_available() else 0):
+                raise KjarniError(
+                    f"rank {os.environ.get('RANK')} runs on cuda:{local}, which this "
+                    f"machine does not have; pass --device cpu for gloo on the CPU")
+            torch.cuda.set_device(local)
+            dist.init_process_group("nccl")
+        ours = True
+    try:
+        if dist.is_initialized() and dist.get_rank() != 0:
+            with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+                yield
+        else:
+            yield
+    finally:
+        if ours:
+            dist.destroy_process_group()
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -627,7 +673,8 @@ def main(argv=None) -> int:
     _apply_config_defaults(args)
     _resolve_model(args)
     try:
-        return args.fn(args)
+        with _ranks(args):
+            return args.fn(args)
     except KjarniError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1

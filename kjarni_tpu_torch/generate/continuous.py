@@ -211,7 +211,7 @@ class ContinuousEngine:
         use_flash = self._flash_ok and len(ids) >= self.lm._flash_min_seq
         self.family.forward(self.lm.params, self.cfg,
                             torch.tensor([ids], dtype=torch.long, device=self.device),
-                            ck1, cv1, 0, use_flash=use_flash)
+                            ck1, cv1, 0, use_flash=use_flash, **self.lm.fwd_kw)
         self._prefixes.append((ids, (ck1, cv1)))   # kv: [L, 1, Hkv, P, D]
         return len(ids)
 
@@ -330,7 +330,7 @@ class ContinuousEngine:
             for i in range(bucket // chunk):
                 x = self.family.forward_hidden(lm.params, cfg,
                                                ids_d[:, i * chunk:(i + 1) * chunk],
-                                               ck, cv, m + i * chunk)
+                                               ck, cv, m + i * chunk, **lm.fwd_kw)
                 sel = [j for j in range(n) if i * chunk <= last_idx[j] < (i + 1) * chunk]
                 if sel:
                     sel_t = torch.tensor(sel, device=dev)
@@ -339,9 +339,9 @@ class ContinuousEngine:
         else:
             x = self.family.forward_hidden(
                 lm.params, cfg, ids_d, ck, cv, m, use_flash=(mode == "flash"),
-                kv_bucket=(kb if mode == "flash" else None))
+                kv_bucket=(kb if mode == "flash" else None), **lm.fwd_kw)
             last_h = x[lanes, torch.tensor(last_idx, device=dev)]
-        logits = self.family.head_logits(lm.params, cfg, last_h).float()
+        logits = self.family.head_logits(lm.params, cfg, last_h, **lm.fwd_kw).float()
 
         fp, tails = fp.to(dev), tails.to(dev)
         tail_len = torch.tensor(tail_len, dtype=torch.long, device=dev)
@@ -516,7 +516,7 @@ class ContinuousEngine:
         cols = [toks]
         for i in range(k):
             logits, _, _ = self.family.forward(lm.params, self.cfg, toks[:, None],
-                                               wk, wv, pos_d + i)
+                                               wk, wv, pos_d + i, **lm.fwd_kw)
             if plain:
                 toks = torch.argmax(logits, dim=-1)
             else:

@@ -19,7 +19,6 @@ share this host loop, so both give the same ids.
 
 from __future__ import annotations
 
-import random as _random
 from typing import Iterator, Optional
 
 import torch
@@ -111,7 +110,8 @@ class SpeculativeGenerator:
         d_toks, d_logits = [], []
         for i in range(k + 1):
             lg, _, _ = draft.family.forward_all_logits(draft.params, draft.config, tok,
-                                                       dck, dcv, pos + i)
+                                                       dck, dcv, pos + i,
+                                                       **draft.fwd_kw)
             nxt = torch.argmax(lg[0, 0])
             d_toks.append(nxt)
             d_logits.append(lg[0, 0])
@@ -119,7 +119,8 @@ class SpeculativeGenerator:
         d_toks = torch.stack(d_toks[:k])
         tokens_in = torch.cat([cur.view(1), d_toks])[None]
         t_logits, _, _ = target.family.forward_all_logits(target.params, target.config,
-                                                          tokens_in, tck, tcv, pos)
+                                                          tokens_in, tck, tcv, pos,
+                                                          **target.fwd_kw)
         if self.probabilistic:
             n_acc, nxt = verify_prob(t_logits[0], torch.stack(d_logits[:k]), d_toks,
                                      generator)
@@ -155,7 +156,7 @@ class SpeculativeGenerator:
         if stats is not None:
             stats.mark_prefill(prompt_len)
         cur = torch.argmax(t_logits)
-        seed = gen.seed if gen.seed is not None else _random.getrandbits(31)
+        seed = target.sampling_seed(gen.seed)
         generator = torch.Generator(device=target.device).manual_seed(seed)
         max_new = gen.max_new_tokens if gen.max_new_tokens is not None else \
             max(gen.max_length - prompt_len, 0)

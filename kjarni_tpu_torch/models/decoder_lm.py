@@ -31,6 +31,8 @@ from ..core.errors import GenerationError, InvalidConfigError
 from ..core.kvcache import slice_working
 from ..core.placement import ExecutionPlan, resolve_device, to_host_memory
 from ..core.stats import GenerationStats
+from ..parallel.comm import from_rank0, require_world
+from ..parallel.mesh import make_mesh, shard_cache, shard_llama_params
 from ..generate.sampling import (GenerationConfig, SamplingParams, process_logits,
                                  sample_token)
 from ..generate.stream import StreamDecoder, StreamedToken, TokenType
@@ -54,6 +56,41 @@ DEFAULT_MAX_CONTEXT = 4096
 REUSE_FLASH_MIN_SCORE_BYTES = 0
 
 logger = logging.getLogger(__name__)
+
+
+def _check_tp(tp: int, llama_family: bool, execution_plan, cfg) -> None:
+    """The JAX DecoderLM's tp gates (family, plan, devices), the last as a
+    process group of tp ranks; and, since each rank computes only its own
+    shard, heads, KV heads and the FFN width must divide tp."""
+    if not llama_family:
+        raise InvalidConfigError(
+            "tensor parallelism (tp>1) supports llama-family models "
+            "only (llama/qwen2/mistral/phi3)")
+    if execution_plan is not None:
+        raise InvalidConfigError(
+            "tp>1 and execution_plan host-offload are mutually "
+            "exclusive (host pinning is a single-chip optimization)")
+    require_world(tp, "tp")
+    dims = {"heads": cfg.num_heads, "kv heads": cfg.num_kv_heads,
+            "intermediate size": cfg.intermediate_size}
+    bad = {k: v for k, v in dims.items() if v % tp}
+    if bad:
+        raise InvalidConfigError(f"tp={tp} must divide the model's {bad}")
+
+
+def _to_device(params: dict, device: torch.device) -> dict:
+    """A param tree on `device`. A head that is a view of the embedding
+    (tied, and replicated under tp) stays a view of the moved table."""
+    def move(t):
+        if isinstance(t, dict):
+            return {k: move(v) for k, v in t.items()}
+        return t.to(device) if torch.is_tensor(t) else t
+    out = move(params)
+    head, embed = params["lm_head"], params["embed"]
+    if torch.is_tensor(head) and \
+            head.untyped_storage().data_ptr() == embed.untyped_storage().data_ptr():
+        out["lm_head"] = out["embed"].t()
+    return out
 
 
 def not_ported(what: str, item: str) -> InvalidConfigError:
@@ -97,10 +134,7 @@ class DecoderLM:
         if kv_cache not in (None, "int8"):
             raise InvalidConfigError(f"unknown kv_cache mode '{kv_cache}'")
         plan = ExecutionPlan.resolve(execution_plan)   # an unknown plan raises here
-        # options of the JAX DecoderLM that the port does not have yet
-        if tp is not None and tp > 1:
-            raise not_ported("tensor parallelism (tp>1)", "queue 1, item 9")
-
+        tp = tp if tp is not None and tp > 1 else None
         self.device = resolve_device(device)
         dtype = resolve_dtype(dtype, self.device)
         model_dir = Path(model_dir)
@@ -110,8 +144,11 @@ class DecoderLM:
         gguf_path = model_dir / "model.gguf"
         has_safetensors = (model_dir / "model.safetensors").exists() or \
             (model_dir / "model.safetensors.index.json").exists()
+        # under tp the whole model is read, quantized and sharded in host
+        # memory, and only this rank's shard goes to its device
+        load_device = torch.device("cpu") if tp is not None else self.device
         ws = None
-        params = load_checkpoint(model_dir, self.device)   # None without one
+        params = load_checkpoint(model_dir, load_device)   # None without one
         if has_safetensors:
             ws = ModelWeights(model_dir)
         elif gguf_path.exists():
@@ -135,6 +172,8 @@ class DecoderLM:
                 "kv_cache='int8' supports llama-family models only "
                 "(llama/qwen2/mistral/phi3)")
         self._kv_quantized = kv_cache == "int8"
+        if tp is not None:
+            _check_tp(tp, self.family is kllama, execution_plan, cfg)
 
         self.max_context = min(cfg.max_seq_len, max_context or DEFAULT_MAX_CONTEXT)
         if params is not None:
@@ -142,9 +181,9 @@ class DecoderLM:
             dtype = resolve_dtype(params["embed"].dtype, self.device)
         elif self.family is kllama:
             params = kllama.load_params(ws, cfg, dtype, rope_cache_len=self.max_context,
-                                        device=self.device)
+                                        device=load_device)
         else:
-            params = kgpt2.load_params(ws, cfg, dtype, device=self.device)
+            params = kgpt2.load_params(ws, cfg, dtype, device=load_device)
         # quantize is ignored for gpt2, and for a checkpoint already quantized,
         # as in the JAX package
         if self.family is kllama and not isinstance(params["lm_head"], dict):
@@ -152,6 +191,18 @@ class DecoderLM:
                 params = kllama.quantize_params_int8(params)
             elif quantize == "int4":
                 params = kllama.quantize_params_int4(params)
+
+        # tensor parallelism (SPMD): this rank keeps its Megatron shard of
+        # the quantized params and a cache of its own KV heads
+        # (parallel/mesh.py); models/llama.py runs the collectives over
+        # `self.tp`, which every forward call passes in `fwd_kw`
+        self._mesh = self.tp = None
+        self.fwd_kw: dict = {}
+        if tp is not None:
+            self._mesh = make_mesh(dp=1, tp=tp)
+            self.tp = self._mesh.comm("tp")
+            self.fwd_kw = {"tp": self.tp}
+            params = _to_device(shard_llama_params(params, self._mesh), self.device)
 
         # per-stage host offload (ExecutionPlan, execution/plan.rs:4): the
         # embedding table and/or the lm head in host memory, their lookup
@@ -221,13 +272,26 @@ class DecoderLM:
     # internals
     # ------------------------------------------------------------------
 
+    def sampling_seed(self, seed: Optional[int]) -> int:
+        """The seed of a sampled generation: the caller's, else a fresh one,
+        under tensor parallelism rank 0's, so every rank draws the same
+        tokens and runs the same number of steps."""
+        if seed is not None:
+            return seed
+        if self.tp is None:
+            return _random.getrandbits(31)
+        return from_rank0(lambda: _random.getrandbits(31))
+
     def _new_cache(self, batch: int, slots: int):
-        """A zeroed KV cache of the model's form: int8 under kv_cache="int8"."""
+        """A zeroed KV cache of the model's form: int8 under kv_cache="int8",
+        this rank's KV heads under tensor parallelism."""
         if self._kv_quantized:
-            return kllama.init_cache(self.config, batch, slots, self._cache_dtype,
-                                     self.device, quantized=True)
-        return self.family.init_cache(self.config, batch, slots, self._cache_dtype,
-                                      self.device)
+            cache = kllama.init_cache(self.config, batch, slots, self._cache_dtype,
+                                      self.device, quantized=True)
+        else:
+            cache = self.family.init_cache(self.config, batch, slots,
+                                           self._cache_dtype, self.device)
+        return cache if self._mesh is None else shard_cache(cache, self._mesh)
 
     def _ensure_cache(self):
         if self._cache is None:
@@ -265,7 +329,7 @@ class DecoderLM:
             kv_bucket = min(-(-(common + bucket) // 128) * 128, self.max_context)
         logits, ck, cv = self.family.forward(
             self.params, self.config, padded.to(self.device), ck, cv, common,
-            len(suffix) - 1, use_flash=use_flash, kv_bucket=kv_bucket)
+            len(suffix) - 1, use_flash=use_flash, kv_bucket=kv_bucket, **self.fwd_kw)
         self.last_prefill_tokens = len(suffix)  # observability for tests/stats
         return logits[0], ck, cv, common
 
@@ -306,7 +370,7 @@ class DecoderLM:
             wk = ck if kb is None else slice_working(ck, kb, axis=3)
             wv = cv if kb is None else slice_working(cv, kb, axis=3)
             logits, _, _ = self.family.forward(self.params, self.config,
-                                               tok.view(1, 1), wk, wv, pos)
+                                               tok.view(1, 1), wk, wv, pos, **self.fwd_kw)
             logits = logits[0]
             pos += 1
             yield t
@@ -321,7 +385,7 @@ class DecoderLM:
             raise GenerationError("empty prompt")
         history = torch.zeros(self.max_context, dtype=torch.long, device=self.device)
         history[:len(ids)] = torch.tensor(ids, dtype=torch.long)
-        seed = gen.seed if gen.seed is not None else _random.getrandbits(31)
+        seed = self.sampling_seed(gen.seed)
         generator = torch.Generator(device=self.device).manual_seed(seed)
         return ids, history, generator
 
@@ -431,7 +495,7 @@ class DecoderLM:
         ids = torch.zeros((1, pb), dtype=torch.long)
         ids[0, :len(ids_p)] = torch.tensor(ids_p, dtype=torch.long)
         self.family.forward(self.params, self.config, ids.to(self.device), ck, cv, 0,
-                            pb - 1)
+                            pb - 1, **self.fwd_kw)
         return ck, cv
 
     @torch.inference_mode()
@@ -464,7 +528,7 @@ class DecoderLM:
                     d[:, :, :, :P].copy_(s_[:, :, :, :P])
         logits, _, _ = self.family.forward(
             self.params, self.config, ids.to(self.device), ck, cv, P, bucket - 1,
-            positions=positions.to(self.device), pad_mask=pad_mask)
+            positions=positions.to(self.device), pad_mask=pad_mask, **self.fwd_kw)
         return logits, ck, cv, pad_mask
 
     @torch.inference_mode()
@@ -510,7 +574,7 @@ class DecoderLM:
         history = history.to(dev)
         lens0_d = torch.tensor([len(r) for r in ids_list], dtype=torch.long, device=dev)
         rows = torch.arange(B, device=dev)
-        seed = gen.seed if gen.seed is not None else _random.getrandbits(31)
+        seed = self.sampling_seed(gen.seed)
         generator = torch.Generator(device=dev).manual_seed(seed)
         stop = torch.tensor(sorted(self.stop_token_ids) or [-1], device=dev)
         greedy = gen.strategy == "greedy"
@@ -535,7 +599,7 @@ class DecoderLM:
                 pm = pad_mask[:, :kb]
             logits, _, _ = self.family.forward(
                 self.params, self.config, toks[:, None], wk, wv, slot,
-                positions=(lens0_d + i)[:, None], pad_mask=pm)
+                positions=(lens0_d + i)[:, None], pad_mask=pm, **self.fwd_kw)
             self.last_batch_steps += 1
         toks_all = torch.stack(out, dim=1).cpu().tolist()
         return [self.tokenizer.decode([t for t in row if t >= 0],

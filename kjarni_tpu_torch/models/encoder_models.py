@@ -20,7 +20,9 @@ from ..ops.pooling import PoolingStrategy, pool
 from ..tokenizer import KjarniTokenizer
 from ..weights.safetensors_loader import ModelWeights
 from . import bert as kbert
-from .decoder_lm import auto_dtype, not_ported, resolve_device
+from ..parallel.comm import Comm, require_world
+from ..parallel.inference import rows_data_parallel
+from .decoder_lm import auto_dtype, resolve_device
 
 
 def _l2_normalize(x: np.ndarray) -> np.ndarray:
@@ -34,12 +36,20 @@ class _EncoderBase:
     `device=None` means the CUDA card and raises when there is none; pass
     `device="cpu"` to run on the CPU. `dtype="auto"` is bf16 on the card and
     f32 on the CPU; f32 runs on the card too (no kernel here needs bf16).
+
+    `dp=N` (SPMD, one process per rank over a process group of N ranks):
+    every rank holds the whole encoder, encodes and pools (or scores) its
+    share of each batch's rows, and only those per-row results are
+    all-gathered (parallel/inference.py), so every rank returns the whole
+    batch's results. `hidden_states` is not split.
     """
 
     def __init__(self, model_dir: Path, dtype="auto", device=None,
                  dp: Optional[int] = None):
+        self._dp = None
         if dp is not None and dp > 1:
-            raise not_ported("data-parallel encoders (dp)", "queue 1, item 9")
+            require_world(dp, "dp")
+            self._dp = Comm()
         self.device = resolve_device(device)
         dtype = auto_dtype(dtype, self.device)
         model_dir = Path(model_dir)
@@ -56,6 +66,14 @@ class _EncoderBase:
     def _encode(self, params: dict, ids: torch.Tensor, mask: torch.Tensor,
                 token_type: torch.Tensor) -> torch.Tensor:
         return kbert.encode_auto(params, self.config, ids, mask, token_type)
+
+    def _rows(self, fn, ids: torch.Tensor, mask: torch.Tensor,
+              token_type: torch.Tensor) -> torch.Tensor:
+        """fn(ids, mask, token_type) -> one result per row; under dp, over
+        this rank's share of the rows, gathered."""
+        if self._dp is None:
+            return fn(ids, mask, token_type)
+        return rows_data_parallel(fn, self._dp, ids, mask, token_type)
 
     def _device_batch(self, ids: np.ndarray, mask: np.ndarray, tt: np.ndarray):
         """Host batch -> device tensors (ids and token types as int64)."""
@@ -75,6 +93,13 @@ class _EncoderBase:
                       ) -> tuple[torch.Tensor, np.ndarray, np.ndarray]:
         """(hidden [rows, S, H] on the device, ids, mask); rows is the batch
         bucket, so callers slice by the true batch length."""
+        ids, mask, tt = self._tokens(texts, pairs)
+        with torch.inference_mode():
+            hidden = self._encode(self.params, *self._device_batch(ids, mask, tt))
+        return hidden, ids, mask
+
+    def _tokens(self, texts: Sequence[str], pairs: Sequence[str] | None = None):
+        """(ids, mask, token types) of the padded batch bucket, on the host."""
         ids, mask = self.tokenizer.encode_batch(
             texts, pairs=pairs, max_len=self.max_seq_len, padding="right",
             pad_batch=True)
@@ -83,10 +108,7 @@ class _EncoderBase:
             tt = self._pair_type_ids(texts, pairs, ids.shape[1], ids.shape[0])
         else:
             tt = np.zeros_like(ids)
-        ids_d, mask_d, tt_d = self._device_batch(ids, mask, tt)
-        with torch.inference_mode():
-            hidden = self._encode(self.params, ids_d, mask_d, tt_d)
-        return hidden, ids, mask
+        return ids, mask, tt
 
     def _pair_type_ids(self, texts, pairs, width, rows=None) -> np.ndarray:
         encs = self.tokenizer.tk.encode_batch(list(zip(texts, pairs)))
@@ -116,9 +138,11 @@ class SentenceEncoder(_EncoderBase):
         chunks = []
         for i in range(0, len(texts), self.MAX_ENCODE_BATCH):
             batch = list(texts[i:i + self.MAX_ENCODE_BATCH])
-            hidden, _, mask = self.hidden_states(batch)
+
+            def embed(ids, mask, tt):
+                return pool(pooling, self._encode(self.params, ids, mask, tt), mask)
             with torch.inference_mode():
-                pooled = pool(pooling, hidden, torch.from_numpy(mask).to(self.device))
+                pooled = self._rows(embed, *self._device_batch(*self._tokens(batch)))
             chunks.append(pooled.float().cpu().numpy()[:len(batch)])
         pooled = np.concatenate(chunks, axis=0)
         if normalize:
@@ -145,8 +169,10 @@ class CrossEncoder(_EncoderBase):
 
     def _score(self, params: dict, head_params: dict, ids: torch.Tensor,
                mask: torch.Tensor, token_type: torch.Tensor) -> torch.Tensor:
-        hidden = kbert.encode_auto(params, self.config, ids, mask, token_type)
-        return _head_forward(self.head, head_params, hidden, mask)[:, 0]
+        def score(i, m, t):
+            return _head_forward(self.head, head_params, self._encode(params, i, m, t),
+                                 m)[:, 0]
+        return self._rows(score, ids, mask, token_type)
 
     def predict_pairs(self, pairs: Sequence[tuple[str, str]]) -> np.ndarray:
         """Raw relevance logits, first column (cf. model.rs:170 predict_pairs)."""
@@ -281,8 +307,9 @@ class SequenceClassifier(_EncoderBase):
 
     def _logits(self, params: dict, head_params: dict, ids: torch.Tensor,
                 mask: torch.Tensor, token_type: torch.Tensor) -> torch.Tensor:
-        hidden = kbert.encode_auto(params, self.config, ids, mask, token_type)
-        return _head_forward(self.head, head_params, hidden, mask)
+        def logits(i, m, t):
+            return _head_forward(self.head, head_params, self._encode(params, i, m, t), m)
+        return self._rows(logits, ids, mask, token_type)
 
     def predict_logits(self, texts: Sequence[str]) -> np.ndarray:
         if not texts:

@@ -9,11 +9,19 @@ loop over views of the stacked tensors. The KV cache [L, B, Hkv, T, D] is
 written in place; a write past T is refused, not clamped. The int8 cache is
 {"q": int8 [L, B, Hkv, T, D], "s": f32 [L, B, Hkv, T]}, and attention
 dequantizes only the slots it reads.
+
+Tensor parallelism (SPMD, one process per rank; parallel/mesh.py): params
+hold this rank's Megatron shards, and the forward functions take the tp
+group's `Comm` as `tp`. A layer takes its head counts from the shards'
+widths, attends over its own heads (flash included) with a cache of its own
+KV heads, and sums o's and down's partial products over the group; the head
+gathers a column-parallel head's logits. With tp=None none of this runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -336,11 +344,27 @@ def _mm(x: torch.Tensor, p: dict) -> torch.Tensor:
     return y
 
 
-def _head_mm(x: torch.Tensor, head, cfg: DecoderConfig) -> torch.Tensor:
-    """lm-head projection, on the host when the plan offloads it."""
+def _row_mm(x: torch.Tensor, p: dict, tp) -> torch.Tensor:
+    """A row-parallel linear (o, down): each rank's partial product over its
+    slice of K, summed over the tp group (parallel/comm.py), its bias added
+    once after the sum. With no group, _mm."""
+    if tp is None:
+        return _mm(x, p)
+    y = tp.all_reduce(_mm(x, {k: v for k, v in p.items() if k != "b"}))
+    return y + p["b"] if "b" in p else y
+
+
+def _head_mm(x: torch.Tensor, head, cfg: DecoderConfig, tp=None) -> torch.Tensor:
+    """lm-head projection, on the host when the plan offloads it. A
+    column-parallel head's logits are gathered over the tp group; a head
+    replicated there (a vocabulary that does not divide tp) needs none."""
     if isinstance(head, dict):
-        return _mm(x, head)
-    return host_matmul(x, head) if cfg.lm_head_on_host else x @ head
+        y = _mm(x, head)
+    else:
+        y = host_matmul(x, head) if cfg.lm_head_on_host else x @ head
+    if tp is not None and y.shape[-1] != cfg.vocab_size:
+        y = tp.all_gather(y, dim=-1)
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -427,11 +451,36 @@ def causal_bias(pos_start, S: int, T: int, device,
     return bias[:, None, None] if torch.is_tensor(pos_start) else bias[None, None]
 
 
+def layer_params(layers: dict, i: int) -> dict:
+    """Layer i's views of the stacked layer params."""
+    return {n: ({k: t[i] for k, t in e.items()} if isinstance(e, dict) else e[i])
+            for n, e in layers.items()}
+
+
+def decoder_layer(lp: dict, cfg: DecoderConfig, x: torch.Tensor, cos, sin,
+                  attend, tp=None) -> torch.Tensor:
+    """One pre-norm layer over x [B, S, hidden]: q, k, v [B, heads, S, D]
+    with RoPE from (cos, sin), `attend(q, k, v) -> ctx [B, H, S, D]` (which
+    writes and reads the caller's cache, or changes layout around the
+    attention), o, then the SwiGLU MLP. The head counts are the projections'
+    widths: this rank's heads under tensor parallelism, whose tp group sums
+    o's and down's partial products."""
+    B, S, _ = x.shape
+    D = cfg.head_dim
+    hn = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+    q, k, v = (_mm(hn, lp[n]).reshape(B, S, -1, D).transpose(1, 2)
+               for n in ("q", "k", "v"))
+    q, k = apply_rope(q, k, cos, sin)
+    x = x + _row_mm(merge_heads(attend(q, k, v)), lp["o"], tp)
+    hn = rms_norm(x, lp["ffn_norm"], cfg.rms_norm_eps)
+    return x + _row_mm(F.silu(_mm(hn, lp["gate"])) * _mm(hn, lp["up"]), lp["down"], tp)
+
+
 def _run_stack(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
                cache_k, cache_v, pos_start: int, use_flash: bool = False,
                positions: Optional[torch.Tensor] = None,
                pad_mask: Optional[torch.Tensor] = None,
-               kv_bucket: Optional[int] = None) -> torch.Tensor:
+               kv_bucket: Optional[int] = None, tp=None) -> torch.Tensor:
     """Embed -> layer loop -> final norm, shared by prefill and decode.
 
     `use_flash` routes attention through the flash kernel: from-zero
@@ -448,10 +497,11 @@ def _run_stack(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
     pos_start[b], writes its K/V at that slot of its own cache row and
     attends kv slots j <= pos_start[b]. This is the JAX engine's vmap of the
     B = 1 forward over the slot axis, as one batched forward.
+
+    `tp`: the tensor-parallel group's Comm, when params are this rank's shard.
     """
     B, S = ids.shape
     T = cache_slots(cache_k)
-    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     per_row = torch.is_tensor(pos_start)
     if per_row and (S != 1 or use_flash or pos_start.shape != (B,)):
         raise GenerationError("a per-row decode position takes one token per row "
@@ -480,34 +530,25 @@ def _run_stack(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
         return ({n: t[i] for n, t in cache.items()} if isinstance(cache, dict)
                 else cache[i])
 
-    lp_all = params["layers"]
-    for i in range(cfg.num_layers):
-        lp = {n: ({k: t[i] for k, t in e.items()} if isinstance(e, dict) else e[i])
-              for n, e in lp_all.items()}
-        kc, vc = layer(cache_k, i), layer(cache_v, i)
-        hn = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-        q = _mm(hn, lp["q"]).reshape(B, S, H, D).transpose(1, 2)
-        k = _mm(hn, lp["k"]).reshape(B, S, Hkv, D).transpose(1, 2)
-        v = _mm(hn, lp["v"]).reshape(B, S, Hkv, D).transpose(1, 2)
-        q, k = apply_rope(q, k, cos, sin)
+    def attend(kc, vc, q, k, v):
         _cache_write(kc, k, pos_start)
         _cache_write(vc, v, pos_start)
-        if use_flash:
-            kb = kv_bucket if kv_bucket is not None else S
-            if kb <= S:
-                # from-zero prefill: the fresh block is the whole valid cache
-                ctx = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
-            else:
-                ctx = flash_attention(q, _cache_read(kc, kb, x.dtype),
-                                      _cache_read(vc, kb, x.dtype), causal=True,
-                                      window=cfg.sliding_window, q_offset=pos_start,
-                                      kv_len=pos_start + S)
-        else:
-            ctx = attention(q, _cache_read(kc, T, x.dtype), _cache_read(vc, T, x.dtype),
-                            bias)
-        x = x + _mm(merge_heads(ctx), lp["o"])
-        hn = rms_norm(x, lp["ffn_norm"], cfg.rms_norm_eps)
-        x = x + _mm(F.silu(_mm(hn, lp["gate"])) * _mm(hn, lp["up"]), lp["down"])
+        if not use_flash:
+            return attention(q, _cache_read(kc, T, x.dtype), _cache_read(vc, T, x.dtype),
+                             bias)
+        kb = kv_bucket if kv_bucket is not None else S
+        if kb <= S:
+            # from-zero prefill: the fresh block is the whole valid cache
+            return flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+        return flash_attention(q, _cache_read(kc, kb, x.dtype),
+                               _cache_read(vc, kb, x.dtype), causal=True,
+                               window=cfg.sliding_window, q_offset=pos_start,
+                               kv_len=pos_start + S)
+
+    for i in range(cfg.num_layers):
+        x = decoder_layer(layer_params(params["layers"], i), cfg, x, cos, sin,
+                          functools.partial(attend, layer(cache_k, i), layer(cache_v, i)),
+                          tp)
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
 
@@ -516,42 +557,44 @@ def forward(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
             last_idx: Optional[int] = None, use_flash: bool = False,
             positions: Optional[torch.Tensor] = None,
             pad_mask: Optional[torch.Tensor] = None,
-            kv_bucket: Optional[int] = None):
+            kv_bucket: Optional[int] = None, tp=None):
     """One decoder pass, shared by prefill and decode.
 
     ids: [B, S] tokens at cache slots pos_start + arange(S). Their K/V
     are written into the cache in place; queries attend causally over
     cache[0 .. pos_start+S). Returns (logits [B, V] at `last_idx` (default
     S-1), cache_k, cache_v), the caches being the same objects that were
-    passed.
+    passed. `tp`: the tensor-parallel group's Comm (module docstring).
     """
     x = _run_stack(params, cfg, ids, cache_k, cache_v, pos_start, use_flash,
-                   positions, pad_mask, kv_bucket)
+                   positions, pad_mask, kv_bucket, tp)
     if last_idx is None:
         last_idx = ids.shape[1] - 1
-    logits = _head_mm(x[:, int(last_idx)], params["lm_head"], cfg)
+    logits = _head_mm(x[:, int(last_idx)], params["lm_head"], cfg, tp)
     return logits, cache_k, cache_v
 
 
 def forward_all_logits(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
-                       cache_k: torch.Tensor, cache_v: torch.Tensor, pos_start: int):
+                       cache_k: torch.Tensor, cache_v: torch.Tensor, pos_start: int,
+                       tp=None):
     """Like forward() but returns logits at every position."""
-    x = _run_stack(params, cfg, ids, cache_k, cache_v, pos_start)
-    return _head_mm(x, params["lm_head"], cfg), cache_k, cache_v
+    x = _run_stack(params, cfg, ids, cache_k, cache_v, pos_start, tp=tp)
+    return _head_mm(x, params["lm_head"], cfg, tp), cache_k, cache_v
 
 
 def forward_hidden(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
                    cache_k, cache_v, pos_start, use_flash: bool = False,
                    positions: Optional[torch.Tensor] = None,
                    pad_mask: Optional[torch.Tensor] = None,
-                   kv_bucket: Optional[int] = None) -> torch.Tensor:
+                   kv_bucket: Optional[int] = None, tp=None) -> torch.Tensor:
     """The stack without the lm-head: final-norm hidden states [B, S, H] at
     every position, so a caller projects only the rows it needs (batched
     admission takes one hidden row per lane before head_logits)."""
     return _run_stack(params, cfg, ids, cache_k, cache_v, pos_start, use_flash,
-                      positions, pad_mask, kv_bucket)
+                      positions, pad_mask, kv_bucket, tp)
 
 
-def head_logits(params: dict, cfg: DecoderConfig, x: torch.Tensor) -> torch.Tensor:
+def head_logits(params: dict, cfg: DecoderConfig, x: torch.Tensor,
+                tp=None) -> torch.Tensor:
     """lm-head projection of gathered hidden rows."""
-    return _head_mm(x, params["lm_head"], cfg)
+    return _head_mm(x, params["lm_head"], cfg, tp)

@@ -15,7 +15,9 @@ A dependency-free stdlib HTTP server wrapping the task objects:
 
 Models run on the CUDA card unless `device="cpu"` (`--device cpu`) is given.
 Not ported yet, and answered with an HTTP error naming the ROADMAP.md item:
-tensor / data parallelism, `--tp` / `--dp` (item 9).
+the server under tensor / data parallelism, `--tp` / `--dp` (item 9: every
+rank ≥ 1 needs a loop that follows rank 0's requests; the task APIs and the
+CLI take tp and dp under torchrun).
 
 Run: python -m kjarni_tpu_torch.serve --port 8000
 """
@@ -30,6 +32,7 @@ from typing import Any
 
 from . import registry
 from .core.errors import KjarniError
+from .models.decoder_lm import not_ported
 
 
 class KjarniHTTPServer(ThreadingHTTPServer):
@@ -94,8 +97,9 @@ class _Engine:
         self.quiet = quiet
         # where the models run: None is the card, "cpu" the host
         self.device = device
-        # tensor-parallel decoders / data-parallel encoders: passed to the
-        # task constructors, which refuse tp / dp > 1 (ROADMAP.md item 9)
+        # tensor-parallel decoders / data-parallel encoders: refused when a
+        # model is built (ROADMAP.md item 9), since the server runs in one
+        # process and the task constructors take tp / dp under SPMD only
         self.tp = tp
         self.dp = dp
         # speculative decoding for /v1/generate (greedy requests)
@@ -132,6 +136,10 @@ class _Engine:
 
     def _construct(self, kind: str, model: str):
         dev = self.device
+        if kind in ("generate", "chat") and (self.tp or 1) > 1:
+            raise not_ported("tensor parallelism (--tp) in the server", "queue 1, item 9")
+        if kind in ("classify", "embed", "rerank") and (self.dp or 1) > 1:
+            raise not_ported("data parallelism (--dp) in the server", "queue 1, item 9")
         if kind == "classify":
             from .tasks.classifier import Classifier
             obj = Classifier(model, quiet=self.quiet, dp=self.dp, device=dev)
@@ -512,10 +520,10 @@ def main(argv=None) -> int:
                          "KJARNI_DEVICE_TIMEOUT_S or off)")
     ap.add_argument("--tp", type=int, default=None, metavar="N",
                     help="tensor-parallel decoder models over N cards "
-                         "(not ported: N > 1 is refused)")
+                         "(not ported to the server: N > 1 is refused)")
     ap.add_argument("--dp", type=int, default=None, metavar="N",
                     help="data-parallel encoder models over N cards "
-                         "(not ported: N > 1 is refused)")
+                         "(not ported to the server: N > 1 is refused)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default=None,
                     help="where the models run (default: the CUDA card)")
     args = ap.parse_args(argv)

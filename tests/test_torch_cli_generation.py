@@ -130,10 +130,12 @@ def test_chat_message(dirs, capsys, extra):
 
 
 def test_tp_passes_through_and_is_refused(dirs, capsys):
-    """--tp 2 reaches the port's Generator, which refuses it (ROADMAP item 9)."""
+    """--tp 2 reaches the port's Generator, which refuses it outside a
+    process group of 2 ranks and names the launcher (under torchrun it runs:
+    tests/test_torch_parallel_serving.py)."""
     rc, _, err = _run(tcli.main, _GEN + ["--model", str(dirs["llama"]), "--tp", "2",
                                          "--device", "cpu"], capsys)
-    assert rc == 1 and "ROADMAP.md" in err
+    assert rc == 1 and "torchrun --nproc-per-node 2" in err
 
 
 # ---------------------------------------------------------------------------

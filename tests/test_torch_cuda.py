@@ -89,6 +89,26 @@ def test_int4_kernel_matches_plain(card, M, K, N, group):
     assert cos.item() > 0.999
 
 
+# one rank of the tp decoder at Llama-3.2-1B's widths (chip_smoke.tp_shapes):
+# q, k/v, gate/up and the head take N/tp columns, o and down K/tp rows (their
+# groups of 128 regrouped per rank), at tp = 2 and 4, decode and prefill
+_TP_SHARDS = [(2048, 1024), (2048, 256), (1024, 2048), (2048, 4096), (4096, 2048),
+              (2048, 64128), (2048, 512), (2048, 128), (512, 2048), (2048, 2048),
+              (2048, 32064)]
+
+
+@pytest.mark.parametrize("M", [1, 1024])
+@pytest.mark.parametrize("K,N", _TP_SHARDS)
+def test_int4_kernel_at_tp_shard_shapes(card, M, K, N):
+    test_int4_kernel_matches_plain(card, M, K, N, 128)
+
+
+@pytest.mark.parametrize("H,Hkv", [(16, 4), (8, 2)], ids=["tp2", "tp4"])
+def test_flash_kernel_at_tp_rank_heads(card, H, Hkv):
+    """A tp rank's prefill attention: Llama-3.2-1B's heads split 2 and 4 ways."""
+    test_flash_kernel_matches_plain(card, 1, H, Hkv, 1024, 1024, 64, None, 0, None)
+
+
 # a batched prefill: B = 8 rows at bucket 1024, every Llama-1B projection
 @pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)])
 def test_int4_kernel_at_batch_times_bucket(card, K, N):
@@ -383,6 +403,33 @@ def decoder_dir(tmp_path_factory):
     chip_smoke.write_tokenizer(d / "tokenizer.json", _TINY_LLAMA["vocab_size"])
     prompts = [chip_smoke._prompt(n, seed=6 + n, hi=4000) for n in (40, 90, 300, 600)]
     return d, prompts
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_tp2_forward_on_the_card_matches_tp1(decoder_dir, tmp_path, dtype):
+    """DecoderLM(tp=2) as two gloo ranks sharing cuda:0 (tests/torch_dist.py),
+    each with half the heads (flash on its own) and half the head's columns,
+    against tp = 1 on the card: f32 logits within 1e-4 of the largest, bf16
+    ones with tp = 2's top token within the 0.5-logit tie band of tp = 1's."""
+    import numpy as np
+    import torch_dist
+    from kjarni_tpu_torch.models.decoder_lm import DecoderLM
+    d, prompts = decoder_dir
+    group = torch_dist.RankGroup(2, tmp_path)
+    try:
+        got = group.run(torch_dist.tp_prefill_on_the_card, str(d), prompts[3], dtype)
+    finally:
+        group.close()
+    lm = DecoderLM(d, dtype=dtype)
+    ids = lm.encode_prompt(prompts[3])
+    assert len(ids) > 512      # the prefill takes flash
+    import chip_smoke
+    ref = chip_smoke.prefill_logits(lm, ids)[0].cpu().numpy()
+    np.testing.assert_array_equal(got[0], got[1])
+    if dtype == "f32":
+        assert np.abs(got[0] - ref).max() <= 1e-4 * np.abs(ref).max()
+    else:
+        assert ref.max() - ref[got[0].argmax()] <= 0.5
 
 
 def test_sampled_decoding_on_the_card(decoder_dir):

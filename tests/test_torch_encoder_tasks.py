@@ -250,8 +250,10 @@ def test_device_none_without_a_card_raises(dirs, monkeypatch, task):
 
 @pytest.mark.parametrize("task", [Embedder, Classifier, Reranker])
 def test_data_parallel_is_not_ported(dirs, task):
+    """dp = 2 outside a process group of 2 ranks raises and names the
+    launcher (tests/test_torch_parallel_serving.py runs dp inside one)."""
     d = {Embedder: "bert", Classifier: "sentiment", Reranker: "cross"}[task]
-    with pytest.raises(InvalidConfigError, match=r"dp\).*ROADMAP.md, queue 1, item 9"):
+    with pytest.raises(InvalidConfigError, match=r"dp=2 .*torchrun --nproc-per-node 2"):
         task(str(dirs[d]), device="cpu", dp=2)
 
 

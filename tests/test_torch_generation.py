@@ -103,8 +103,10 @@ def test_no_card_and_no_cpu_request_raises(llama_dir):
 
 @pytest.mark.parametrize("kw", [dict(tp=2), dict(execution_plan="balanced")])
 def test_options_outside_the_slice_raise(llama_dir, kw):
-    # tp is not ported yet; execution plans are, and "balanced" is none of them
-    match = "ROADMAP.md" if "tp" in kw else "unknown execution plan 'balanced'"
+    # tp = 2 outside a process group of 2 ranks names the launcher; execution
+    # plans are ported, and "balanced" is none of them
+    match = ("torchrun --nproc-per-node 2" if "tp" in kw
+             else "unknown execution plan 'balanced'")
     with pytest.raises(InvalidConfigError, match=match):
         Generator(str(llama_dir), device="cpu", **kw)
 
