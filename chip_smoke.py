@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive kjarni_tpu_torch's generation, encoder-decoder, embed and search
-paths, the decoder's infrastructure, f32 on the card and the user surfaces
-(the CLI, the C ABI) on one CUDA card and check them.
+paths, the decoder's infrastructure, f32 on the card, the user surfaces
+(the CLI, the C ABI), parallelism and the training step on one CUDA card
+and check them.
 
     python3 chip_smoke.py [--phases env,kernels,bf16,int4,int8,batch,chat,gpt2,serve,
-                                    infra,f32,surfaces,parallel,seq2seq,whisper,embed,
-                                    search]
+                                    infra,f32,surfaces,parallel,train,seq2seq,whisper,
+                                    embed,search]
                           [--root DIR]
 
 --root DIR imports kjarni_tpu_torch from another checkout (an older commit,
@@ -103,7 +104,8 @@ Phases, in order (all by default); any failure raises and exits non-zero:
    generate on a 700-token prompt and a B = 8 generate_batch, with no flash
    and no int4 launch, and the card's bf16 logits against the f32 forward on
    the CPU at cosine >= 0.999.
-9. serve: over the phase-3 weights in bf16 and in int4, a ContinuousEngine
+9. serve: over the phase-3 weights' first 8 layers (full width) in bf16
+   and in int4, a ContinuousEngine
    (8 slots of 4,096, windows of up to 8 steps, a 256-token system prompt
    registered once) serves 24 requests in three bursts (the later two join
    mid-flight): suffixes of 1,100-1,800 tokens in the first (one 8-lane
@@ -123,7 +125,7 @@ Phases, in order (all by default); any failure raises and exits non-zero:
    request's admission and first 4 decode rows against the same forward
    (>= 0.99999 sound, as the batch phase). Then SpeculativeGenerator
    (k = 4) with the target's first 2 layers as a draft and with a
-   self-draft, in bf16 and int4: acceptance, tok/s beside the phase-3
+   self-draft, in bf16 and int4: acceptance, tok/s beside the target's own
    stream, and the same teacher-forced check. Then serve.py's
    server on 127.0.0.1:0 (--scheduler continuous): /health, 8 concurrent
    /v1/generate, /v1/completions, a streamed /v1/chat/completions and
@@ -242,10 +244,10 @@ Phases, in order (all by default); any failure raises and exits non-zero:
    the same seeded weights, checked) in f32 on the card and on the CPU: 32
    greedy ids equal, or parting only where the CPU's top-2 logits lie within
    1e-4 (the gap reported). `--phases env,kernels,f32,surfaces`.
-16. surfaces (over the same weights): the port's CLI in this process
-   (kjarni_tpu_torch.cli.main.main) in a cwd whose kjarni.toml sets
-   quantize = "int4" for the dir: generate --format json on the 701-token
-   prompt (16 flash and 113 int4 launches; the text equals Generator's with
+16. surfaces (over the same weights' first 4 layers, full width): the
+   port's CLI in this process (kjarni_tpu_torch.cli.main.main) in a cwd
+   whose kjarni.toml sets quantize = "int4" for the dir: generate --format
+   json on the 701-token prompt (4 flash and 29 int4 launches; the text equals Generator's with
    the same options, which is empty: the CLI has no --max-length and the
    default max_length of 100 counts the prompt, as in the JAX CLI) and on a
    60-token prompt (32 tokens, int4 launches, the text equals Generator's);
@@ -265,29 +267,61 @@ Phases, in order (all by default); any failure raises and exits non-zero:
    paths, each rank a process spawned on this card (every rank on cuda:0,
    gloo staged through host memory: the card count is 1; the env phase
    prints the card's compute mode, and anything but Default fails here).
+   The decoder runs at full width over its first 4 layers (PAR_LAYERS).
    Two ranks: DecoderLM(tp=2) in bf16 on the 701-token prompt with 32 new
    greedy tokens, the ids equal on both ranks and teacher-forced within
    the 0.5-logit band of tp = 1 on this card (phase 8's gate); f32 tp = 2
    over the first 2 layers, prefill logits within 1e-4 of the largest f32
    tp = 1 logit; a dp = 2 MiniLM-L6 SentenceEncoder on 256 texts, f32 rows
    within 1e-5 of dp = 1 and bf16 rows at cosine >= 0.999 of f32;
-   pipeline_forward at pp = 2 (8 layers a stage, n_micro 4, B 4 at S 1024)
+   pipeline_forward at pp = 2 (2 layers a stage, n_micro 4, B 4 at S 1024)
    and pp_generate (32 tokens on B 2), and sequence_parallel_forward at
    sp = 2 (S 1024), each in the band of one process. Four ranks:
    DecoderLM(tp=4) in int4, as tp = 2. Each rank returns its kernel
    launches, which count as this phase's; prefill ms, decode tok/s and the
    pp / sp times are printed with the card's name, as ranks sharing one
-   card, not a scale-out number. Phase 2 also holds both kernels at a tp
-   rank's shapes (flash over H16 Hkv4 and H8 Hkv2 at S = T = 1024, the f32
+   card, not a scale-out number. The server under SPMD (serve.py,
+   serve_spmd.py), rank 0 serving on a loopback port and the other ranks
+   following its model calls: at tp = 2 in bf16 under each scheduler
+   (/v1/completions under the batch one, /v1/generate under the continuous
+   one, the two sharing one model), after one request that builds the
+   model, 4 concurrent clients of the 701-token prompt for 8 greedy
+   tokens, each answer teacher-forced within the 0.5-logit band of tp = 1;
+   at dp = 2 two concurrent /v1/embed clients on the 256 texts, bf16 rows
+   (the server as it runs) at cosine >= 0.999 of dp = 1's and, with the
+   encoder built in f32, f32 rows within 1e-5 of dp = 1; at tp = 4 an int4
+   checkpoint's server (int4 runs), as tp = 2. Each rank job's seconds
+   are printed (job_s), and the parent's own steps' (parent_s).
+   The encoder families at tp = 2 (models/{bert,bart,t5,whisper}.py with
+   tp=, each rank its shard under the family's rule): MiniLM-L6's encode,
+   distilbart-cnn's and flan-t5-base's encode and one decode_step,
+   whisper-small's encoder and one decode_step, in f32 within 1e-4 of the
+   largest tp = 1 value; whisper-small's encoder in bf16 on the flash
+   kernel at a rank's 6 heads (12 launches a rank), frames at cosine >=
+   0.999 of tp = 1's. Phase 2 also holds both kernels at a tp
+   rank's shapes (flash over H16 Hkv4 and H8 Hkv2 at S = T = 1024, over
+   whisper-small's encoder at H6 and H3, S = T = 1500 non-causal, the f32
    kernel over H16 Hkv4; int4 at
    every tp = 2 and tp = 4 local projection and head shape at M = 1 and
    1024).
+18. train (run after 17, over the same weights; no kernel runs, and the
+   counts must not move): one sgd_train_step (parallel/train.py) at
+   Llama-3.2-1B's full width and depth in f32 (the tied head a leaf of its
+   own), B 4 x S 256 with a ragged mask, TF32 off: its ms and peak GB, its
+   loss within 1e-5 (relative) and each leaf's gradient within 1e-4 of its
+   largest |g| of the same step in f64 on the card. Then 8 ranks on the
+   card: the step at dp 2 x tp 4 over the first 2 layers, its loss within
+   1e-5 of one process's and its updated params, gathered whole, within
+   1e-7 (lr x 1e-4), with the step's seconds and the bytes its collectives
+   moved; and in the same ranks the dry run's phases 1-4
+   (parallel/dryrun.py), then its product phase on 4 ranks, printing
+   dryrun_multichip's line and loss.
 
-After each of phases 3-17 a line gives its own launches (the counts are set
+After each of phases 3-18 a line gives its own launches (the counts are set
 to 0 just before it and read just after; 10 and 11 must launch no int4, 12
-and 13 nothing). At
+and 13 nothing, 18 nothing). At
 the end come three lines: a JSON object {"kernels": [...]} (per kernel the
-launches of phases 3-17,
+launches of phases 3-18,
 max_abs_err over its cases, and ms / plain_ms / bound_ms / library_ms -- for
 flash and f32 flash one launch at the Llama-1B prefill shape, for int4 the
 113 launches of one decoded token, with its f32-output max_abs_err and
@@ -345,7 +379,7 @@ INT4_PER_FORWARD = 7 * LLAMA_1B["num_hidden_layers"] + 1
 # the phases over the Llama-3.2-1B-width weights (3-9 and 14), between the
 # launch counts' reset and their reading
 GENERATION = ("bf16", "int4", "int8", "batch", "chat", "gpt2", "serve", "infra", "f32",
-              "surfaces", "parallel")
+              "surfaces", "parallel", "train")
 # the encoder-decoder phases (10 and 11), also on the main path
 ENC_DEC = ("seq2seq", "whisper")
 FLASH_PER_PREFILL = LLAMA_1B["num_hidden_layers"]
@@ -1054,13 +1088,21 @@ def phase_tp_kernels(total, per_token: dict) -> dict:
     """Both kernels at the shapes one rank of the tp decoder launches (the
     parallel phase), against their plain versions with the same bounds:
     flash over a rank's heads at the 1024 prefill (H16 Hkv4 at tp = 2, H8
-    Hkv2 at tp = 4), int4 at every local shape at M = 1 (decode) and M = 1024
+    Hkv2 at tp = 4) and at whisper-small's encoder (H6 at tp = 2, H3 at
+    tp = 4, S = T = 1500, non-causal), int4 at every local shape at M = 1 (decode) and M = 1024
     (the prefill), with a rank's decoded token summed (113 launches)."""
     c = LLAMA_1B
     H, Hkv, D = c["num_attention_heads"], c["num_key_value_heads"], c["head_dim"]
     flash = [flash_case(f"tp={tp} rank prefill H{H // tp} Hkv{Hkv // tp} S=T=1024",
                         1, H // tp, Hkv // tp, 1024, 1024, D, seed=60 + tp)
              for tp in (2, 4)]
+    # whisper-small's encoder on a tp rank (phase 17's tp = 2 encoder; H3 at
+    # tp = 4), non-causal, held as phase 2 holds the full-width shape
+    Hw = WHISPER_SMALL["encoder_attention_heads"]
+    flash += [flash_case(f"tp={tp} rank whisper-encoder H{Hw // tp} S=T=1500 non-causal",
+                         1, Hw // tp, Hw // tp, 1500, 1500, D, causal=False, seed=64 + tp,
+                         ref_tol=WHISPER_FLASH_REF_TOL, controls=WHISPER_FLASH_CONTROLS)
+              for tp in (2, 4)]
     # phase 17's f32 tp = 2 prefill
     flash_f32 = [flash_f32_case(f"tp=2 rank prefill H{H // 2} Hkv{Hkv // 2} S=T=1024",
                                 1, H // 2, Hkv // 2, 1024, 1024, D, seed=66)]
@@ -1080,6 +1122,17 @@ def phase_tp_kernels(total, per_token: dict) -> dict:
 # ---------------------------------------------------------------------------
 # phases 3 and 4
 # ---------------------------------------------------------------------------
+
+def layers_view(d: Path, dst: Path, n: int) -> Path:
+    """Model dir d (Llama-3.2-1B width) cut to its first n layers: a config
+    of n layers beside links to d's weights and tokenizer files."""
+    dst.mkdir(exist_ok=True)
+    (dst / "config.json").write_text(json.dumps({**LLAMA_1B, "num_hidden_layers": n}))
+    for f in ("model.safetensors", "tokenizer.json", "generation_config.json"):
+        if (d / f).exists():
+            (dst / f).symlink_to(d / f)
+    return dst
+
 
 def write_model_dir(d: Path, seed: int = 0, c: dict = LLAMA_1B) -> None:
     """config.json + model.safetensors of random bf16 weights for llama
@@ -1442,7 +1495,7 @@ def phase_slices(phases) -> None:
             _counted("gpt2", phase_gpt2, Path(tmp) / "gpt2-random")
         if "serve" in phases:
             before = _counts()
-            _counted("serve", phase_serve, d, Path(tmp), ran)
+            _counted("serve", phase_serve, d, Path(tmp))
             serve_n = [a - b for a, b in zip(_counts(), before)]
             check(serve_n[0] > 0 and serve_n[1] > 0,
                   f"the serve phase launched both kernels (flash, int4: {serve_n})")
@@ -1454,6 +1507,10 @@ def phase_slices(phases) -> None:
             _counted("surfaces", phase_surfaces, d, Path(tmp))
         if "parallel" in phases:
             _counted("parallel", phase_parallel, d, Path(tmp))
+        if "train" in phases:
+            before = _all_counts()
+            _counted("train", phase_train, d, Path(tmp))
+            check(_all_counts() == before, "the train phase launched no kernel")
 
 
 def _counts() -> tuple[int, int]:
@@ -2132,6 +2189,7 @@ SERVE_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9, min_p=0.0)
 # greedy request's admission row and first SERVE_CHECK_STEPS decode rows
 # against the same forward.
 SERVE_TIE_BAND = 0.5
+SERVE_LAYERS = 8            # the served model's depth here: full width, cut depth
 SERVE_CHECK_STEPS = 4
 SERVE_FAULTS = ("decode_at_pos_minus_1", "admission_scatter_permuted",
                 "flash_wave_q_offset_0")
@@ -2385,10 +2443,11 @@ def serve_engine(d: Path, quantize) -> dict:
     eng = a["eng"]
     check(a["probe"].modes.get("flash", 0) >= 1 and a["probe"].modes.get("plain", 0) >= 1,
           f"{tag} engine: flash and plain admission waves ({a['probe'].modes})")
-    check(flash_n == FLASH_PER_PREFILL * a["probe"].modes.get("flash", 0),
-          f"{tag} engine: {flash_n} flash launches, 16 per flash wave")
+    layers = lm.config.num_layers
+    check(flash_n == layers * a["probe"].modes.get("flash", 0),
+          f"{tag} engine: {flash_n} flash launches, {layers} per flash wave")
     forwards = 1 + eng.stats["admission_waves"] + a["probe"].steps
-    want4 = INT4_PER_FORWARD * forwards if quantize == "int4" else 0
+    want4 = (7 * layers + 1) * forwards if quantize == "int4" else 0
     check(int4_n == want4, f"{tag} engine: {int4_n} int4 launches, expected {want4}")
     if quantize == "int4":
         check(shapes.get(SERVE_SLOTS, 0) > 0 and shapes.get(8 * 2048, 0) > 0,
@@ -2452,12 +2511,13 @@ def serve_engine(d: Path, quantize) -> dict:
     return row
 
 
-def serve_speculative(d: Path, tmp: Path, quantize, single_tps) -> list:
-    """SpeculativeGenerator over the phase-3 weights as the target, with two
+def serve_speculative(d: Path, tmp: Path, quantize) -> list:
+    """SpeculativeGenerator over the weights of d as the target, with two
     drafts: the target's first 2 layers (same embedding and head) and the
     target itself. Each output is held by the teacher-forced check (every
     emitted token's margin); the cosine of the target pass's rows of the
-    emitted tokens against the same forward is printed."""
+    emitted tokens against the same forward is printed, and the target's own
+    greedy stream of the same tokens times the single stream beside it."""
     import types
     import torch
     from kjarni_tpu_torch import Generator
@@ -2475,6 +2535,12 @@ def serve_speculative(d: Path, tmp: Path, quantize, single_tps) -> list:
     drafts = {"2-layer draft": DecoderLM(dd, quantize=quantize), "self-draft": target}
     ids = target.encode_prompt(_prompt(600, 90))
     cfg = GenerationConfig.greedy(max_new_tokens=128, max_length=4096)
+    counts = _counts()     # the yardstick's launches are not the path's
+    steps = []
+    for st in target.generate_stream(token_ids=ids, config=cfg):
+        steps.append(time.perf_counter())
+    _restore(counts)
+    single_tps = (len(steps) - 1) / (steps[-1] - steps[0])
     rows = []
     for name, draft in drafts.items():
         spec = SpeculativeGenerator(target, draft, num_tokens=4)
@@ -2486,7 +2552,7 @@ def serve_speculative(d: Path, tmp: Path, quantize, single_tps) -> list:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         flash_n, int4_n = (x - y for x, y in zip(_counts(), c0))
-        want = FLASH_PER_PREFILL + draft.config.num_layers
+        want = target.config.num_layers + draft.config.num_layers
         check(len(out) > 0 and flash_n == want,
               f"spec {tag} {name}: {flash_n} flash launches, expected {want} (the "
               f"target's and the draft's prefills at bucket 1024)")
@@ -2787,14 +2853,15 @@ def serve_gguf(tmp: Path) -> dict:
     return row
 
 
-def phase_serve(d: Path, tmp: Path, ran: dict) -> None:
+def phase_serve(d: Path, tmp: Path) -> None:
     """Phase 9: the continuous engine and speculative decoding in bf16 and
-    int4, the HTTP server, and a GGUF dir."""
+    int4, the HTTP server (over d's first SERVE_LAYERS layers), and a GGUF
+    dir."""
+    d = layers_view(d, tmp / f"llama-3.2-1b-{SERVE_LAYERS}-layers-serve", SERVE_LAYERS)
     for quantize in (None, "int4"):
         serve_engine(d, quantize)
     for quantize in (None, "int4"):
-        serve_speculative(d, tmp, quantize,
-                          ran.get(quantize or "bf16", {}).get("stream_decode_tok_per_s"))
+        serve_speculative(d, tmp, quantize)
     serve_http(d)
     serve_gguf(tmp)
 
@@ -4755,6 +4822,7 @@ def phase_f32(d: Path, tmp: Path, ran: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 SURFACE_NEW_TOKENS = 32
+SURFACE_LAYERS = 4          # the generator's depth here: full width, cut depth
 SURFACE_EMBED_TOL = 1e-6
 TINY_LLAMA = {"model_type": "llama", "vocab_size": 4096, "hidden_size": 256,
               "intermediate_size": 512, "num_hidden_layers": 2, "num_attention_heads": 4,
@@ -4808,8 +4876,10 @@ def phase_surfaces(d: Path, tmp: Path) -> dict:
     max_length 4096 in the args: both kernels launch, texts equal a
     Generator's making the same two calls); the
     port's compiled C host as a subprocess against MiniLM,
-    DistilBERT-SST-2 and a small llama dir on the card. Seconds per step,
-    and each surface's beyond the Python API's (overhead_s)."""
+    DistilBERT-SST-2 and a small llama dir on the card. The generator runs
+    at full width over the first SURFACE_LAYERS layers of the phase-3
+    weights. Seconds per step, and each surface's beyond the Python API's
+    (overhead_s)."""
     import contextlib as cl
     import ctypes
     import io
@@ -4820,7 +4890,8 @@ def phase_surfaces(d: Path, tmp: Path) -> dict:
     from kjarni_tpu_torch.cli.main import main as cli_main
     from kjarni_tpu_torch.ffi import build as ffi_build
     from kjarni_tpu_torch.tasks.generator import resolve_generation_config
-    secs, row = {"write_dirs": 0.0}, {"case": "surfaces"}
+    secs, row = {"write_dirs": 0.0}, {"case": "surfaces", "layers": SURFACE_LAYERS}
+    d = layers_view(d, tmp / f"llama-3.2-1b-{SURFACE_LAYERS}-layers-surfaces", SURFACE_LAYERS)
     text, short = _prompt(700, 1), _prompt(59, 9)
     cli_cfg = resolve_generation_config("greedy", None, max_new_tokens=SURFACE_NEW_TOKENS)
     abi_cfg = dataclasses.replace(cli_cfg, max_length=4096)
@@ -4859,7 +4930,7 @@ def phase_surfaces(d: Path, tmp: Path) -> dict:
     cwd.mkdir()
     (cwd / "kjarni.toml").write_text(f'[models."{d}"]\nquantize = "int4"\n')
     old = os.getcwd()
-    for key, prompt, flash_want in (("cli_700", text, FLASH_PER_PREFILL), ("cli_60", short, 0)):
+    for key, prompt, flash_want in (("cli_700", text, SURFACE_LAYERS), ("cli_60", short, 0)):
         before = _counts()
         buf = io.StringIO()
         try:
@@ -4975,6 +5046,7 @@ PAR_F32_TOL = 1e-4                  # of the largest f32 logit, as phase 15 hold
 PAR_DP_F32_ATOL = 1e-5              # dp rows against dp = 1, f32
 PAR_TIMEOUT_S = 600                 # one group's whole run
 PAR_SEQ = 1024
+PAR_LAYERS = 4                      # the decoder's depth here: full width, cut depth
 
 
 def compute_mode() -> str:
@@ -5001,9 +5073,10 @@ def _rank_main(rank: int, world: int, init: str, jobs: list, results) -> None:
                                 world_size=world, timeout=datetime.timedelta(seconds=300))
         out = {}
         for name, args in jobs:
-            before = _all_counts()
+            before, t = _all_counts(), time.perf_counter()
             out[name] = globals()[f"_par_{name}"](*args)
             out[name]["launches"] = [a - b for a, b in zip(_all_counts(), before)]
+            out[name]["job_s"] = time.perf_counter() - t
             gc.collect()
             torch.cuda.empty_cache()
         results.put((rank, True, out))
@@ -5049,6 +5122,11 @@ def _spawn_ranks(world: int, tmp: Path, jobs: list) -> list:
                 p.join(timeout=30)
     check(not errors, "; ".join(errors))
     return [got[r] for r in range(world)]
+
+
+def _job_seconds(*groups) -> dict:
+    """Each rank job's seconds, the slowest rank's, by group size."""
+    return {f"{len(g)}:{job}": max(r[job]["job_s"] for r in g) for g in groups for job in g[0]}
 
 
 def _leaves(tree):
@@ -5102,8 +5180,9 @@ def _par_tp(model: str, quantize, prompt: str) -> dict:
         out.append(st.id)
     end = time.perf_counter()
     flash_n, int4_n = _all_counts()[0] - f0, _all_counts()[1] - i0
-    check(flash_n == FLASH_PER_PREFILL, f"tp: {flash_n} flash launches on a rank's prefill")
-    want = INT4_PER_FORWARD * (1 + len(out)) if quantize == "int4" else 0
+    layers = lm.config.num_layers
+    check(flash_n == layers, f"tp: {flash_n} flash launches on a rank's prefill")
+    want = (7 * layers + 1) * (1 + len(out)) if quantize == "int4" else 0
     check(int4_n == want, f"tp: {int4_n} int4 launches on a rank, expected {want}")
     counts = _all_counts()
     times = []
@@ -5278,6 +5357,271 @@ def _par_sp(model: str, ids) -> dict:
     return out
 
 
+PAR_SERVE_NEW_TOKENS = 8
+PAR_SERVE_CLIENTS = 4
+PAR_FAMILY_F32_TOL = 1e-4           # of the largest tp = 1 value (tests/test_parallel.py's)
+# the encoder families held at tp = 2 (phase 17): name, config, rule, encoder input
+PAR_FAMILIES = ("minilm", "distilbart-cnn", "flan-t5-base", "whisper-small")
+
+
+def _serve_clients(models: dict, engine_kw: dict, warm: tuple, requests: list,
+                   cache: dict | None = None) -> dict | None:
+    """serve.serve on rank 0 of this group (port 0) answering `requests`
+    [(path, body)] from concurrent HTTP clients, every model call issued
+    through its Dispatcher to every rank (serve_spmd.py); the other ranks
+    follow until rank 0 stops them, as serve.run does on SIGINT. The `warm`
+    request runs alone first: it builds the model (lazily, on every rank)
+    unless `cache`, a model cache an earlier server on this rank filled,
+    holds it already. Rank 0's answers, each request's seconds and the first
+    request's; None elsewhere."""
+    import threading
+    import urllib.request
+    import torch.distributed as dist
+    from kjarni_tpu_torch import serve
+    from kjarni_tpu_torch.serve_spmd import follow
+    if dist.get_rank() != 0:
+        engine = serve._Engine(models, **engine_kw)
+        engine._cache = engine._cache if cache is None else cache
+        follow(engine._apply)
+        return None
+    srv = serve.serve("127.0.0.1", 0, models, **engine_kw)
+    srv.engine._cache = srv.engine._cache if cache is None else cache
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    got, secs = [None] * len(requests), [None] * len(requests)
+
+    def one(i, path, body):
+        req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=PAR_TIMEOUT_S) as r:
+            got[i] = (r.status, json.loads(r.read()))
+        secs[i] = time.perf_counter() - t
+    first = time.perf_counter()
+    try:
+        req = urllib.request.Request(base + warm[0], data=json.dumps(warm[1]).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=PAR_TIMEOUT_S) as r:
+            check(r.status == 200, f"served the first request: {r.status}")
+        first = time.perf_counter() - first
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i, p, b))
+                   for i, (p, b) in enumerate(requests)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.engine._spmd.stop()
+    check(all(g is not None and g[0] == 200 for g in got), f"served: {got}")
+    return {"answers": [g[1] for g in got], "seconds": secs, "wall_s": wall, "first_s": first}
+
+
+def _par_serve(model: str, prompt: str, runs: list) -> dict:
+    """The tp server under SPMD, one server per run (tag, engine keywords,
+    route): PAR_SERVE_CLIENTS concurrent greedy requests of the prompt for
+    PAR_SERVE_NEW_TOKENS. The batch scheduler takes /v1/completions, whose
+    max_length is the context (/v1/generate's preset keeps GenerationConfig's
+    100, under the 701-token prompt), the continuous one /v1/generate. The
+    servers share one model cache: the model is built once, by the first."""
+    bodies = {"/v1/completions": {"prompt": prompt, "max_tokens": PAR_SERVE_NEW_TOKENS,
+                                  "temperature": 0},
+              "/v1/generate": {"prompt": prompt, "preset": "greedy",
+                               "max_new_tokens": PAR_SERVE_NEW_TOKENS}}
+    out, cache = {}, {}
+    for tag, engine_kw, route in runs:
+        warm = (route, {**bodies[route], "max_tokens": 1} if "max_tokens" in bodies[route]
+                else {**bodies[route], "max_new_tokens": 1})
+        out[tag] = _serve_clients({"generate": model}, engine_kw, warm,
+                                  [(route, bodies[route])] * PAR_SERVE_CLIENTS, cache)
+    return out
+
+
+def _par_serve_embed(model: str, texts: list) -> dict:
+    """/v1/embed on a dp = world server: two concurrent clients with half the
+    texts each, on the server as it runs (its Embedder takes no dtype: bf16
+    on the card), then on one whose encoder is built in f32, so that its
+    rows can be held to dp = 1's f32 rows."""
+    import functools
+    from kjarni_tpu_torch.tasks import embedder
+    import torch.distributed as dist
+    half = len(texts) // 2
+
+    def served():
+        return _serve_clients({"embed": model}, {"dp": dist.get_world_size()},
+                              ("/v1/embed", {"text": texts[0]}),
+                              [("/v1/embed", {"texts": texts[:half]}),
+                               ("/v1/embed", {"texts": texts[half:]})]) or {}
+    out = {"bf16": served()}
+    saved = embedder.SentenceEncoder
+    embedder.SentenceEncoder = functools.partial(saved, dtype="f32")
+    try:
+        out["f32"] = served()
+    finally:
+        embedder.SentenceEncoder = saved
+    return out
+
+
+def _family_inputs(name: str, c: dict) -> dict:
+    """Seeded inputs of one family's forward: token ids (and a decoder
+    prefix), or a log-mel for Whisper."""
+    import torch
+    g = torch.Generator().manual_seed(23)
+    if name == "minilm":
+        ids = torch.randint(1000, c["vocab_size"], (2, EMBED_SEQ), generator=g)
+        mask = torch.ones_like(ids)
+        mask[1, EMBED_SEQ // 2:] = 0
+        return {"ids": ids, "mask": mask}
+    if name == "whisper-small":
+        return {"mel": torch.randn(1, c["num_mel_bins"], 3000, generator=g) * 0.5,
+                "dec": torch.tensor([[50258, 50259, 50359, 50363]])}
+    ids = torch.randint(5, c["vocab_size"] - 1, (1, 128), generator=g)
+    return {"ids": ids, "mask": torch.ones_like(ids),
+            "dec": torch.tensor([[c["decoder_start_token_id"], 10, 11, 12]])}
+
+
+def family_forward(name: str, d: str, dtype, tp=None, mesh=None, flash: bool = False) -> dict:
+    """One encoder family's forward on the card over dir d: MiniLM's hidden
+    states; an encoder-decoder's encoder states and one decode_step's logits
+    (4 tokens from slot 0). With a mesh: this rank's shard under the
+    family's rule, the collectives over `tp`."""
+    import torch
+    from kjarni_tpu_torch.parallel import mesh as pm
+    from kjarni_tpu_torch.weights.safetensors_loader import ModelWeights
+    family = {"minilm": "bert", "distilbart-cnn": "bart", "flan-t5-base": "t5",
+              "whisper-small": "whisper"}[name]
+    mod = importlib.import_module(f"kjarni_tpu_torch.models.{family}")
+    conf = {"bert": "BertConfig", "t5": "T5Config", "bart": "BartConfig",
+            "whisper": "WhisperConfig"}[family]
+    c = json.loads((Path(d) / "config.json").read_text())
+    cfg = getattr(mod, conf).from_hf(c)
+    params = mod.load_params(ModelWeights(d), cfg, dtype, "cpu")
+    if mesh is not None:
+        rule = {"bert": pm.encoder_param_sharding, "t5": pm.t5_param_sharding,
+                "bart": pm.bart_param_sharding, "whisper": pm.whisper_param_sharding}[family]
+        params = pm.shard_params_with(params, rule(mesh), mesh)
+    params = _to_card(params)
+    x = {k: v.cuda() for k, v in _family_inputs(name, c).items()}
+    with torch.inference_mode():
+        if family == "bert":
+            return {"enc": mod.encode(params, cfg, x["ids"], x["mask"], tp=tp)}
+        if family == "whisper":
+            enc = mod.encode(params, cfg, x["mel"].to(dtype), use_flash=flash, tp=tp)
+            mask = None
+        else:
+            mask = x["mask"]
+            enc = mod.encode(params, cfg, x["ids"], mask, tp=tp)
+        out = {"enc": enc}
+        if not flash:
+            ck, cv = mod.precompute_cross_kv(params, cfg, enc, tp=tp)
+            sk, sv = mod.init_self_cache(cfg, 1, 8, dtype, "cuda")
+            if tp is not None:
+                sk, sv = (t.narrow(2, tp.rank * ck.shape[2], ck.shape[2]).contiguous()
+                          for t in (sk, sv))
+            out["logits"] = mod.decode_step(params, cfg, x["dec"], sk, sv, ck, cv, mask, 0,
+                                            tp=tp)[0]
+        return out
+
+
+def _tree_map(fn, tree):
+    """fn over every tensor of a param tree (None leaves stay None)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return tree if tree is None else fn(tree)
+
+
+def _to_card(tree):
+    return _tree_map(lambda t: t.cuda(), tree)
+
+
+def _par_families(dirs: dict) -> dict:
+    """Each encoder family's tp = world forward (family_forward) in f32, and
+    whisper-small's encoder in bf16 on the flash kernel at this rank's
+    heads: the outputs as host arrays, with seconds and the flash launches."""
+    import torch
+    import torch.distributed as dist
+    from kjarni_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(dp=1, tp=dist.get_world_size())
+    tp = mesh.comm("tp")
+    out = {}
+    for name in PAR_FAMILIES:
+        t = time.perf_counter()
+        got = family_forward(name, dirs[name], torch.float32, tp, mesh)
+        out[name] = {k: v.float().cpu().numpy() for k, v in got.items()}
+        out[name]["seconds"] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+    f0 = _all_counts()[0]
+    got = family_forward("whisper-small", dirs["whisper-small"], torch.bfloat16, tp, mesh,
+                         flash=True)
+    out["whisper-small-bf16-flash"] = {"enc": got["enc"].float().cpu().numpy(),
+                                       "flash_launches": _all_counts()[0] - f0}
+    return out
+
+
+def _frame_cos_min(a, b) -> float:
+    """The smallest cosine between matching rows (frames) of two [.., D] arrays."""
+    import numpy as np
+    a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+    return float(cos.min())
+
+
+def hold_families(dirs: dict, two: list) -> dict:
+    """The tp = 2 family outputs against one process on the card: f32 within
+    PAR_FAMILY_F32_TOL of the largest tp = 1 value, Whisper's bf16 flash
+    encoder within WHISPER_FLASH_COS_MIN (per frame) of tp = 1's."""
+    import numpy as np
+    import torch
+    counts = _all_counts()
+    rows = {}
+    for name in PAR_FAMILIES:
+        ref = {k: v.float().cpu().numpy()
+               for k, v in family_forward(name, dirs[name], torch.float32).items()}
+        row = {"seconds": two[0]["families"][name]["seconds"]}
+        for k, want in ref.items():
+            tol = PAR_FAMILY_F32_TOL * float(np.abs(want).max())
+            err = max(float(np.abs(r["families"][name][k] - want).max()) for r in two)
+            check(err <= tol, f"tp = 2 {name} {k}: f32 within {tol} of tp = 1 ({err})")
+            row[f"{k}_max_abs_err"], row[f"{k}_tol"] = err, tol
+        rows[name] = row
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref = family_forward("whisper-small", dirs["whisper-small"], torch.bfloat16,
+                         flash=True)["enc"].float().cpu().numpy()
+    _restore(counts)
+    runs = [r["families"]["whisper-small-bf16-flash"] for r in two]
+    cos = min(_frame_cos_min(r["enc"], ref) for r in runs)
+    check(cos >= WHISPER_FLASH_COS_MIN,
+          f"tp = 2 whisper-small bf16 flash encoder: cosine {cos} >= {WHISPER_FLASH_COS_MIN}")
+    n = WHISPER_SMALL["encoder_layers"]
+    check(all(r["flash_launches"] == n for r in runs),
+          f"tp = 2 whisper encoder: {n} flash launches a rank ({[r['flash_launches'] for r in runs]})")
+    rows["whisper-small-bf16-flash"] = {"cos_min": cos, "flash_launches_per_rank": n}
+    return rows
+
+
+def hold_served(tag: str, lm, prompt: str, served: dict) -> dict:
+    """Each served answer teacher-forced on the one-process plain forward:
+    every token within PAR_TIE_BAND of the reference's best."""
+    p_ids = lm.encode_prompt(prompt)
+    bands = []
+    for a in served["answers"]:
+        text = a["text"] if "text" in a else a["choices"][0]["text"]
+        out = lm.tokenizer.encode(text, add_special_tokens=False)
+        check(1 <= len(out) <= PAR_SERVE_NEW_TOKENS, f"{tag}: {len(out)} new tokens")
+        ref = _teacher_forced(lm, p_ids + out[:-1],
+                              list(range(len(p_ids) - 1, len(p_ids) - 1 + len(out))))
+        bands.append(max(_margins(ref, out)))
+    check(max(bands) <= PAR_TIE_BAND,
+          f"{tag}: served answers' teacher-forced margins {bands} within {PAR_TIE_BAND}")
+    return {"band_max": max(bands), "request_s": served["seconds"], "wall_s": served["wall_s"],
+            "first_request_s": served["first_s"]}
+
+
 def phase_parallel(d: Path, tmp: Path) -> dict:
     """Phase 17 (see the module docstring): ranks spawned as processes that
     share cuda:0 over gloo, staged through host memory, each returning its
@@ -5294,24 +5638,45 @@ def phase_parallel(d: Path, tmp: Path) -> dict:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
     prompt = _prompt(700, 1)
-    d2 = tmp / "llama-3.2-1b-2-layers-parallel"
-    d2.mkdir(exist_ok=True)
-    (d2 / "config.json").write_text(json.dumps({**LLAMA_1B, "num_hidden_layers": 2}))
-    for f in ("model.safetensors", "tokenizer.json"):
-        (d2 / f).symlink_to(d / f)
+    # the phase-3 weights cut to their first layers: d4 for the decoder's
+    # paths, d2 for the f32 prefill
+    d4, d2 = (layers_view(d, tmp / f"llama-3.2-1b-{n}-layers-parallel", n)
+              for n in (PAR_LAYERS, 2))
     mini = tmp / "minilm-l6-parallel"
     write_encoder_dir(mini, MINILM_L6)
+    fam = {"minilm": str(mini)}
+    for name, c in (("distilbart-cnn", DISTILBART_CNN), ("flan-t5-base", FLAN_T5_BASE),
+                    ("whisper-small", WHISPER_SMALL)):
+        write_encdec_dir(tmp / f"{name}-parallel", c, seed=5)
+        fam[name] = str(tmp / f"{name}-parallel")
+    parent_s = {"write_dirs": time.perf_counter() - t0}
+    # the tp = 4 int4 server's model: an int4 native checkpoint (the server
+    # takes no quantize option)
+    from kjarni_tpu_torch.weights.checkpoint import convert_model
+    t0 = time.perf_counter()
+    counts = _all_counts()
+    int4_dir = convert_model(d4, tmp / "llama-3.2-1b-int4-ckpt", quantize="int4")
+    _restore(counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent_s["int4_ckpt"] = time.perf_counter() - t0
     texts = _sentences(EMBED_BATCH, 40, EMBED_SEQ - 2, 7)
     g = torch.Generator().manual_seed(17)
     ids = torch.randint(1000, 120000, (4, PAR_SEQ), generator=g).numpy()
     t0 = time.perf_counter()
-    two = _spawn_ranks(2, tmp, [("tp", (str(d), None, prompt)), ("tp_f32", (str(d2), prompt)),
-                                ("dp", (str(mini), texts)), ("pp", (str(d), ids)),
-                                ("sp", (str(d), ids[:1]))])
+    serve_runs = [("tp2_batch", {"tp": 2}, "/v1/completions"),
+                  ("tp2_continuous", {"tp": 2, "scheduler": "continuous"}, "/v1/generate")]
+    two = _spawn_ranks(2, tmp, [("tp", (str(d4), None, prompt)), ("tp_f32", (str(d2), prompt)),
+                                ("dp", (str(mini), texts)), ("pp", (str(d4), ids)),
+                                ("sp", (str(d4), ids[:1])), ("serve", (str(d4), prompt, serve_runs)),
+                                ("serve_embed", (str(mini), texts)), ("families", (fam,))])
     two_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    four = _spawn_ranks(4, tmp, [("tp", (str(d), "int4", prompt))])
+    four = _spawn_ranks(4, tmp, [("tp", (str(d4), "int4", prompt)),
+                                 ("serve", (str(int4_dir), prompt,
+                                            [("tp4_int4", {"tp": 4}, "/v1/completions")]))])
     four_s = time.perf_counter() - t0
     launches = [sum(r[job]["launches"][k] for group in (two, four) for r in group
                     for job in r) for k in range(3)]
@@ -5320,12 +5685,13 @@ def phase_parallel(d: Path, tmp: Path) -> dict:
     rows = {}
     # the references: one process on the same card; their launches are not
     # the main path's
+    t0 = time.perf_counter()
     counts = _all_counts()
     for tag, group, quantize in (("tp2_bf16", two, None), ("tp4_int4", four, "int4")):
         runs = [r["tp"] for r in group]
         check(all(r["ids"] == runs[0]["ids"] for r in runs),
               f"{tag}: every rank returns the same ids")
-        lm = DecoderLM(d, quantize=quantize)
+        lm = DecoderLM(d4, quantize=quantize)
         p_ids = lm.encode_prompt(prompt)
         out = runs[0]["ids"]
         check(len(out) == PAR_NEW_TOKENS, f"{tag}: {len(out)} new tokens")
@@ -5338,6 +5704,10 @@ def phase_parallel(d: Path, tmp: Path) -> dict:
             "prompt_len", "load_s", "ttft_ms", "decode_tok_s", "prefill_ms", "allreduce_ms",
             "q_cols", "transport", "load_peak_gb", "shard_gb", "peak_gb")},
             "launches_per_rank": runs[0]["launches"]}
+        for stag, served in group[0]["serve"].items():
+            if stag in ("launches", "job_s"):
+                continue
+            rows[f"serve_{stag}"] = hold_served(f"served {stag}", lm, prompt, served)
         del lm, ref
         gc.collect()
         torch.cuda.empty_cache()
@@ -5357,13 +5727,31 @@ def phase_parallel(d: Path, tmp: Path) -> dict:
     rows["dp2_minilm"] = {"f32_max_abs_err": dp_err, "bf16_cos_min": cos,
                           "texts_per_s": two[0]["dp"]["texts_per_s"],
                           "transport": two[0]["dp"]["transport"]}
+    served = two[0]["serve_embed"]
+
+    def rows_of(run):
+        return np.asarray([v for a in run["answers"] for v in a["embeddings"]], np.float32)
+    embed_err = float(np.abs(rows_of(served["f32"]) - ref32).max())
+    check(embed_err <= PAR_DP_F32_ATOL,
+          f"dp = 2 /v1/embed f32 rows within {PAR_DP_F32_ATOL} of dp = 1 ({embed_err})")
+    from kjarni_tpu_torch.tasks.embedder import Embedder
+    ref16 = np.asarray(Embedder(str(mini)).embed_batch(texts), np.float32)
+    embed_cos = _frame_cos_min(rows_of(served["bf16"]), ref16)
+    check(embed_cos >= EMBED_COS_MIN,
+          f"dp = 2 /v1/embed bf16 rows: cosine {embed_cos} >= {EMBED_COS_MIN} of dp = 1's")
+    rows["serve_dp2_embed"] = {"f32_max_abs_err": embed_err, "bf16_cos_min": embed_cos,
+                               "request_s": served["bf16"]["seconds"],
+                               "first_request_s": served["bf16"]["first_s"]}
+    rows["tp2_families"] = hold_families(fam, two)
     _restore(counts)
+    parent_s["references"] = time.perf_counter() - t0
     pp, sp = two[0]["pp"], two[0]["sp"]
     for what, band in (("pp forward", pp["forward"]["band_max"]),
                        ("pp generate", pp["generate"]["band_max"]),
                        ("sp forward", sp["forward"]["band_max"])):
         check(band <= PAR_TIE_BAND, f"{what}: margin {band} within {PAR_TIE_BAND} of one process")
-    check([r["pp"]["layers_here"] for r in two] == [8, 8], "pp = 2: 8 layers a stage")
+    check([r["pp"]["layers_here"] for r in two] == [PAR_LAYERS // 2] * 2,
+          f"pp = 2: {PAR_LAYERS // 2} layers a stage")
     rows["pp2"] = {k: pp[k] for k in ("forward_ms", "generate_s", "decode_tok_s",
                                       "forward", "generate", "transport")}
     rows["sp2"] = {k: sp[k] for k in ("forward_ms", "forward", "transport")}
@@ -5373,8 +5761,205 @@ def phase_parallel(d: Path, tmp: Path) -> dict:
     flash_attention.launches += launches[0]
     int4_matvec.launches += launches[1]
     flash_attention.launches_f32 += launches[2]
-    row = {"parallel": rows, "two_ranks_s": two_s, "four_ranks_s": four_s,
+    row = {"parallel": rows, "layers": PAR_LAYERS, "two_ranks_s": two_s, "four_ranks_s": four_s,
+           "job_s": _job_seconds(two, four), "parent_s": parent_s,
            "rank_launches": launches, "compute_mode": mode, "measured_as": where}
+    print(json.dumps(row))
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the training step (kjarni_tpu_torch/parallel/train.py)
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S = 4, 256
+TRAIN_LR = 1e-3
+TRAIN_LOSS_RTOL = 1e-5          # f32 against f64, and dp x tp against one process
+TRAIN_GRAD_TOL = 1e-4           # each leaf's max |g32 - g64|, of its max |g64|
+TRAIN_PARAM_ATOL = 1e-7         # dp x tp params against one process: lr x 1e-4
+
+
+def _train_batch(vocab: int):
+    """B 4 x S 256 of seeded ids, labels the next id, a mask whose first two
+    rows (the first dp rank's) drop their last quarter."""
+    import torch
+    g = torch.Generator().manual_seed(29)
+    ids = torch.randint(1000, vocab, (TRAIN_B, TRAIN_S), generator=g)
+    labels = torch.roll(ids, -1, dims=1)
+    mask = torch.ones_like(ids)
+    mask[:TRAIN_B // 2, TRAIN_S * 3 // 4:] = 0
+    return ids, labels, mask
+
+
+def _train_params(model: str, layers: int, dtype, device):
+    """Llama-3.2-1B's config cut to `layers` and its first `layers` layers
+    (a tied head: lm_head is embed.t()), rope tables of TRAIN_S rows."""
+    from kjarni_tpu_torch.models import llama as kllama
+    from kjarni_tpu_torch.weights.safetensors_loader import ModelWeights
+    c = json.loads((Path(model) / "config.json").read_text())
+    cfg = kllama.DecoderConfig.from_hf({**c, "num_hidden_layers": layers})
+    return cfg, kllama.load_params(ModelWeights(model), cfg, dtype, rope_cache_len=TRAIN_S,
+                                   device=device)
+
+
+def _tree_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tree_leaves(v, path + (k,))
+    else:
+        yield "/".join(path), tree
+
+
+def _par_train(model: str, batch: tuple) -> dict:
+    """One sgd_train_step on a dp 2 x tp 4 mesh of the 8 ranks at 2 layers:
+    the step's seconds and the bytes its collectives moved on this rank; on
+    rank 0 the updated params gathered whole (gather_params) against one
+    process's step on the same card."""
+    import torch
+    import torch.distributed as dist
+    from kjarni_tpu_torch.parallel import comm as pc
+    from kjarni_tpu_torch.parallel.mesh import (gather_params, llama_param_sharding,
+                                                make_mesh, shard_llama_params)
+    from kjarni_tpu_torch.parallel.train import sgd_train_step
+    mesh = make_mesh(dp=2, tp=4)
+    cfg, full = _train_params(model, 2, torch.float32, "cpu")
+    params = _to_card(shard_llama_params(full, mesh))
+    if dist.get_rank():
+        del full
+    rows = TRAIN_B // 2
+    dpi = mesh.coords["dp"]
+    mine = [t[dpi * rows:(dpi + 1) * rows].cuda() for t in batch]
+    moved = {"all_reduce": 0, "all_gather": 0}
+    real = {k: getattr(pc.Comm, k) for k in moved}
+
+    def counting(kind):
+        def call(self, x, *a, **kw):
+            if self.size > 1:
+                moved[kind] += x.numel() * x.element_size()
+            return real[kind](self, x, *a, **kw)
+        return call
+    for k in moved:
+        setattr(pc.Comm, k, counting(k))
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        new, loss = sgd_train_step(params, cfg, *mine, lr=TRAIN_LR, tp=mesh.comm("tp"),
+                                   dp=mesh.comm("dp"))
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t
+    finally:
+        for k, f in real.items():
+            setattr(pc.Comm, k, f)
+    out = {"loss": float(loss), "step_s": step_s, "bytes": moved,
+           "transport": mesh.comm("tp").transport("cuda")}
+    gathered = gather_params(new, llama_param_sharding(mesh), mesh)
+    if dist.get_rank() == 0:
+        ref, ref_loss = sgd_train_step(_to_card(full), cfg, *[t.cuda() for t in batch],
+                                       lr=TRAIN_LR)
+        want = dict(_tree_leaves(ref))
+        out["ref_loss"] = float(ref_loss)
+        out["param_max_abs_err"] = {k: float((v - want[k]).abs().max())
+                                    for k, v in _tree_leaves(gathered)}
+    return out
+
+
+def _par_dryrun() -> dict:
+    """Phases 1-4 of the dry run (parallel/dryrun.py) on this group."""
+    import torch.distributed as dist
+    from kjarni_tpu_torch.parallel.dryrun import run_phases
+    return run_phases(dist.get_world_size(), "cuda")
+
+
+def _par_dryrun_product(model: str) -> dict:
+    """Phase 5 of the dry run: DecoderLM(tp=4)'s greedy text and one process's."""
+    from kjarni_tpu_torch.parallel.dryrun import product_texts
+    return product_texts(model, "cuda")
+
+
+def phase_train(d: Path, tmp: Path) -> dict:
+    """Phase 18 (see the module docstring): the training step, which runs
+    no kernel (plain attention, as the JAX package's loss)."""
+    import torch
+    from kjarni_tpu_torch.parallel.dryrun import write_product_dir
+    from kjarni_tpu_torch.parallel.train import loss_and_grads, sgd_train_step
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 off: f32 matmuls are f32")
+    cfg, p32 = _train_params(str(d), LLAMA_1B["num_hidden_layers"], torch.float32, "cuda")
+    batch = _train_batch(cfg.vocab_size)
+    x = [t.cuda() for t in batch]
+    loss32, g32 = loss_and_grads(p32, cfg, *x)
+    g32 = dict(_tree_leaves(g32))
+    # loss_and_grads was the warm-up: the step is timed once
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    new, loss = sgd_train_step(p32, cfg, *x, lr=TRAIN_LR)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t)
+    del new
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(float(loss) == float(loss32), "the step's loss is loss_and_grads'")
+    p64 = _tree_map(lambda t: t.double(), p32)
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss64, g64 = loss_and_grads(p64, cfg, *x)
+    del p64
+    loss_rel = abs(float(loss32) - float(loss64)) / abs(float(loss64))
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"train f32 loss within {TRAIN_LOSS_RTOL} of f64 "
+                                       f"({loss_rel})")
+    grad_rel = {}
+    for k, v in _tree_leaves(g64):
+        top = float(v.abs().max())
+        err = float((g32[k].double() - v).abs().max())
+        grad_rel[k] = err / top if top else err
+        check(grad_rel[k] <= TRAIN_GRAD_TOL,
+              f"train gradient {k}: max |g32 - g64| {err} <= {TRAIN_GRAD_TOL} of {top}")
+    check(float(g64["lm_head"].abs().max()) > 0 and float(g64["rope_cos"].abs().max()) > 0,
+          "the tied head and the rope tables take gradients of their own")
+    del g32, g64
+    gc.collect()
+    torch.cuda.empty_cache()
+    # dp 2 x tp 4 on 8 ranks sharing the card, and the dry run's phases 1-4
+    t0 = time.perf_counter()
+    eight = _spawn_ranks(8, tmp, [("train", (str(d), batch)), ("dryrun", ())])
+    eight_s = time.perf_counter() - t0
+    r0 = eight[0]["train"]
+    check(all(r["train"]["loss"] == r0["loss"] for r in eight), "every rank's loss the same")
+    rel = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+    check(rel <= TRAIN_LOSS_RTOL, f"dp 2 x tp 4 loss within {TRAIN_LOSS_RTOL} of one "
+                                  f"process ({rel})")
+    perr = max(r0["param_max_abs_err"].values())
+    check(perr <= TRAIN_PARAM_ATOL, f"dp 2 x tp 4 updated params within {TRAIN_PARAM_ATOL} of "
+                                    f"one process ({r0['param_max_abs_err']})")
+    pdir = tmp / "dryrun-product"
+    write_product_dir(pdir)
+    t0 = time.perf_counter()
+    four = _spawn_ranks(4, tmp, [("dryrun_product", (str(pdir),))])
+    four_s = time.perf_counter() - t0
+    prod = four[0]["dryrun_product"]
+    check(prod["tp4"] == prod["one"], f"dryrun product tp=4: {prod['tp4']!r} == {prod['one']!r}")
+    print("dryrun phase: product tp=4 ok", flush=True)
+    dr = eight[0]["dryrun"]
+    check(dr["pp"] and dr["sp"], "dryrun: pp and sp ran")
+    print(f"dryrun_multichip ok: mesh dp={dr['dp']} tp={dr['tp']}, loss={dr['loss']:.4f}, "
+          f"pp=ok sp=ok product_tp=ok", flush=True)
+    launches = [sum(r[job]["launches"][k] for group in (eight, four) for r in group
+                    for job in r) for k in range(3)]
+    check(launches == [0, 0, 0], f"the training ranks launched no kernel ({launches})")
+    row = {"train": {
+        "one_process": {"layers": cfg.num_layers, "batch": [TRAIN_B, TRAIN_S], "dtype": "f32",
+                        "step_ms": step_ms, "peak_gb": peak_gb,
+                        "loss": float(loss32), "loss_rel_err_vs_f64": loss_rel,
+                        "grad_rel_err_max": max(grad_rel.values()),
+                        "grad_rel_err_worst_leaf": max(grad_rel, key=grad_rel.get)},
+        "dp2_tp4": {"layers": 2, "loss": r0["loss"], "loss_rel_err": rel,
+                    "param_max_abs_err": perr, "step_s": [r["train"]["step_s"] for r in eight],
+                    "rank0_bytes": r0["bytes"], "transport": r0["transport"],
+                    "ranks_s": eight_s},
+        "dryrun": {"loss": dr["loss"], "product_text": prod["tp4"], "product_ranks_s": four_s},
+        "job_s": _job_seconds(eight, four),
+        "measured_as": "ranks sharing one card over gloo staged through host memory, "
+                       "not a scale-out number"}}
     print(json.dumps(row))
     return row
 

@@ -14,8 +14,9 @@ Under torchrun (WORLD_SIZE > 1), `generate` and `chat` take `--tp N` and
 initializes the default process group from torchrun's environment (gloo
 with `--device cpu`, NCCL with one card per rank, `cuda:LOCAL_RANK`), every
 rank runs the command, rank 0 alone reads stdin (a piped text, chat's lines)
-and every rank gets what it read, and only rank 0 writes to stdout. The
-server refuses both (serve.py).
+and every rank gets what it read, and only rank 0 writes to stdout. `serve`
+takes both: rank 0 serves HTTP and the other ranks follow its model calls
+(serve.py, serve_spmd.py).
 """
 
 from __future__ import annotations
@@ -338,24 +339,18 @@ def cmd_index(args) -> int:
 
 
 def cmd_serve(args) -> int:
-    from ..serve import parse_model_overrides, serve as make_server
-    server = make_server(args.host, args.port,
-                         default_models=parse_model_overrides(args.models),
-                         max_batch=args.max_batch,
-                         batch_window_ms=args.batch_window_ms,
-                         scheduler=args.scheduler,
-                         draft_model=args.draft_model,
-                         request_timeout_s=args.device_timeout,
-                         tp=getattr(args, "tp", None),
-                         dp=getattr(args, "dp", None),
-                         kv_cache=getattr(args, "kv_cache", None),
-                         device=args.device)
-    print(f"kjarni serving on http://{args.host}:{args.port}")
-    try:
-        server.serve_forever()
-    except KeyboardInterrupt:
-        pass
-    return 0
+    from ..serve import parse_model_overrides, run
+    return run(args.host, args.port,
+               default_models=parse_model_overrides(args.models),
+               max_batch=args.max_batch,
+               batch_window_ms=args.batch_window_ms,
+               scheduler=args.scheduler,
+               draft_model=args.draft_model,
+               request_timeout_s=args.device_timeout,
+               tp=getattr(args, "tp", None),
+               dp=getattr(args, "dp", None),
+               kv_cache=getattr(args, "kv_cache", None),
+               device=args.device)
 
 
 def cmd_export_browser(args) -> int:
@@ -578,9 +573,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-request deadline in seconds; a wedged device "
                          "returns 503 instead of hanging")
     sp.add_argument("--tp", type=int, default=None, metavar="N",
-                    help="tensor-parallel decoder models over N chips")
+                    help="tensor-parallel decoder models over N ranks "
+                         "(under torchrun --nproc-per-node N)")
     sp.add_argument("--dp", type=int, default=None, metavar="N",
-                    help="data-parallel encoder models over N chips")
+                    help="data-parallel encoder models over N ranks "
+                         "(under torchrun --nproc-per-node N)")
     sp.add_argument("--kv-cache", choices=["int8"], default=None,
                     help="int8-quantized KV cache for decoder models: "
                          "halves KV HBM traffic, wins under batched "
@@ -640,30 +637,14 @@ def _ranks(args):
     default process group from it for the command, unless the caller has
     already: gloo with --device cpu, else NCCL on cuda:LOCAL_RANK, which
     must exist. Ranks other than 0 write nothing to stdout."""
-    import torch
     import torch.distributed as dist
-    ours = False
-    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        if getattr(args, "device", None) == "cpu":
-            dist.init_process_group("gloo")
-        else:
-            local = int(os.environ.get("LOCAL_RANK", "0"))
-            if local >= (torch.cuda.device_count() if torch.cuda.is_available() else 0):
-                raise KjarniError(
-                    f"rank {os.environ.get('RANK')} runs on cuda:{local}, which this "
-                    f"machine does not have; pass --device cpu for gloo on the CPU")
-            torch.cuda.set_device(local)
-            dist.init_process_group("nccl")
-        ours = True
-    try:
+    from ..parallel.comm import spmd_group
+    with spmd_group(getattr(args, "device", None)):
         if dist.is_initialized() and dist.get_rank() != 0:
             with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
                 yield
         else:
             yield
-    finally:
-        if ours:
-            dist.destroy_process_group()
 
 
 def main(argv=None) -> int:

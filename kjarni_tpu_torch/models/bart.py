@@ -21,6 +21,7 @@ from ..ops.activations import get_activation
 from ..ops.attention import attention, merge_heads
 from ..ops.masks import causal_mask_with_offset, padding_bias
 from ..ops.norms import layer_norm
+from ..parallel import tensor as tpx
 from ..weights.convert import params_from_jax
 from ..weights.safetensors_loader import ModelWeights
 
@@ -175,10 +176,19 @@ def apply(x: torch.Tensor, p: dict) -> torch.Tensor:
     return y
 
 
+def row(x: torch.Tensor, p: dict, tp, full_k: int) -> torch.Tensor:
+    """A row-parallel linear (o, cross_o, fc2) over a {"w", "b"} dict."""
+    return tpx.row(x, p["w"], p.get("b"), tp, full_k)
+
+
 def encode(params: dict, cfg: BartConfig, ids: torch.Tensor,
-           mask: torch.Tensor) -> torch.Tensor:
+           mask: torch.Tensor, tp=None) -> torch.Tensor:
+    """Encoder forward: [B, S] -> [B, S, d_model]. `tp`: the tensor-parallel
+    group's Comm when params are this rank's shard under
+    `bart_param_sharding` (parallel/tensor.py)."""
     B, S = ids.shape
-    H, D = cfg.encoder_heads, cfg.head_dim
+    D = cfg.head_dim
+    H = tpx.local_heads(params["enc"]["q"]["w"].shape[-1], D)
     scale = (cfg.d_model ** 0.5) if cfg.scale_embedding else 1.0
     x = params["shared"][ids] * scale
     x = x + params["enc_pos"][POSITION_OFFSET:POSITION_OFFSET + S][None]
@@ -192,18 +202,22 @@ def encode(params: dict, cfg: BartConfig, ids: torch.Tensor,
         k = heads(apply(x, lp["k"]), B, S, H, D)
         v = heads(apply(x, lp["v"]), B, S, H, D)
         ctx = merge_heads(attention(q, k, v, bias))
-        x = layer_norm(x + apply(ctx, lp["o"]), lp["attn_norm"]["weight"],
-                       lp["attn_norm"]["bias"], cfg.layer_norm_eps)
-        ffn = apply(act(apply(x, lp["fc1"])), lp["fc2"])
+        x = layer_norm(x + row(ctx, lp["o"], tp, cfg.encoder_heads * D),
+                       lp["attn_norm"]["weight"], lp["attn_norm"]["bias"],
+                       cfg.layer_norm_eps)
+        ffn = row(act(apply(x, lp["fc1"])), lp["fc2"], tp, cfg.encoder_ffn_dim)
         x = layer_norm(x + ffn, lp["ffn_norm"]["weight"], lp["ffn_norm"]["bias"],
                        cfg.layer_norm_eps)
     return x
 
 
-def precompute_cross_kv(params: dict, cfg: BartConfig, enc_hidden: torch.Tensor):
-    """Per-layer cross-attention K/V from the encoder output: [L, B, H, S, D]."""
+def precompute_cross_kv(params: dict, cfg: BartConfig, enc_hidden: torch.Tensor,
+                        tp=None):
+    """Per-layer cross-attention K/V from the encoder output: [L, B, H, S, D]
+    (this rank's heads under tp; no collective)."""
     B, S, _ = enc_hidden.shape
-    H, D = cfg.decoder_heads, cfg.head_dim
+    D = cfg.head_dim
+    H = tpx.local_heads(params["dec"]["cross_k"]["w"].shape[-1], D)
     dec = params["dec"]
     ks = [heads(apply(enc_hidden, layer(dec["cross_k"], i)), B, S, H, D)
           for i in range(cfg.decoder_layers)]
@@ -222,13 +236,16 @@ def init_self_cache(cfg: BartConfig, batch: int, max_len: int, dtype=torch.float
 def decode_step(params: dict, cfg: BartConfig, ids: torch.Tensor,
                 self_k: torch.Tensor, self_v: torch.Tensor,
                 cross_k: torch.Tensor, cross_v: torch.Tensor,
-                enc_mask: torch.Tensor, pos_start: int):
+                enc_mask: torch.Tensor, pos_start: int, tp=None):
     """Decoder forward for S tokens at pos_start+arange(S) -> (logits
     [B, S, V], self_k, self_v). The new K/V are written into the caches in
-    place (the JAX package returns updated copies)."""
+    place (the JAX package returns updated copies). Under tp the caches hold
+    this rank's heads and the logits are gathered."""
     B, S = ids.shape
     T = self_k.shape[3]
-    H, D = cfg.decoder_heads, cfg.head_dim
+    D = cfg.head_dim
+    H = tpx.local_heads(params["dec"]["q"]["w"].shape[-1], D)
+    inner = cfg.decoder_heads * D
     scale = (cfg.d_model ** 0.5) if cfg.scale_embedding else 1.0
     positions = pos_start + torch.arange(S, device=ids.device)
     x = params["shared"][ids] * scale
@@ -244,14 +261,14 @@ def decode_step(params: dict, cfg: BartConfig, ids: torch.Tensor,
         self_k[i, :, :, pos_start:pos_start + S] = heads(apply(x, lp["k"]), B, S, H, D)
         self_v[i, :, :, pos_start:pos_start + S] = heads(apply(x, lp["v"]), B, S, H, D)
         ctx = merge_heads(attention(q, self_k[i], self_v[i], self_bias))
-        x = layer_norm(x + apply(ctx, lp["o"]), lp["self_norm"]["weight"],
+        x = layer_norm(x + row(ctx, lp["o"], tp, inner), lp["self_norm"]["weight"],
                        lp["self_norm"]["bias"], cfg.layer_norm_eps)
         cq = heads(apply(x, lp["cross_q"]), B, S, H, D)
         cctx = merge_heads(attention(cq, cross_k[i], cross_v[i], cross_bias))
-        x = layer_norm(x + apply(cctx, lp["cross_o"]), lp["cross_norm"]["weight"],
+        x = layer_norm(x + row(cctx, lp["cross_o"], tp, inner), lp["cross_norm"]["weight"],
                        lp["cross_norm"]["bias"], cfg.layer_norm_eps)
-        ffn = apply(act(apply(x, lp["fc1"])), lp["fc2"])
+        ffn = row(act(apply(x, lp["fc1"])), lp["fc2"], tp, cfg.decoder_ffn_dim)
         x = layer_norm(x + ffn, lp["ffn_norm"]["weight"], lp["ffn_norm"]["bias"],
                        cfg.layer_norm_eps)
     logits = x @ params["lm_head"] + params["final_logits_bias"]
-    return logits, self_k, self_v
+    return tpx.gather_cols(logits, tp, cfg.vocab_size), self_k, self_v

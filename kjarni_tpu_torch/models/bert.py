@@ -25,6 +25,7 @@ from ..ops.attention import attention, merge_heads, split_heads
 from ..ops.masks import padding_bias
 from ..ops.norms import layer_norm
 from ..ops.rope import apply_rope, rope_tables
+from ..parallel import tensor as tpx
 from ..weights.convert import params_from_jax
 from ..weights.safetensors_loader import ModelWeights
 
@@ -345,8 +346,10 @@ def _abs_positions(cfg: BertConfig, input_ids: torch.Tensor,
 
 def encode(params: dict, cfg: BertConfig, input_ids: torch.Tensor,
            attention_mask: torch.Tensor,
-           token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full encoder forward: [B, S] ids -> [B, S, H] hidden states."""
+           token_type_ids: Optional[torch.Tensor] = None, tp=None) -> torch.Tensor:
+    """Full encoder forward: [B, S] ids -> [B, S, H] hidden states. `tp`: the
+    tensor-parallel group's Comm when params are this rank's shard under
+    `encoder_param_sharding` (parallel/tensor.py)."""
     S = input_ids.shape[1]
     bias = padding_bias(attention_mask)
     if params.get("rel_bias") is not None:
@@ -354,7 +357,7 @@ def encode(params: dict, cfg: BertConfig, input_ids: torch.Tensor,
     return _encode_core(params, cfg, input_ids,
                         _abs_positions(cfg, input_ids, attention_mask),
                         token_type_ids, bias,
-                        torch.arange(S, device=input_ids.device))
+                        torch.arange(S, device=input_ids.device), tp)
 
 
 def encode_packed_n(params: dict, cfg: BertConfig, input_ids: torch.Tensor,
@@ -454,7 +457,8 @@ def encode_auto(params: dict, cfg: BertConfig, input_ids: torch.Tensor,
 def _encode_core(params: dict, cfg: BertConfig, input_ids: torch.Tensor,
                  positions: Optional[torch.Tensor],
                  token_type_ids: Optional[torch.Tensor],
-                 bias: torch.Tensor, rope_positions: torch.Tensor) -> torch.Tensor:
+                 bias: torch.Tensor, rope_positions: torch.Tensor,
+                 tp=None) -> torch.Tensor:
     emb = params["embeddings"]
     x = F.embedding(input_ids, emb["word"])
     if positions is not None:
@@ -468,7 +472,8 @@ def _encode_core(params: dict, cfg: BertConfig, input_ids: torch.Tensor,
     x = layer_norm(x, emb["norm"]["weight"], emb["norm"]["bias"], cfg.layer_norm_eps)
 
     act = get_activation(cfg.activation)
-    H = cfg.num_heads
+    H = tpx.local_heads(params["layers"]["q"]["w"].shape[-1], cfg.head_dim)
+    bias = tpx.own_heads(bias, H, tp)
     rotary = cfg.rotary_emb_base > 0
     if rotary:
         cos = params["rope_cos"][rope_positions]
@@ -488,15 +493,16 @@ def _encode_core(params: dict, cfg: BertConfig, input_ids: torch.Tensor,
         if rotary:
             q, k = apply_rope(q, k, cos, sin)
         ctx = merge_heads(attention(q, k, v, bias))
-        attn_out = ctx @ lp["o"]["w"]
-        if "b" in lp["o"]:
-            attn_out = attn_out + lp["o"]["b"]
+        attn_out = tpx.row(ctx, lp["o"]["w"], lp["o"].get("b"), tp,
+                           cfg.num_heads * cfg.head_dim)
         x = layer_norm(x + attn_out, lp["attn_norm"]["weight"], lp["attn_norm"]["bias"],
                        cfg.layer_norm_eps)
         if cfg.swiglu:
-            ffn = (act(x @ lp["gate"]["w"]) * (x @ lp["up"]["w"])) @ lp["fc2"]["w"]
+            h = act(x @ lp["gate"]["w"]) * (x @ lp["up"]["w"])
         else:
-            ffn = act(x @ lp["fc1"]["w"] + lp["fc1"]["b"]) @ lp["fc2"]["w"] + lp["fc2"]["b"]
+            h = act(x @ lp["fc1"]["w"] + lp["fc1"]["b"])
+        ffn = tpx.row(h, lp["fc2"]["w"], None if cfg.swiglu else lp["fc2"]["b"], tp,
+                      cfg.intermediate_size)
         x = layer_norm(x + ffn, lp["ffn_norm"]["weight"], lp["ffn_norm"]["bias"],
                        cfg.layer_norm_eps)
     return x

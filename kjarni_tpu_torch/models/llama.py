@@ -350,21 +350,29 @@ def _row_mm(x: torch.Tensor, p: dict, tp) -> torch.Tensor:
     once after the sum. With no group, _mm."""
     if tp is None:
         return _mm(x, p)
-    y = tp.all_reduce(_mm(x, {k: v for k, v in p.items() if k != "b"}))
+    y = tp.reduce_out(_mm(x, {k: v for k, v in p.items() if k != "b"}))
     return y + p["b"] if "b" in p else y
+
+
+def _width(p) -> int:
+    """The output width of a linear: a [K, N] tensor or a param dict."""
+    if not isinstance(p, dict):
+        return p.shape[-1]
+    return (p["w4"] if "w4" in p else p["w"]).shape[-1]
 
 
 def _head_mm(x: torch.Tensor, head, cfg: DecoderConfig, tp=None) -> torch.Tensor:
     """lm-head projection, on the host when the plan offloads it. A
     column-parallel head's logits are gathered over the tp group; a head
     replicated there (a vocabulary that does not divide tp) needs none."""
+    sharded = tp is not None and _width(head) != cfg.vocab_size
+    if sharded:
+        x = tp.copy_in(x)
     if isinstance(head, dict):
         y = _mm(x, head)
     else:
         y = host_matmul(x, head) if cfg.lm_head_on_host else x @ head
-    if tp is not None and y.shape[-1] != cfg.vocab_size:
-        y = tp.all_gather(y, dim=-1)
-    return y
+    return tp.gather_out(y, dim=-1) if sharded else y
 
 
 # ---------------------------------------------------------------------------
@@ -464,15 +472,20 @@ def decoder_layer(lp: dict, cfg: DecoderConfig, x: torch.Tensor, cos, sin,
     writes and reads the caller's cache, or changes layout around the
     attention), o, then the SwiGLU MLP. The head counts are the projections'
     widths: this rank's heads under tensor parallelism, whose tp group sums
-    o's and down's partial products."""
+    o's and down's partial products (under autograd, the gradients of
+    the normed inputs of q, k, v, gate and up too)."""
     B, S, _ = x.shape
     D = cfg.head_dim
     hn = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+    if tp is not None:
+        hn = tp.copy_in(hn)
     q, k, v = (_mm(hn, lp[n]).reshape(B, S, -1, D).transpose(1, 2)
                for n in ("q", "k", "v"))
     q, k = apply_rope(q, k, cos, sin)
     x = x + _row_mm(merge_heads(attend(q, k, v)), lp["o"], tp)
     hn = rms_norm(x, lp["ffn_norm"], cfg.rms_norm_eps)
+    if tp is not None:
+        hn = tp.copy_in(hn)
     return x + _row_mm(F.silu(_mm(hn, lp["gate"])) * _mm(hn, lp["up"]), lp["down"], tp)
 
 
@@ -499,9 +512,14 @@ def _run_stack(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
     B = 1 forward over the slot axis, as one batched forward.
 
     `tp`: the tensor-parallel group's Comm, when params are this rank's shard.
+
+    With no cache (cache_k None, pos_start 0) each layer attends its own
+    fresh K/V under the causal bias: the same numbers as a cache of S slots
+    written from 0, with no in-place write, so autograd can run through it
+    (the training step, parallel/train.py).
     """
     B, S = ids.shape
-    T = cache_slots(cache_k)
+    T = S if cache_k is None else cache_slots(cache_k)
     per_row = torch.is_tensor(pos_start)
     if per_row and (S != 1 or use_flash or pos_start.shape != (B,)):
         raise GenerationError("a per-row decode position takes one token per row "
@@ -518,6 +536,8 @@ def _run_stack(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
     else:   # per-row tables [B, 1, S, D]
         cos = params["rope_cos"][positions][:, None]
         sin = params["rope_sin"][positions][:, None]
+    if tp is not None:  # the tables are used inside each rank's heads
+        cos, sin = tp.copy_in(cos), tp.copy_in(sin)
 
     bias = None
     if not use_flash:
@@ -527,10 +547,14 @@ def _run_stack(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
                                       NEG_INF)[:, None, None, :]   # [B, 1, S, T]
 
     def layer(cache, i):
+        if cache is None:
+            return None
         return ({n: t[i] for n, t in cache.items()} if isinstance(cache, dict)
                 else cache[i])
 
     def attend(kc, vc, q, k, v):
+        if kc is None:
+            return attention(q, k, v, bias)
         _cache_write(kc, k, pos_start)
         _cache_write(vc, v, pos_start)
         if not use_flash:

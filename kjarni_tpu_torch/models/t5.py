@@ -22,6 +22,7 @@ from ..ops.activations import get_activation
 from ..ops.attention import attention, merge_heads
 from ..ops.masks import causal_mask_with_offset, padding_bias
 from ..ops.norms import rms_norm
+from ..parallel import tensor as tpx
 from ..weights.convert import params_from_jax
 from ..weights.safetensors_loader import ModelWeights
 from .bart import heads, layer
@@ -192,23 +193,26 @@ def position_bias(table: torch.Tensor, q_start: int, q_len: int, k_len: int,
     return bias.permute(2, 0, 1)[None]
 
 
-def _ffn(h: torch.Tensor, lp: dict, cfg: T5Config) -> torch.Tensor:
+def _ffn(h: torch.Tensor, lp: dict, cfg: T5Config, tp=None) -> torch.Tensor:
     act = get_activation(cfg.activation)
     if cfg.gated_act:
-        return (act(h @ lp["wi0"]) * (h @ lp["wi1"])) @ lp["wo"]
-    return act(h @ lp["wi"]) @ lp["wo"]
+        return tpx.row(act(h @ lp["wi0"]) * (h @ lp["wi1"]), lp["wo"], None, tp, cfg.d_ff)
+    return tpx.row(act(h @ lp["wi"]), lp["wo"], None, tp, cfg.d_ff)
 
 
 def encode(params: dict, cfg: T5Config, ids: torch.Tensor,
-           mask: torch.Tensor) -> torch.Tensor:
-    """Encoder forward: [B, S] -> [B, S, d_model]."""
+           mask: torch.Tensor, tp=None) -> torch.Tensor:
+    """Encoder forward: [B, S] -> [B, S, d_model]. `tp`: the tensor-parallel
+    group's Comm when params are this rank's shard under
+    `t5_param_sharding` (parallel/tensor.py)."""
     B, S = ids.shape
-    H, D = cfg.num_heads, cfg.d_kv
+    D, inner = cfg.d_kv, cfg.num_heads * cfg.d_kv
+    H = tpx.local_heads(params["enc"]["q"].shape[-1], D)
     x = params["shared"][ids]
     bias = position_bias(params["enc_rel_bias"], 0, S, S, True,
                          cfg.relative_attention_num_buckets,
                          cfg.relative_attention_max_distance)
-    bias = bias + padding_bias(mask)
+    bias = tpx.own_heads(bias, H, tp) + padding_bias(mask)
     for i in range(cfg.num_layers):
         lp = layer(params["enc"], i)
         hn = rms_norm(x, lp["attn_norm"], cfg.layer_norm_eps)
@@ -216,16 +220,19 @@ def encode(params: dict, cfg: T5Config, ids: torch.Tensor,
         k = heads(hn @ lp["k"], B, S, H, D)
         v = heads(hn @ lp["v"], B, S, H, D)
         ctx = merge_heads(attention(q, k, v, bias, scale=1.0))
-        x = x + ctx @ lp["o"]
+        x = x + tpx.row(ctx, lp["o"], None, tp, inner)
         hn = rms_norm(x, lp["ffn_norm"], cfg.layer_norm_eps)
-        x = x + _ffn(hn, lp, cfg)
+        x = x + _ffn(hn, lp, cfg, tp)
     return rms_norm(x, params["enc_final_norm"], cfg.layer_norm_eps)
 
 
-def precompute_cross_kv(params: dict, cfg: T5Config, enc_hidden: torch.Tensor):
-    """Per-layer cross-attention K/V from the encoder output: [L, B, H, S_enc, D]."""
+def precompute_cross_kv(params: dict, cfg: T5Config, enc_hidden: torch.Tensor,
+                        tp=None):
+    """Per-layer cross-attention K/V from the encoder output: [L, B, H, S_enc, D]
+    (this rank's heads under tp; no collective)."""
     B, S, _ = enc_hidden.shape
-    H, D = cfg.num_heads, cfg.d_kv
+    D = cfg.d_kv
+    H = tpx.local_heads(params["dec"]["cross_k"].shape[-1], D)
     dec = params["dec"]
     L = cfg.num_decoder_layers
     return (torch.stack([heads(enc_hidden @ dec["cross_k"][i], B, S, H, D) for i in range(L)]),
@@ -242,17 +249,19 @@ def init_self_cache(cfg: T5Config, batch: int, max_len: int, dtype=torch.float32
 def decode_step(params: dict, cfg: T5Config, ids: torch.Tensor,
                 self_k: torch.Tensor, self_v: torch.Tensor,
                 cross_k: torch.Tensor, cross_v: torch.Tensor,
-                enc_mask: torch.Tensor, pos_start: int):
+                enc_mask: torch.Tensor, pos_start: int, tp=None):
     """Decoder forward for S new tokens at positions pos_start+arange(S) ->
-    (logits [B, S, V], self_k, self_v); the caches are written in place."""
+    (logits [B, S, V], self_k, self_v); the caches are written in place.
+    Under tp the caches hold this rank's heads and the logits are gathered."""
     B, S = ids.shape
     T = self_k.shape[3]
-    H, D = cfg.num_heads, cfg.d_kv
+    D, inner = cfg.d_kv, cfg.num_heads * cfg.d_kv
+    H = tpx.local_heads(params["dec"]["q"].shape[-1], D)
     x = params["shared"][ids]
     bias = position_bias(params["dec_rel_bias"], pos_start, S, T, False,
                          cfg.relative_attention_num_buckets,
                          cfg.relative_attention_max_distance)
-    self_bias = bias + causal_mask_with_offset(S, T, pos_start, device=ids.device)[None, None]
+    self_bias = tpx.own_heads(bias, H, tp) + causal_mask_with_offset(S, T, pos_start, device=ids.device)[None, None]
     cross_bias = padding_bias(enc_mask)
     for i in range(cfg.num_decoder_layers):
         lp = layer(params["dec"], i)
@@ -261,15 +270,15 @@ def decode_step(params: dict, cfg: T5Config, ids: torch.Tensor,
         self_k[i, :, :, pos_start:pos_start + S] = heads(hn @ lp["k"], B, S, H, D)
         self_v[i, :, :, pos_start:pos_start + S] = heads(hn @ lp["v"], B, S, H, D)
         ctx = merge_heads(attention(q, self_k[i], self_v[i], self_bias, scale=1.0))
-        x = x + ctx @ lp["o"]
+        x = x + tpx.row(ctx, lp["o"], None, tp, inner)
         # cross attention over the precomputed encoder K/V
         hn = rms_norm(x, lp["cross_norm"], cfg.layer_norm_eps)
         cq = heads(hn @ lp["cross_q"], B, S, H, D)
         cctx = merge_heads(attention(cq, cross_k[i], cross_v[i], cross_bias, scale=1.0))
-        x = x + cctx @ lp["cross_o"]
+        x = x + tpx.row(cctx, lp["cross_o"], None, tp, inner)
         hn = rms_norm(x, lp["ffn_norm"], cfg.layer_norm_eps)
-        x = x + _ffn(hn, lp, cfg)
+        x = x + _ffn(hn, lp, cfg, tp)
     x = rms_norm(x, params["dec_final_norm"], cfg.layer_norm_eps)
     if cfg.tie_word_embeddings:
         x = x * (cfg.d_model ** -0.5)
-    return x @ params["lm_head"], self_k, self_v
+    return tpx.gather_cols(x @ params["lm_head"], tp, cfg.vocab_size), self_k, self_v

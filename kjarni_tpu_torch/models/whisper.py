@@ -25,7 +25,8 @@ from ..ops.masks import causal_mask_with_offset
 from ..ops.norms import layer_norm
 from ..weights.convert import params_from_jax
 from ..weights.safetensors_loader import ModelWeights
-from .bart import apply, heads, layer, norm, stack_lin, stack_norm
+from ..parallel import tensor as tpx
+from .bart import apply, heads, layer, norm, row, stack_lin, stack_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,15 +130,18 @@ def load_params(ws: ModelWeights, cfg: WhisperConfig, dtype=torch.float32,
 
 
 def encode(params: dict, cfg: WhisperConfig, mel: torch.Tensor,
-           use_flash: bool = False) -> torch.Tensor:
+           use_flash: bool = False, tp=None) -> torch.Tensor:
     """mel [B, n_mels, 3000] -> hidden [B, 1500, d_model].
 
     Conv frontend then the pre-norm encoder stack. `use_flash` sends
     self-attention through the flash kernel (non-causal): 12 launches per
-    call at whisper-small's depth.
+    call at whisper-small's depth. `tp`: the tensor-parallel group's Comm
+    when params are this rank's shard under `whisper_param_sharding`
+    (parallel/tensor.py); flash then runs at this rank's heads.
     """
     B = mel.shape[0]
-    H, D = cfg.encoder_heads, cfg.head_dim
+    D = cfg.head_dim
+    H = tpx.local_heads(params["enc"]["q"]["w"].shape[-1], D)
     x = gelu(F.conv1d(mel, params["conv1_w"], params["conv1_b"], stride=1, padding=1))
     x = gelu(F.conv1d(x, params["conv2_w"], params["conv2_b"], stride=2, padding=1))
     x = x.transpose(1, 2)  # [B, T, d_model]
@@ -153,17 +157,20 @@ def encode(params: dict, cfg: WhisperConfig, mel: torch.Tensor,
             ctx = merge_heads(flash_attention(q, k, v, causal=False))
         else:
             ctx = merge_heads(attention(q, k, v))
-        x = x + apply(ctx, lp["o"])
+        x = x + row(ctx, lp["o"], tp, cfg.encoder_heads * D)
         hn = layer_norm(x, lp["ffn_norm"]["weight"], lp["ffn_norm"]["bias"])
-        x = x + apply(gelu(apply(hn, lp["fc1"])), lp["fc2"])
+        x = x + row(gelu(apply(hn, lp["fc1"])), lp["fc2"], tp, cfg.encoder_ffn_dim)
     return layer_norm(x, params["enc_final_norm"]["weight"],
                       params["enc_final_norm"]["bias"])
 
 
-def precompute_cross_kv(params: dict, cfg: WhisperConfig, enc_hidden: torch.Tensor):
-    """Cross-attention K/V once per chunk: [L, B, H, 1500, D]."""
+def precompute_cross_kv(params: dict, cfg: WhisperConfig, enc_hidden: torch.Tensor,
+                        tp=None):
+    """Cross-attention K/V once per chunk: [L, B, H, 1500, D] (this rank's
+    heads under tp; no collective)."""
     B, S, _ = enc_hidden.shape
-    H, D = cfg.decoder_heads, cfg.head_dim
+    D = cfg.head_dim
+    H = tpx.local_heads(params["dec"]["cross_k"]["w"].shape[-1], D)
     dec = params["dec"]
     L = cfg.decoder_layers
     return (torch.stack([heads(apply(enc_hidden, layer(dec["cross_k"], i)), B, S, H, D)
@@ -182,14 +189,17 @@ def init_self_cache(cfg: WhisperConfig, batch: int, max_len: int,
 def decode_step(params: dict, cfg: WhisperConfig, ids: torch.Tensor,
                 self_k: torch.Tensor, self_v: torch.Tensor,
                 cross_k: torch.Tensor, cross_v: torch.Tensor,
-                enc_mask: torch.Tensor | None, pos_start: int):
+                enc_mask: torch.Tensor | None, pos_start: int, tp=None):
     """Pre-norm decoder for S tokens at pos_start+arange(S) -> (logits
     [B, S, V], self_k, self_v); the caches are written in place. enc_mask is
     taken for the common signature and not read: every one of the 1,500
-    encoder positions is real."""
+    encoder positions is real. Under tp the caches hold this rank's heads
+    and the logits are gathered."""
     B, S = ids.shape
     T = self_k.shape[3]
-    H, D = cfg.decoder_heads, cfg.head_dim
+    D = cfg.head_dim
+    H = tpx.local_heads(params["dec"]["q"]["w"].shape[-1], D)
+    inner = cfg.decoder_heads * D
     positions = pos_start + torch.arange(S, device=ids.device)
     x = params["embed"][ids] + params["dec_pos"][positions][None]
     self_bias = causal_mask_with_offset(S, T, pos_start, device=ids.device)[None, None]
@@ -200,12 +210,13 @@ def decode_step(params: dict, cfg: WhisperConfig, ids: torch.Tensor,
         self_k[i, :, :, pos_start:pos_start + S] = heads(apply(hn, lp["k"]), B, S, H, D)
         self_v[i, :, :, pos_start:pos_start + S] = heads(apply(hn, lp["v"]), B, S, H, D)
         ctx = merge_heads(attention(q, self_k[i], self_v[i], self_bias))
-        x = x + apply(ctx, lp["o"])
+        x = x + row(ctx, lp["o"], tp, inner)
         hn = layer_norm(x, lp["cross_norm"]["weight"], lp["cross_norm"]["bias"])
         cq = heads(apply(hn, lp["cross_q"]), B, S, H, D)
-        x = x + apply(merge_heads(attention(cq, cross_k[i], cross_v[i])), lp["cross_o"])
+        x = x + row(merge_heads(attention(cq, cross_k[i], cross_v[i])), lp["cross_o"], tp,
+                    inner)
         hn = layer_norm(x, lp["ffn_norm"]["weight"], lp["ffn_norm"]["bias"])
-        x = x + apply(gelu(apply(hn, lp["fc1"])), lp["fc2"])
+        x = x + row(gelu(apply(hn, lp["fc1"])), lp["fc2"], tp, cfg.decoder_ffn_dim)
     x = layer_norm(x, params["dec_final_norm"]["weight"],
                    params["dec_final_norm"]["bias"])
-    return x @ params["lm_head"], self_k, self_v
+    return tpx.gather_cols(x @ params["lm_head"], tp, cfg.vocab_size), self_k, self_v

@@ -29,13 +29,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     G = Hq // Hkv
     if scale is None:
         scale = 1.0 / (D ** 0.5)
-    prob_dtype = torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32
+    acc = torch.promote_types(q.dtype, torch.float32)   # f64 stays f64
+    prob_dtype = torch.bfloat16 if q.dtype == torch.bfloat16 else acc
 
     qg = q.reshape(B, Hkv, G * S, D)
-    scores = torch.matmul(qg.float(), k.float().transpose(-1, -2)) * scale
+    scores = torch.matmul(qg.to(acc), k.to(acc).transpose(-1, -2)) * scale
     scores = scores.reshape(B, Hkv, G, S, -1)
     if bias is not None:
-        bias = torch.broadcast_to(bias.float(), (B, Hq, S, scores.shape[-1]))
+        bias = torch.broadcast_to(bias.to(acc), (B, Hq, S, scores.shape[-1]))
         scores = scores + bias.reshape(B, Hkv, G, S, -1)
     shifted = scores - scores.amax(dim=-1, keepdim=True)
     probs = torch.exp(shifted.to(prob_dtype))

@@ -23,8 +23,10 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tenso
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm (Llama-style): x / rms(x) * w, stats in f32, cast back to x's dtype."""
-    xf = x.float()
+    """RMSNorm (Llama-style): x / rms(x) * w, stats in f32 (f64 for f64 x, the
+    training step's reference), cast back to x's dtype."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(acc)
     ms = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(ms + eps)
-    return (y * weight.float()).to(x.dtype)
+    return (y * weight.to(acc)).to(x.dtype)

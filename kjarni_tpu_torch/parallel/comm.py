@@ -18,11 +18,23 @@ copied to the host, the collective run there, the result copied back. That
 is the transport the caller chose by initializing gloo, not a fallback: NCCL
 never stages, and `Comm.transport` names what a tensor takes so every result
 can state it.
+
+Autograd. The collectives above run outside autograd: the serving path,
+under `torch.inference_mode()`, calls them as they are. A training step
+goes through the Megatron pair instead, `copy_in` (f: identity forward,
+the sum over the group backward) before a column-parallel region and
+`reduce_out` (g: the sum forward, identity backward) after a row-parallel
+one, and `gather_out` after a column-parallel head (the concatenation
+forward, the rank's own slice backward). Each is the plain collective, with
+no extra copy, whenever its input takes no gradient. `sum_grads` sums
+gradients over a data-parallel group in one flat buffer per dtype.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable
+import contextlib
+import os
+from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
@@ -44,6 +56,32 @@ def require_world(n: int, what: str) -> None:
             f"group of {n} ranks); {found}")
 
 
+@contextlib.contextmanager
+def spmd_group(device: Optional[str] = None):
+    """Under torchrun (WORLD_SIZE > 1 in the environment), the default
+    process group from its environment for the duration, unless the caller
+    has initialized one already: gloo for device "cpu", else NCCL with this
+    rank on cuda:LOCAL_RANK, which must exist."""
+    ours = False
+    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        if device == "cpu":
+            dist.init_process_group("gloo")
+        else:
+            local = int(os.environ.get("LOCAL_RANK", "0"))
+            if local >= (torch.cuda.device_count() if torch.cuda.is_available() else 0):
+                raise InvalidConfigError(
+                    f"rank {os.environ.get('RANK')} runs on cuda:{local}, which this "
+                    f"machine does not have; pass --device cpu for gloo on the CPU")
+            torch.cuda.set_device(local)
+            dist.init_process_group("nccl")
+        ours = True
+    try:
+        yield
+    finally:
+        if ours:
+            dist.destroy_process_group()
+
+
 def from_rank0(read: Callable[[], Any]) -> Any:
     """read() on rank 0 of the default group alone, and its value on every
     rank (a pickled broadcast); what read() raises on rank 0 (EOFError at
@@ -61,6 +99,50 @@ def from_rank0(read: Callable[[], Any]) -> Any:
     if not ok:
         raise value
     return value
+
+
+class _CopyIn(torch.autograd.Function):
+    """Megatron's f: identity forward, the gradient summed over the group."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce(g.clone(memory_format=torch.contiguous_format)), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """Megatron's g: the sum over the group forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        return comm.all_reduce(x.clone(memory_format=torch.contiguous_format))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherOut(torch.autograd.Function):
+    """The concatenation over the group forward; backward, the rank's own
+    slice of the gradient. Every rank computes the same loss from the
+    gathered tensor, so each holds the whole gradient already."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim, ctx.width = comm, dim, x.shape[dim]
+        return comm.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.comm.rank * ctx.width, ctx.width), None, None
+
+
+def _tracked(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
 
 
 class Comm:
@@ -127,6 +209,39 @@ class Comm:
         t = self._host(x)
         dist.broadcast(t, src=self.ranks[src], group=self.group)
         return t.to(x.device) if t.device != x.device else t
+
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        """x itself; under autograd, its gradient is summed over the group
+        (the input of a column-parallel region, Megatron's f)."""
+        return _CopyIn.apply(x, self) if self.size > 1 and _tracked(x) else x
+
+    def reduce_out(self, x: torch.Tensor) -> torch.Tensor:
+        """all_reduce; under autograd, the gradient passes through as it is
+        (the output of a row-parallel linear, Megatron's g)."""
+        return _ReduceOut.apply(x, self) if self.size > 1 and _tracked(x) else self.all_reduce(x)
+
+    def gather_out(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """all_gather along `dim`; under autograd, the gradient's slice of
+        this rank goes back (the output of a column-parallel head)."""
+        if self.size > 1 and _tracked(x):
+            return _GatherOut.apply(x, self, dim % x.ndim)
+        return self.all_gather(x, dim)
+
+    def sum_grads(self, grads: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Each gradient summed over the group (data parallelism): one
+        all-reduce of a flat buffer per dtype. Returns new tensors in the
+        order given."""
+        if self.size == 1:
+            return list(grads)
+        out: list = [None] * len(grads)
+        by_dtype: dict = {}
+        for i, g in enumerate(grads):
+            by_dtype.setdefault((g.dtype, g.device), []).append(i)
+        for idx in by_dtype.values():
+            flat = self.all_reduce(torch.cat([grads[i].reshape(-1) for i in idx]))
+            for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
+                out[i] = part.view_as(grads[i])
+        return out
 
     def ring_shift(self, x: torch.Tensor) -> torch.Tensor:
         """Send x to the next rank of the group and return what the previous

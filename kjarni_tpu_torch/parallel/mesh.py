@@ -203,6 +203,40 @@ def shard_params_with(params: dict, rules: dict, mesh: Mesh) -> dict:
     return _shard(params, rules, mesh)
 
 
+def _gather(t, rule, mesh: Mesh):
+    if not torch.is_tensor(t) or not t.is_floating_point():
+        return t
+    axes = _axes(rule, t.ndim)
+    if axes is None:
+        return t
+    cut = [(dim, ax) for dim, ax in enumerate(axes)
+           if ax is not None and mesh.size(ax) > 1]
+    if any(t.shape[dim] % mesh.size(ax) for dim, ax in cut):
+        # a replicated leaf (_slice's fallback) is the same on every rank; a
+        # shard of a width that does not divide its axis again is not
+        parts = [p for _, ax in cut for p in mesh.comm(ax).all_gather(t[None], 0).unbind(0)]
+        if all(torch.equal(p, t) for p in parts):
+            return t
+    for dim, ax in cut:
+        t = mesh.comm(ax).all_gather(t, dim)
+    return t
+
+
+def gather_params(params: dict, rules: dict, mesh: Mesh) -> dict:
+    """The whole param dict from every rank's shard: the inverse of
+    `shard_params_with` for float leaves (integer ones come back as this
+    rank's shard). Collective: every rank calls it and gets the same dict.
+    A leaf whose shard width does not divide its axis again is taken for
+    replicated (the sharding fallback) when every rank holds the same
+    tensor."""
+    def go(p, rule):
+        if isinstance(p, dict):
+            return {k: go(v, rule.get(k, ()) if isinstance(rule, dict) else rule)
+                    for k, v in p.items()}
+        return _gather(p, rule, mesh)
+    return go(params, rules)
+
+
 def shard_llama_params(params: dict, mesh: Mesh) -> dict:
     """This rank's tensor-parallel shard of a llama param dict (the forward
     functions take the tp group as `tp=mesh.comm("tp")`)."""

@@ -14,25 +14,29 @@ A dependency-free stdlib HTTP server wrapping the task objects:
   GET  /v1/batch_stats, /v1/models, /health
 
 Models run on the CUDA card unless `device="cpu"` (`--device cpu`) is given.
-Not ported yet, and answered with an HTTP error naming the ROADMAP.md item:
-the server under tensor / data parallelism, `--tp` / `--dp` (item 9: every
-rank ≥ 1 needs a loop that follows rank 0's requests; the task APIs and the
-CLI take tp and dp under torchrun).
+Tensor-parallel decoders (`--tp N`) and data-parallel encoders (`--dp N`)
+run under `torchrun --nproc-per-node N`: rank 0 serves HTTP and every model
+call it makes runs on every rank, issued from one thread in one order
+(serve_spmd.py); the other ranks follow.
 
 Run: python -m kjarni_tpu_torch.serve --port 8000
+     torchrun --nproc-per-node 2 -m kjarni_tpu_torch.serve --tp 2 --models generate=DIR
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
+import signal
+import sys
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
 
 from . import registry
 from .core.errors import KjarniError
-from .models.decoder_lm import not_ported
 
 
 class KjarniHTTPServer(ThreadingHTTPServer):
@@ -97,11 +101,16 @@ class _Engine:
         self.quiet = quiet
         # where the models run: None is the card, "cpu" the host
         self.device = device
-        # tensor-parallel decoders / data-parallel encoders: refused when a
-        # model is built (ROADMAP.md item 9), since the server runs in one
-        # process and the task constructors take tp / dp under SPMD only
+        # tensor-parallel decoders / data-parallel encoders, under SPMD: the
+        # task constructors check the process group's size
         self.tp = tp
         self.dp = dp
+        # rank 0 of a group of several ranks: the Dispatcher every model
+        # call goes through (serve_spmd.py), and the Replica handles it gives
+        self._spmd = None
+        self._replicas: dict = {}
+        self._streams: dict = {}
+        self._engines: dict = {}
         # speculative decoding for /v1/generate (greedy requests)
         self.draft_model = draft_model
         self.draft_num_tokens = draft_num_tokens
@@ -127,19 +136,88 @@ class _Engine:
         with self._creation_lock(key):
             with self._lock:
                 obj = self._cache.get(key)
-                if obj is not None:
-                    return obj
+            if obj is None:
+                obj = self._replicated(("get", kind, model))
+        return self._replica(key, obj)
+
+    # -- SPMD ------------------------------------------------------------
+    # Under a group of several ranks each model call below is an op that
+    # every rank runs in the same order (serve_spmd.py); with one process
+    # `_replicated` runs it here and `_replica` returns the object itself.
+    # An op takes no lock of this engine beyond `_lock` for a moment: the
+    # request threads hold the model and creation locks while they wait.
+
+    def _replicated(self, op: tuple):
+        return self._apply(op) if self._spmd is None else self._spmd.call(op)
+
+    def _replica(self, key: tuple, obj):
+        if self._spmd is None:
+            return obj
+        from .serve_spmd import Replica
+        with self._lock:
+            r = self._replicas.get((key, None))
+            if r is None:
+                r = self._replicas[(key, None)] = Replica(self._spmd, (key, None), obj,
+                                                          self._replicas)
+        return r
+
+    def _resolve(self, key: tuple):
+        cache_key, attr = key
+        obj = self._cache[cache_key]
+        return getattr(obj, attr) if attr else obj
+
+    def _get_local(self, kind: str, model: str):
+        with self._lock:
+            obj = self._cache.get((kind, model))
+        if obj is None:
             obj = self._construct(kind, model)
             with self._lock:
-                self._cache[key] = obj
+                self._cache[(kind, model)] = obj
         return obj
+
+    def _apply(self, op: tuple):
+        """Run one op on this rank (module docstring of serve_spmd.py)."""
+        name, *args = op
+        if name == "get":
+            return self._get_local(*args)
+        if name == "call":
+            key, method, a, kw = args
+            return getattr(self._resolve(key), method)(*a, **kw)
+        if name == "stream_open":
+            sid, key, method, a, kw = args
+            self._streams[sid] = iter(getattr(self._resolve(key), method)(*a, **kw))
+            return None
+        if name == "stream_next":
+            try:
+                return True, next(self._streams[args[0]])
+            except StopIteration:
+                del self._streams[args[0]]
+                return False, None
+        if name == "stream_close":
+            it = self._streams.pop(args[0], None)
+            if hasattr(it, "close"):
+                it.close()
+            return None
+        if name == "chat_session":
+            return self._chat_session_local(*args)
+        if name == "continuous":
+            # a new engine on the first loaded decoder of this model id
+            from .serve_batching import new_engine
+            lm = next(t._lm for k, t in self._cache.items()
+                      if k[0] in ("generate", "chat") and t.model_id == args[0])
+            self._engines[args[0]] = new_engine(
+                lm, slots=self._slots(), steps_per_sync=self.steps_per_sync,
+                cached_prefix=self.prompt_prefix)
+            return self._engines[args[0]]
+        if name == "advance":
+            from .serve_batching import advance
+            return advance(self._engines[args[0]], args[1])
+        if name == "noop":
+            return None
+        raise KjarniError(f"unknown server op '{name}'")
 
     def _construct(self, kind: str, model: str):
         dev = self.device
-        if kind in ("generate", "chat") and (self.tp or 1) > 1:
-            raise not_ported("tensor parallelism (--tp) in the server", "queue 1, item 9")
-        if kind in ("classify", "embed", "rerank") and (self.dp or 1) > 1:
-            raise not_ported("data parallelism (--dp) in the server", "queue 1, item 9")
         if kind == "classify":
             from .tasks.classifier import Classifier
             obj = Classifier(model, quiet=self.quiet, dp=self.dp, device=dev)
@@ -167,23 +245,32 @@ class _Engine:
         return obj
 
     def _lm_lock(self, lm) -> threading.Lock:
+        # keyed by the model itself: a Replica handle stands for its target
+        key = id(getattr(lm, "_target", lm))
         with self._lock:
-            lock = self._model_locks.get(id(lm))
+            lock = self._model_locks.get(key)
             if lock is None:
-                lock = self._model_locks[id(lm)] = threading.Lock()
+                lock = self._model_locks[key] = threading.Lock()
         return lock
 
+    def _slots(self) -> int:
+        return self.max_batch if self.max_batch > 1 else 8
+
     def _continuous(self, gen):
-        """One ContinuousRunner per loaded generator model."""
+        """One ContinuousRunner per loaded generator model, over an engine
+        that the `continuous` op builds (on every rank under SPMD); each of
+        its windows is an `advance` op. A runner that stopped on a failed
+        window is replaced, with a new engine."""
         from .serve_batching import ContinuousRunner
-        with self._lock:
-            r = self._continuous_runners.get(gen.model_id)
-            if r is None:
-                slots = self.max_batch if self.max_batch > 1 else 8
-                r = ContinuousRunner(gen._lm, slots=slots,
-                                     steps_per_sync=self.steps_per_sync,
-                                     cached_prefix=self.prompt_prefix)
-                self._continuous_runners[gen.model_id] = r
+        m = gen.model_id
+        with self._creation_lock(("continuous", m)):
+            with self._lock:
+                r = self._continuous_runners.get(m)
+            if r is None or r.stopped:
+                eng = self._replicated(("continuous", m))
+                r = ContinuousRunner(eng, lambda reqs: self._replicated(("advance", m, reqs)))
+                with self._lock:
+                    self._continuous_runners[m] = r
         return r
 
     def _batcher(self, gen):
@@ -206,32 +293,43 @@ class _Engine:
 
     def _chat_session(self, body: dict):
         """Per-session Chat sharing the base task's DecoderLM weights."""
-        model = body.get("model")
+        model = body.get("model") or self.defaults["chat"]
         session = body.get("session", "default")
-        key = ("chat-session", model or self.defaults["chat"], session)
+        key = ("chat-session", model, session)
         with self._creation_lock(key):
             with self._lock:
                 chat = self._cache.get(key)
             if chat is None:
-                from .tasks.chat import Chat
-                base = self.get("chat", model)
-                # Chat owns its conversation; construct per session but
-                # reuse the underlying DecoderLM weights from the base task
-                chat = Chat.__new__(Chat)
-                chat.device = base.device
-                chat.model_info = base.model_info
-                chat.model_id = base.model_id
-                chat._lm = base._lm
-                chat._spec = base._spec
-                from .chat_templates import Conversation
-                sp = base._lm.chat_template.default_system_prompt()
-                chat._conversation = (Conversation.with_system(sp) if sp
-                                      else Conversation())
-                with self._lock:
-                    self._cache[key] = chat
+                self.get("chat", model)
+                chat = self._replicated(("chat_session", model, session))
+        chat = self._replica(key, chat)
         if body.get("reset"):
             chat.clear_history(keep_system=True)
         return chat, session
+
+    def _chat_session_local(self, model: str, session: str):
+        key = ("chat-session", model, session)
+        with self._lock:
+            chat = self._cache.get(key)
+        if chat is not None:
+            return chat
+        from .tasks.chat import Chat
+        base = self._get_local("chat", model)
+        # Chat owns its conversation; construct per session but
+        # reuse the underlying DecoderLM weights from the base task
+        chat = Chat.__new__(Chat)
+        chat.device = base.device
+        chat.model_info = base.model_info
+        chat.model_id = base.model_id
+        chat._lm = base._lm
+        chat._spec = base._spec
+        from .chat_templates import Conversation
+        sp = base._lm.chat_template.default_system_prompt()
+        chat._conversation = (Conversation.with_system(sp) if sp
+                              else Conversation())
+        with self._lock:
+            self._cache[key] = chat
+        return chat
 
     def handle_stream(self, path: str, body: dict):
         """SSE path for {"stream": true} generate/chat requests.
@@ -251,9 +349,9 @@ class _Engine:
             lock = self._lm_lock(gen._lm)
 
             def run():
-                with lock:
-                    for st in gen.generate_stream(
-                            body["prompt"], cancellation=cancel, **kw):
+                with lock, contextlib.closing(gen.generate_stream(
+                        body["prompt"], cancellation=cancel, **kw)) as steps:
+                    for st in steps:
                         yield st.text
             return run(), cancel
         if path == "/v1/chat":
@@ -261,9 +359,9 @@ class _Engine:
             lock = self._lm_lock(chat._lm)
 
             def run():
-                with lock:
-                    for st in chat.stream(body["message"],
-                                          cancellation=cancel):
+                with lock, contextlib.closing(chat.stream(
+                        body["message"], cancellation=cancel)) as steps:
+                    for st in steps:
                         yield st.text
             return run(), cancel
         if path in ("/v1/completions", "/v1/chat/completions"):
@@ -450,27 +548,68 @@ def make_handler(engine: _Engine):
     return Handler
 
 
+def _spmd_world() -> int:
+    import torch.distributed as dist
+    return (dist.get_world_size()
+            if dist.is_available() and dist.is_initialized() else 1)
+
+
 def serve(host: str = "127.0.0.1", port: int = 8000,
           default_models: dict[str, str] | None = None,
-          max_batch: int = 1,
-          batch_window_ms: float = 10.0,
-          scheduler: str = "batch",
-          draft_model: str | None = None,
-          request_timeout_s: float | None = None,
-          tp: int | None = None, dp: int | None = None,
-          steps_per_sync: int = 16,
-          prompt_prefix: str | list | None = None,
-          kv_cache: str | None = None,
-          device: str | None = None) -> ThreadingHTTPServer:
-    engine = _Engine(default_models, max_batch=max_batch,
-                     batch_window_ms=batch_window_ms, scheduler=scheduler,
-                     draft_model=draft_model,
-                     request_timeout_s=request_timeout_s,
-                     tp=tp, dp=dp, steps_per_sync=steps_per_sync,
-                     prompt_prefix=prompt_prefix, kv_cache=kv_cache,
-                     device=device)
+          **engine_kw) -> ThreadingHTTPServer:
+    """The HTTP server over an `_Engine(default_models, **engine_kw)`
+    (max_batch, batch_window_ms, scheduler, draft_model, request_timeout_s,
+    tp, dp, steps_per_sync, prompt_prefix, kv_cache, device). In a process
+    group of several ranks this is rank 0's, and its engine issues every
+    model call through a Dispatcher (serve_spmd.py) that the other ranks'
+    `run` follows; a divergence between the ranks shuts it down."""
+    engine = _Engine(default_models, **engine_kw)
     server = KjarniHTTPServer((host, port), make_handler(engine))
+    server.engine = engine
+    if _spmd_world() > 1:
+        from .serve_spmd import Dispatcher
+        engine._spmd = Dispatcher(engine._apply, on_failure=lambda: threading.Thread(
+            target=server.shutdown, daemon=True).start())
     return server
+
+
+def run(host: str = "127.0.0.1", port: int = 8000,
+        default_models: dict[str, str] | None = None, **engine_kw) -> int:
+    """Serve until SIGINT (or, under SPMD, SIGTERM) on rank 0. Under a
+    process group of several ranks (torchrun), rank 0 serves and every
+    other rank follows its model calls until rank 0 stops; the exit code is
+    1 if the ranks diverged."""
+    import torch.distributed as dist
+    world = _spmd_world()
+    if world > 1 and dist.get_rank() != 0:
+        from .serve_spmd import follow
+        follow(_Engine(default_models, **engine_kw)._apply)
+        return 0
+    server = serve(host, port, default_models, **engine_kw)
+    spmd = server.engine._spmd
+    # the JAX server's line; under SPMD the bound port (port 0 picks one)
+    # and the pid that SIGINT stops
+    where = f"http://{host}:{port}"
+    if spmd is not None:
+        where = (f"http://{host}:{server.server_address[1]} "
+                 f"(rank 0 of {world}, pid {os.getpid()})")
+
+        def stop(signum, frame):
+            raise KeyboardInterrupt
+        signal.signal(signal.SIGTERM, stop)
+    print(f"kjarni serving on {where}", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+        if spmd is not None:
+            spmd.stop()
+    if spmd is not None and spmd.failed is not None:
+        print(f"error: {spmd.failed}", file=sys.stderr)
+        return 1
+    return 0
 
 
 def parse_model_overrides(pairs: list[str]) -> dict[str, str]:
@@ -519,15 +658,17 @@ def main(argv=None) -> int:
                          "returns 503 instead of hanging (default: "
                          "KJARNI_DEVICE_TIMEOUT_S or off)")
     ap.add_argument("--tp", type=int, default=None, metavar="N",
-                    help="tensor-parallel decoder models over N cards "
-                         "(not ported to the server: N > 1 is refused)")
+                    help="tensor-parallel decoder models over N ranks "
+                         "(under torchrun --nproc-per-node N)")
     ap.add_argument("--dp", type=int, default=None, metavar="N",
-                    help="data-parallel encoder models over N cards "
-                         "(not ported to the server: N > 1 is refused)")
+                    help="data-parallel encoder models over N ranks "
+                         "(under torchrun --nproc-per-node N)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default=None,
                     help="where the models run (default: the CUDA card)")
     args = ap.parse_args(argv)
-    server = serve(args.host, args.port,
+    from .parallel.comm import spmd_group
+    with spmd_group(args.device):
+        return run(args.host, args.port,
                    default_models=parse_model_overrides(args.models),
                    max_batch=args.max_batch,
                    batch_window_ms=args.batch_window_ms,
@@ -537,12 +678,6 @@ def main(argv=None) -> int:
                    draft_model=args.draft_model,
                    request_timeout_s=args.device_timeout,
                    tp=args.tp, dp=args.dp, device=args.device)
-    print(f"kjarni serving on http://{args.host}:{args.port}")
-    try:
-        server.serve_forever()
-    except KeyboardInterrupt:
-        pass
-    return 0
 
 
 if __name__ == "__main__":

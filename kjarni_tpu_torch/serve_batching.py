@@ -132,6 +132,38 @@ class DynamicBatcher:
                     r.done.set()
 
 
+def new_engine(lm, *, slots: int = 8, steps_per_sync: int = 16,
+               cached_prefix: Optional[str | list] = None):
+    """The ContinuousEngine a runner drives, with its cached prefixes."""
+    from .generate.continuous import ContinuousEngine
+    eng = ContinuousEngine(lm, slots=slots, steps_per_sync=steps_per_sync)
+    if cached_prefix:
+        # shared-prefix prompt cache: prompts starting with any of these
+        # texts' tokens skip recomputing them at admission (one entry
+        # per system prompt for multi-tenant serving)
+        prefixes = ([cached_prefix] if isinstance(cached_prefix, str)
+                    else list(cached_prefix))
+        for p in prefixes:
+            eng.register_prefix(p)
+    return eng
+
+
+def advance(eng, reqs: list) -> tuple[list, list]:
+    """One window of the runner's loop: queue each (prompt, kwargs) of
+    `reqs`, then step() the engine. Returns (each request's id or the
+    exception its submit raised, the requests that finished)."""
+    ids = []
+    for prompt, kwargs in reqs:
+        try:
+            # defer_admit: queue the whole burst, then let step()
+            # prefill every joining request in ONE batched prefill
+            ids.append(eng.submit(prompt, defer_admit=True, **kwargs))
+        except Exception as e:  # noqa: BLE001 — delivered to its request
+            ids.append(e)
+    eng.step()
+    return ids, eng.drain()
+
+
 class ContinuousRunner:
     """Thread-safe front-end for ContinuousEngine (generate/continuous.py).
 
@@ -139,21 +171,14 @@ class ContinuousRunner:
     runner owns it on a worker thread: server threads enqueue prompts, the
     worker admits them into the running decode (mid-flight joins) and delivers
     results. Per-request sampling params ride along to the slot engine.
+    `window(reqs)` runs one window on `engine` (`advance`; the server runs
+    it as an op, on every rank under SPMD). A window that raises fails every
+    request the runner holds and stops it: the engine's state is unknown.
     """
 
-    def __init__(self, lm, *, slots: int = 8, steps_per_sync: int = 16,
-                 cached_prefix: Optional[str | list] = None):
-        from .generate.continuous import ContinuousEngine
-        self._engine = ContinuousEngine(lm, slots=slots,
-                                        steps_per_sync=steps_per_sync)
-        if cached_prefix:
-            # shared-prefix prompt cache: prompts starting with any of these
-            # texts' tokens skip recomputing them at admission (one entry
-            # per system prompt for multi-tenant serving)
-            prefixes = ([cached_prefix] if isinstance(cached_prefix, str)
-                        else list(cached_prefix))
-            for p in prefixes:
-                self._engine.register_prefix(p)
+    def __init__(self, engine, window: Callable[[list], tuple]):
+        self._engine = engine
+        self._window = window
         self._cv = threading.Condition()
         self._incoming: list[_Request] = []
         self._by_rid: dict[int, _Request] = {}
@@ -217,19 +242,32 @@ class ContinuousRunner:
                         self._cv.wait(timeout=0.002)
                         incoming += self._incoming
                         self._incoming = []
-            for req in incoming:
-                try:
-                    # defer_admit: queue the whole burst, then let step()
-                    # prefill every joining request in ONE batched prefill
-                    rid = eng.submit(req.prompt, defer_admit=True,
-                                     **req.kwargs)
-                    self._by_rid[rid] = req
-                except BaseException as e:  # noqa: BLE001
-                    req.error = e
+            try:
+                ids, finished = self._window([(r.prompt, r.kwargs) for r in incoming])
+            except BaseException as e:  # noqa: BLE001 — delivered to every request
+                self._fail(incoming, e)
+                return
+            for req, rid in zip(incoming, ids):
+                if isinstance(rid, BaseException):
+                    req.error = rid
                     req.done.set()
-            eng.step()
-            for fr in eng.drain():
+                else:
+                    self._by_rid[rid] = req
+            for fr in finished:
                 req = self._by_rid.pop(fr.request_id, None)
                 if req is not None:
                     req.result = fr if req.want_full else fr.text
                     req.done.set()
+
+    @property
+    def stopped(self) -> bool:
+        return self._stopped
+
+    def _fail(self, incoming: list, error: BaseException) -> None:
+        with self._cv:
+            self._stopped = True
+            failed = incoming + self._incoming + list(self._by_rid.values())
+            self._incoming, self._by_rid = [], {}
+        for req in failed:
+            req.error = error
+            req.done.set()

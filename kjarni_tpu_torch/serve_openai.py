@@ -16,6 +16,8 @@ session-keeping native /v1/chat.
 
 from __future__ import annotations
 
+import contextlib
+
 import time
 import uuid
 from typing import Iterator, Optional
@@ -262,22 +264,23 @@ def stream(engine, path: str, body: dict):
             sent = 0
             n_toks = 0
             stopped = False
-            for st in lm.generate_stream(prompt, config=cfg,
-                                         cancellation=cancel):
-                n_toks += 1
-                emitted += st.text
-                cut, hit = _truncate_at_stops(emitted, stops)
-                if hit:
-                    if cut > sent:
-                        yield chunk(emitted[sent:cut])
-                        sent = cut
-                    stopped = True
-                    break
-                # hold back text that could still become a stop prefix
-                safe = max(len(emitted) - hold, sent)
-                if safe > sent:
-                    yield chunk(emitted[sent:safe])
-                    sent = safe
+            with contextlib.closing(lm.generate_stream(
+                    prompt, config=cfg, cancellation=cancel)) as steps:
+                for st in steps:
+                    n_toks += 1
+                    emitted += st.text
+                    cut, hit = _truncate_at_stops(emitted, stops)
+                    if hit:
+                        if cut > sent:
+                            yield chunk(emitted[sent:cut])
+                            sent = cut
+                        stopped = True
+                        break
+                    # hold back text that could still become a stop prefix
+                    safe = max(len(emitted) - hold, sent)
+                    if safe > sent:
+                        yield chunk(emitted[sent:safe])
+                        sent = safe
             if not stopped and len(emitted) > sent:
                 yield chunk(emitted[sent:])
             finish = ("stop" if stopped or n_toks < (cfg.max_new_tokens or 0)

@@ -109,6 +109,13 @@ def test_flash_kernel_at_tp_rank_heads(card, H, Hkv):
     test_flash_kernel_matches_plain(card, 1, H, Hkv, 1024, 1024, 64, None, 0, None)
 
 
+@pytest.mark.parametrize("H", [6, 3], ids=["tp2", "tp4"])
+def test_flash_kernel_at_whisper_tp_rank_heads(card, H):
+    """A tp rank of whisper-small's encoder: 12 heads split 2 and 4 ways,
+    S = T = 1500, non-causal."""
+    test_flash_kernel_tile_classes(card, 1, H, H, 1500, 1500, 64, False, None, 0, None)
+
+
 # a batched prefill: B = 8 rows at bucket 1024, every Llama-1B projection
 @pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)])
 def test_int4_kernel_at_batch_times_bucket(card, K, N):
@@ -430,6 +437,58 @@ def test_tp2_forward_on_the_card_matches_tp1(decoder_dir, tmp_path, dtype):
         assert np.abs(got[0] - ref).max() <= 1e-4 * np.abs(ref).max()
     else:
         assert ref.max() - ref[got[0].argmax()] <= 0.5
+
+
+def test_tp2_server_on_the_card(decoder_dir, tmp_path):
+    """`serve --tp 2` under SPMD as two gloo ranks sharing cuda:0: two
+    concurrent /v1/completions clients of rank 0's server, each greedy
+    answer within the 0.5-logit tie band of tp = 1's teacher-forced plain
+    forward on the card."""
+    import chip_smoke
+    import torch_dist
+    from kjarni_tpu_torch.models.decoder_lm import DecoderLM
+    d, prompts = decoder_dir
+    body = {"prompt": prompts[3], "max_tokens": 8, "temperature": 0}
+    group = torch_dist.RankGroup(2, tmp_path)
+    try:
+        got = group.run(torch_dist.on_the_card, "http_spmd", {"generate": str(d)},
+                        {"tp": 2}, [("/v1/completions", body)] * 2)
+    finally:
+        group.close()
+    assert got[1] == "followed"
+    lm = DecoderLM(d)
+    p_ids = lm.encode_prompt(prompts[3])
+    for code, out in got[0]:
+        toks = lm.tokenizer.encode(out["choices"][0]["text"], add_special_tokens=False)
+        assert code == 200 and 1 <= len(toks) <= 8
+        ref = chip_smoke._teacher_forced(lm, p_ids + toks[:-1],
+                                         list(range(len(p_ids) - 1, len(p_ids) - 1 + len(toks))))
+        assert max(chip_smoke._margins(ref, toks)) <= 0.5
+
+
+def test_train_step_on_the_card_holds_f64(decoder_dir):
+    """One sgd_train_step (parallel/train.py) of the tiny decoder in f32 on
+    the card, TF32 off: the loss within 1e-5 (relative) and each leaf's
+    gradient within 1e-4 of its largest |g| of the same step in f64; the
+    step launches neither kernel."""
+    import chip_smoke
+    from kjarni_tpu_torch.parallel.train import loss_and_grads, sgd_train_step
+    d, _ = decoder_dir
+    before = chip_smoke._all_counts()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, p32 = chip_smoke._train_params(str(d), 2, torch.float32, "cuda")
+    batch = [t.cuda() for t in chip_smoke._train_batch(cfg.vocab_size)]
+    loss32, g32 = loss_and_grads(p32, cfg, *batch)
+    new, loss = sgd_train_step(p32, cfg, *batch)
+    assert float(loss) == float(loss32) and torch.isfinite(new["embed"]).all()
+    loss64, g64 = loss_and_grads(chip_smoke._tree_map(lambda t: t.double(), p32), cfg,
+                                 *batch)
+    assert abs(float(loss32) - float(loss64)) <= 1e-5 * abs(float(loss64))
+    want = dict(chip_smoke._tree_leaves(g64))
+    for k, g in chip_smoke._tree_leaves(g32):
+        top = want[k].abs().max().item()
+        assert (g.double() - want[k]).abs().max().item() <= 1e-4 * top, k
+    assert chip_smoke._all_counts() == before
 
 
 def test_sampled_decoding_on_the_card(decoder_dir):

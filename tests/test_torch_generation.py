@@ -189,7 +189,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(res["modules"]) > 20 and res["bad"] == []
     for sub in ("cli.main", "cli.display", "config_file", "ffi.bridge", "ffi.build",
-                "export.browser", "export.jsvm.interp", "export.jsvm.parser"):
+                "export.browser", "export.jsvm.interp", "export.jsvm.parser",
+                "parallel.train", "parallel.dryrun", "parallel.tensor", "serve_spmd"):
         assert f"kjarni_tpu_torch.{sub}" in res["modules"], sub
 
 

@@ -8,7 +8,8 @@ answer is compared: health, models, classify, embed, similarity, rerank
 (scores within 1e-5), generate (single, batch and under the continuous
 scheduler: texts equal), chat sessions, both OpenAI routes (texts, finish
 reasons and usage equal) and their SSE streams, batch_stats, and the error
-codes. The port refuses tp > 1 with an HTTP 400 naming the ROADMAP.md item
+codes. A tp > 1 server outside a process group answers an HTTP 400 that
+names torchrun (the server under SPMD is tests/test_torch_serve_tp.py)
 (/v1/search is held in tests/test_torch_search_tasks.py). A request whose device work outlives the watchdog's deadline
 answers 503.
 """
@@ -256,7 +257,7 @@ def test_refusals_name_the_roadmap_item(dirs):
     srv, base, _ = _start(tserve, dirs, device="cpu", tp=2)
     try:
         code, out = post(base, "/v1/generate", GEN)
-        assert code == 400 and "ROADMAP.md, queue 1, item 9" in out["error"]
+        assert code == 400 and "torchrun --nproc-per-node 2" in out["error"]
     finally:
         srv.shutdown()
     with pytest.raises(KjarniError, match="unknown scheduler"):

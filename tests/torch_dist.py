@@ -318,3 +318,216 @@ def tp_prefill_on_the_card(model_dir: str, prompt: str, dtype: str) -> np.ndarra
                                    len(ids) - 1, use_flash=bucket >= lm._flash_min_seq,
                                    **lm.fwd_kw)[0]
     return logits[0].float().cpu().numpy()
+
+
+def family_tp(family: str, hf: dict, params_np: dict, inputs: dict, tp: int) -> dict:
+    """One encoder family's forward on this rank's shard under its rule, on
+    a ("dp", "tp") mesh of the whole group: BERT's hidden states, or an
+    encoder-decoder's encoder states and one decode_step's logits (the self
+    caches holding this rank's heads)."""
+    import importlib
+    from kjarni_tpu_torch.parallel import mesh as pm
+    mod = importlib.import_module(f"kjarni_tpu_torch.models.{family}")
+    conf = {"bert": "BertConfig", "t5": "T5Config", "bart": "BartConfig",
+            "whisper": "WhisperConfig"}[family]
+    cfg = getattr(mod, conf).from_hf(hf)
+    rules = {"bert": pm.encoder_param_sharding, "t5": pm.t5_param_sharding,
+             "bart": pm.bart_param_sharding, "whisper": pm.whisper_param_sharding}
+    mesh = pm.make_mesh(dp=dist.get_world_size() // tp, tp=tp)
+    comm = mesh.comm("tp")
+    params = pm.shard_params_with(_tensors(params_np), rules[family](mesh), mesh)
+    t = {k: torch.from_numpy(v) for k, v in inputs.items()}
+    with torch.inference_mode():
+        if family == "bert":
+            return {"hidden": mod.encode(params, cfg, t["ids"].long(), t["mask"].long(),
+                                         tp=comm).numpy()}
+        if family == "whisper":
+            enc = mod.encode(params, cfg, t["mel"], tp=comm)
+            mask = None
+        else:
+            mask = t["enc_mask"].long()
+            enc = mod.encode(params, cfg, t["enc_ids"].long(), mask, tp=comm)
+        ck, cv = mod.precompute_cross_kv(params, cfg, enc, tp=comm)
+        sk, sv = (c.narrow(2, comm.rank * ck.shape[2], ck.shape[2]).contiguous()
+                  for c in mod.init_self_cache(cfg, t["dec_ids"].shape[0], 8))
+        logits, _, _ = mod.decode_step(params, cfg, t["dec_ids"].long(), sk, sv, ck, cv,
+                                       mask, 0, tp=comm)
+    return {"enc": enc.numpy(), "logits": logits.numpy(), "heads": int(ck.shape[2])}
+
+
+def train_step(params_np: dict, cfg_kw: dict, ids: np.ndarray, labels: np.ndarray,
+               mask: np.ndarray, dp: int, tp: int, lr: float) -> dict:
+    """parallel/train.py on a ("dp", "tp") mesh: this rank's dp rows and tp
+    shard; the loss, and (rank 0) the gradients and the updated params
+    gathered whole by gather_params."""
+    from kjarni_tpu_torch.parallel.mesh import (gather_params, llama_param_sharding,
+                                                make_mesh, shard_llama_params)
+    from kjarni_tpu_torch.parallel.train import loss_and_grads, sgd_train_step
+    cfg = _llama_cfg(cfg_kw)
+    mesh = make_mesh(dp=dp, tp=tp)
+    params = shard_llama_params(_tensors(params_np), mesh)
+    rows = ids.shape[0] // dp
+    d = mesh.coords["dp"]
+    batch = [torch.from_numpy(a[d * rows:(d + 1) * rows].astype(np.int64))
+             for a in (ids, labels, mask)]
+    kw = {"tp": mesh.comm("tp"), "dp": mesh.comm("dp")}
+    loss, grads = loss_and_grads(params, cfg, *batch, **kw)
+    new, loss2 = sgd_train_step(params, cfg, *batch, lr=lr, **kw)
+    rules = llama_param_sharding(mesh)
+    grads, new = gather_params(grads, rules, mesh), gather_params(new, rules, mesh)
+    out = {"loss": float(loss), "loss2": float(loss2)}
+    if dist.get_rank() == 0:
+        out.update(grads=_numpy(grads), params=_numpy(new))
+    return out
+
+
+def collective_gradchecks() -> dict:
+    """torch.autograd.gradcheck in f64 of the Megatron collectives
+    (parallel/comm.py), each over a global function of replicated inputs,
+    so every rank perturbs the same variable at once: f with the head's
+    gather (x @ a column-sharded W, gathered), and f with g (x through a
+    column-sharded then a row-sharded weight, summed)."""
+    from kjarni_tpu_torch.parallel.comm import Comm
+    comm = Comm()
+    r, n = comm.rank, comm.size
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(3, 4, dtype=torch.float64, generator=gen, requires_grad=True)
+    w1 = torch.randn(4, 2 * n, dtype=torch.float64, generator=gen, requires_grad=True)
+    w2 = torch.randn(2 * n, 5, dtype=torch.float64, generator=gen, requires_grad=True)
+
+    def f_gather(x, w1):
+        return comm.gather_out(comm.copy_in(x) @ comm.copy_in(w1).narrow(1, 2 * r, 2))
+
+    def f_g(x, w1, w2):
+        h = torch.tanh(comm.copy_in(x) @ comm.copy_in(w1).narrow(1, 2 * r, 2))
+        return comm.reduce_out(h @ comm.copy_in(w2).narrow(0, 2 * r, 2))
+
+    check = torch.autograd.gradcheck
+    out = {"f_gather": check(f_gather, (x, w1)), "f_g": check(f_g, (x, w1, w2))}
+    # the plain collectives where no gradient is taken: no copy
+    with torch.inference_mode():
+        t = torch.ones(4)
+        out["copy_in_is_x"] = comm.copy_in(t) is t
+        out["reduce_out_in_place"] = comm.reduce_out(t) is t
+    return out
+
+
+def _answer(engine, req):
+    """One request against an _Engine: handle(), or a stream's pieces."""
+    kind, path, body = req
+    try:
+        if kind == "stream":
+            it, _ = engine.handle_stream(path, body)
+            try:
+                return {"pieces": [p if isinstance(p, str) else p["choices"][0]
+                                   for p in it]}
+            finally:
+                it.close()
+        return engine.handle(path, body)
+    except Exception as e:  # noqa: BLE001 — compared as the answer
+        return {"error": f"{type(e).__name__}: {e}"}
+
+
+def spmd_engine(models: dict, engine_kw: dict, waves: list,
+                fault_on_rank1: str | None = None) -> list | str:
+    """The server's engine under SPMD on this group (serve_spmd.py): rank 0
+    issues each wave's requests from concurrent threads and returns every
+    answer; the other ranks follow (and return what ended them).
+    `fault_on_rank1`: a model kind whose construction raises on rank 1 alone."""
+    import threading
+    from kjarni_tpu_torch import serve
+    from kjarni_tpu_torch.serve_spmd import Dispatcher, SpmdError, follow
+    engine = serve._Engine(models, device="cpu", **engine_kw)
+    if fault_on_rank1 and dist.get_rank() == 1:
+        construct = engine._construct
+
+        def faulty(kind, model):
+            if kind == fault_on_rank1:
+                raise RuntimeError("planted fault")
+            return construct(kind, model)
+        engine._construct = faulty
+    if dist.get_rank() != 0:
+        try:
+            follow(engine._apply)
+        except SpmdError as e:
+            return f"SpmdError: {e}"
+        return "followed"
+    engine._spmd = Dispatcher(engine._apply)
+    out = []
+    try:
+        for wave in waves:
+            got = [None] * len(wave)
+
+            def one(i, req):
+                got[i] = _answer(engine, req)
+            threads = [threading.Thread(target=one, args=(i, r)) for i, r in enumerate(wave)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            out.append(got)
+    finally:
+        engine._spmd.stop()
+    return out
+
+
+def continuous_tp(model_dir: str, prompt: str, prefix: str | None, max_new: int) -> str:
+    """ContinuousEngine over DecoderLM(tp=world): one greedy request, with
+    `prefix` registered first when given."""
+    from kjarni_tpu_torch.generate.continuous import ContinuousEngine
+    from kjarni_tpu_torch.models.decoder_lm import DecoderLM
+    lm = DecoderLM(model_dir, max_context=64, device="cpu", tp=dist.get_world_size())
+    eng = ContinuousEngine(lm, slots=2, max_context=64)
+    if prefix:
+        eng.register_prefix(prefix)
+    rid = eng.submit(prompt, max_new_tokens=max_new)
+    done = {fr.request_id: fr for fr in eng.run()}
+    return done[rid].text
+
+
+def http_spmd(models: dict, engine_kw: dict, requests: list) -> list | str:
+    """serve.run's two sides on this group: rank 0's loopback server (port
+    0) answers `requests` from concurrent HTTP clients, then shuts down
+    (what SIGINT does); the other ranks follow until its stop. On the CPU
+    unless engine_kw gives a device."""
+    import json as _json
+    import threading
+    import urllib.request
+    from kjarni_tpu_torch import serve
+    from kjarni_tpu_torch.serve_spmd import follow
+    engine_kw = {"device": "cpu", **engine_kw}
+    if dist.get_rank() != 0:
+        follow(serve._Engine(models, **engine_kw)._apply)
+        return "followed"
+    srv = serve.serve("127.0.0.1", 0, models, **engine_kw)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    got = [None] * len(requests)
+
+    def one(i, path, body):
+        req = urllib.request.Request(base + path, data=_json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=TIMEOUT_S) as r:
+            got[i] = (r.status, _json.loads(r.read()))
+    threads = [threading.Thread(target=one, args=(i, p, b))
+               for i, (p, b) in enumerate(requests)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    srv.shutdown()
+    srv.server_close()
+    srv.engine._spmd.stop()
+    return got
+
+
+def on_the_card(case: str, *args):
+    """One of this module's cases with this rank on cuda:0 (every rank of
+    the group shares the card; gloo stages through host memory), TF32 off
+    and the models on the card."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if case == "http_spmd":
+        models, engine_kw, requests = args
+        return http_spmd(models, {**engine_kw, "device": None}, requests)
+    return globals()[case](*args)
