@@ -6,7 +6,7 @@ and check them.
 
     python3 chip_smoke.py [--phases env,kernels,bf16,int4,int8,batch,chat,gpt2,serve,
                                     infra,f32,surfaces,parallel,train,seq2seq,whisper,
-                                    embed,search]
+                                    embed,search,zoo]
                           [--root DIR]
 
 --root DIR imports kjarni_tpu_torch from another checkout (an older commit,
@@ -56,18 +56,31 @@ Phases, in order (all by default); any failure raises and exits non-zero:
    the plain version with x rounded to bf16 (x_as_bf16) by the int4 check,
    bit-identical on a repeat, and per decoded token the parent's form (the
    wrapper's x cast, then the kernel) against the GEMV that rounds f32 x
-   itself, device and eager ms, bit-identical. `--phases env,flash` runs
-   the flash cases alone, bf16 and f32.
+   itself, device and eager ms, bit-identical. Then both kernels at phase
+   19's shapes: flash, bf16 and f32, at each zoo decoder's prefill (S = T =
+   1024) and its follow-up's cache reuse (S 1024 at q_offset 732 or 733 over
+   a kv bucket of 1792): G = 7 (H14 Hkv2 D64), 6 (H12 Hkv2 D128), 3 (H24
+   Hkv8 D128), 1 (Phi-3.5-mini, D96) and 4 (H32 Hkv8 D128), and
+   whisper-large-v3's encoder (H20, S = T = 1500, non-causal); int4 at every
+   zoo projection shape at M = 1 and 1024 and each head at M = 1, with one
+   decoded token summed per model at its published depth (7 x layers + 1
+   launches) and one layer at M = 1024. `--phases env,flash` runs the flash
+   cases alone, bf16 and f32.
 3. bf16: Generator over a Llama-3.2-1B-shaped checkpoint (full width, 16
    layers, random bf16 weights from a seeded generator on the card) answers
    three requests: a greedy generate on a ~700-token prompt (flash prefill), a
    follow-up extending it (prefix reuse: flash over the cache, or plain
    attention in an older checkout under its 2 GB score gate) and a 32-token
    generate_stream on another ~600-token prompt. Checks
-   the flash launch count per request and the first prefill's logits against
-   the same forward with the kernels' plain versions.
+   the flash launch count per request (one per layer, each call at the
+   request's (S, T, q_offset, kv_len)), every greedy token within the 0.5
+   logit tie band of a teacher-forced plain forward of prompt and output,
+   and the first prefill's logits against the same forward with the
+   kernels' plain versions.
 4. int4: the same with quantize="int4"; checks 113 int4 launches per forward
-   (7 projections x 16 layers + the lm_head).
+   (7 projections x 16 layers + the lm_head, int4_per_forward), and every
+   int4 launch of the first prefill held on its own input against the plain
+   version (2e-2 of its largest output, cosine > 0.999).
 5. int8: the phase-3 requests with quantize="int8" (16 flash launches per
    prefill bucket >= 512, no int4), the first prefill's logits against the
    bf16 weights' (cosine >= 0.999 over the first 2 layers, the JAX test's
@@ -104,7 +117,7 @@ Phases, in order (all by default); any failure raises and exits non-zero:
    generate on a 700-token prompt and a B = 8 generate_batch, with no flash
    and no int4 launch, and the card's bf16 logits against the f32 forward on
    the CPU at cosine >= 0.999.
-9. serve: over the phase-3 weights' first 8 layers (full width) in bf16
+9. serve: over the phase-3 weights' first 4 layers (full width) in bf16
    and in int4, a ContinuousEngine
    (8 slots of 4,096, windows of up to 8 steps, a 256-token system prompt
    registered once) serves 24 requests in three bursts (the later two join
@@ -132,7 +145,7 @@ Phases, in order (all by default); any failure raises and exits non-zero:
    /v1/batch_stats, each 200 with the engine's texts, and their latencies.
    Last a GGUF dir at Llama-3.2-1B width and 2 layers (Q8_0 embedding and
    projections, F32 norms, a byte-level BPE over 128,256 ids embedded),
-   written here in numpy: DecoderLM(dir) must give the params and the
+   its weights drawn and quantized on the card: DecoderLM(dir) must give the params and the
    first-prefill logits of the same dequantized weights loaded from
    safetensors. `--phases env,serve` runs it alone.
 10. seq2seq: model dirs at the public config.json widths of the registry's
@@ -317,11 +330,35 @@ Phases, in order (all by default); any failure raises and exits non-zero:
    (parallel/dryrun.py), then its product phase on 4 ranks, printing
    dryrun_multichip's line and loss.
 
-After each of phases 3-18 a line gives its own launches (the counts are set
+19. zoo: the registry's other decoders at the widths of their public
+   config.json (ZOO: Qwen2.5-0.5B-Instruct and -1.5B-Instruct at full depth,
+   Llama-3.2-3B-Instruct, Phi-3.5-mini-instruct with seeded longrope factors,
+   Mistral-7B-Instruct-v0.3 and Llama-3.1-8B-Instruct over their first 4
+   layers; random bf16 weights from a seed, Qwen2's q/k/v biases, Phi-3's
+   fused qkv_proj / gate_up_proj), each through run_slice in bf16 and in
+   int4: phase 3's three requests (a 700-word prompt at bucket 1024, a
+   follow-up adding 600 words over the cache, flash at the q_offset / kv_len
+   phase 2 holds, and a 600-word stream), 32 greedy tokens each, no profile,
+   held as phases 3 and 4 hold Llama-1B. Qwen2.5-0.5B also
+   in f32 (the f32 flash kernel at G = 7, logits within 1e-4 of the
+   largest) and through one ContinuousEngine pass of 8 requests with every
+   admission wave on flash. Planted faults that must read outside the logits
+   bound: Qwen2.5-0.5B's k/v rolled by one KV head in its flash calls and
+   its q/k/v biases dropped, Phi-3.5-mini's long rope factors where the
+   short ones apply. Then whisper-large-v3 (its 32 encoder layers, its
+   decoder's first 4; 128 mel bins; its own special ids) through
+   Transcriber: the encoder on flash (32 launches per encode) against the
+   plain encoder (cosine >= 0.999; the causal call fails it), a 30 s
+   translate whose prompt holds large-v3's ids and whose tokens lie in the
+   tie band, and language detection over all 100 of its languages. One
+   line per model: prefill ms, time to first token, decode tok/s, peak GB,
+   each check's reading beside its bound, launches.
+
+After each of phases 3-19 a line gives its own launches (the counts are set
 to 0 just before it and read just after; 10 and 11 must launch no int4, 12
 and 13 nothing, 18 nothing). At
 the end come three lines: a JSON object {"kernels": [...]} (per kernel the
-launches of phases 3-18,
+launches of phases 3-19,
 max_abs_err over its cases, and ms / plain_ms / bound_ms / library_ms -- for
 flash and f32 flash one launch at the Llama-1B prefill shape, for int4 the
 113 launches of one decoded token, with its f32-output max_abs_err and
@@ -340,9 +377,12 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
+import functools
 import gc
 import importlib
+import itertools
 import json
 import math
 import re
@@ -375,14 +415,120 @@ LLAMA_1B = {
     "rms_norm_eps": 1e-5, "tie_word_embeddings": True,
     "bos_token_id": 128000, "eos_token_id": 128001, "torch_dtype": "bfloat16",
 }
-INT4_PER_FORWARD = 7 * LLAMA_1B["num_hidden_layers"] + 1
+
+
+def int4_per_forward(layers: int) -> int:
+    """int4 launches of one decoder forward: q, k, v, o, gate, up and down
+    in each layer, then the head."""
+    return 7 * layers + 1
+
+
+# The registry's other decoders (kjarni_tpu_torch/registry.py), each with the
+# values of its public config.json (the keys the loader reads); phase 19
+# writes them at full width with random weights, the depth cut where ZOO says
+QWEN25_05B = {   # Qwen/Qwen2.5-0.5B-Instruct
+    "model_type": "qwen2", "architectures": ["Qwen2ForCausalLM"], "vocab_size": 151936,
+    "hidden_size": 896, "intermediate_size": 4864, "num_hidden_layers": 24,
+    "num_attention_heads": 14, "num_key_value_heads": 2, "max_position_embeddings": 32768,
+    "rope_theta": 1000000.0, "rms_norm_eps": 1e-6, "tie_word_embeddings": True,
+    "use_sliding_window": False, "sliding_window": 32768, "max_window_layers": 21,
+    "bos_token_id": 151643, "eos_token_id": 151645, "torch_dtype": "bfloat16",
+}
+QWEN25_15B = {   # Qwen/Qwen2.5-1.5B-Instruct
+    **QWEN25_05B, "hidden_size": 1536, "intermediate_size": 8960, "num_hidden_layers": 28,
+    "num_attention_heads": 12, "max_window_layers": 21,
+}
+LLAMA32_3B = {   # meta-llama/Llama-3.2-3B-Instruct
+    **LLAMA_1B, "hidden_size": 3072, "intermediate_size": 8192, "num_hidden_layers": 28,
+    "num_attention_heads": 24, "num_key_value_heads": 8, "head_dim": 128,
+    "eos_token_id": [128001, 128008, 128009],
+}
+
+
+def _longrope_factors(seed: int, n: int = 48) -> dict:
+    """Seeded stand-ins for Phi-3.5-mini's longrope factor lists, NOT the
+    published values (those are not in the repo): 48 entries each (D / 2),
+    nondecreasing from 1 with the frequency index as the published ones are,
+    the short ones up to ~2, the long ones up to ~60."""
+    import numpy as np
+    u = np.sort(np.random.default_rng(seed).uniform(0.0, 1.0, (2, n)), axis=1)
+    return {"short_factor": [round(1.0 + float(x) ** 4, 4) for x in u[0]],
+            "long_factor": [round(1.0 + 59.0 * float(x), 4) for x in u[1]]}
+
+
+PHI35_MINI = {   # microsoft/Phi-3.5-mini-instruct (longrope factors seeded: see above)
+    "model_type": "phi3", "architectures": ["Phi3ForCausalLM"], "vocab_size": 32064,
+    "hidden_size": 3072, "intermediate_size": 8192, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 32,
+    "max_position_embeddings": 131072, "original_max_position_embeddings": 4096,
+    "rope_theta": 10000.0, "rope_scaling": {"type": "longrope", **_longrope_factors(35)},
+    "rms_norm_eps": 1e-5, "sliding_window": 262144, "tie_word_embeddings": False,
+    "bos_token_id": 1, "eos_token_id": 32000, "pad_token_id": 32000,
+    "torch_dtype": "bfloat16",
+}
+MISTRAL_7B = {   # mistralai/Mistral-7B-Instruct-v0.3
+    "model_type": "mistral", "architectures": ["MistralForCausalLM"], "vocab_size": 32768,
+    "hidden_size": 4096, "intermediate_size": 14336, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 8, "head_dim": 128,
+    "max_position_embeddings": 32768, "rope_theta": 1000000.0, "rms_norm_eps": 1e-5,
+    "sliding_window": None, "tie_word_embeddings": False, "bos_token_id": 1,
+    "eos_token_id": 2, "torch_dtype": "bfloat16",
+}
+LLAMA31_8B = {   # meta-llama/Llama-3.1-8B-Instruct
+    **LLAMA_1B, "hidden_size": 4096, "intermediate_size": 14336, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 8, "head_dim": 128,
+    "rope_scaling": {"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+                     "high_freq_factor": 4.0, "original_max_position_embeddings": 8192},
+    "tie_word_embeddings": False, "eos_token_id": [128001, 128008, 128009],
+}
+# (registry name, public source, config, layers in phase 19): every width as
+# published; the two Qwens at full depth, the others cut to their first 4
+# layers to keep the phase's time and the card's memory
+ZOO = (
+    ("qwen2.5-0.5b-instruct", "Qwen/Qwen2.5-0.5B-Instruct", QWEN25_05B, 24),
+    ("qwen2.5-1.5b", "Qwen/Qwen2.5-1.5B-Instruct", QWEN25_15B, 28),
+    ("llama3.2-3b-instruct", "meta-llama/Llama-3.2-3B-Instruct", LLAMA32_3B, 4),
+    ("phi3.5-mini", "microsoft/Phi-3.5-mini-instruct", PHI35_MINI, 4),
+    ("mistral-7b", "mistralai/Mistral-7B-Instruct-v0.3", MISTRAL_7B, 4),
+    ("llama3.1-8b-instruct", "meta-llama/Llama-3.1-8B-Instruct", LLAMA31_8B, 4),
+)
+ZOO_PROMPT_WORDS = 700      # the first request's prompt: bucket 1024
+ZOO_NEW_TOKENS = 32
+ZOO_BIAS_STD = 0.5          # Qwen2's q/k/v biases (tests/test_torch_llama.py's qwen2)
+
+
+def heads(c: dict) -> tuple[int, int, int]:
+    """(H, Hkv, D) of a decoder config."""
+    H = c["num_attention_heads"]
+    return H, c.get("num_key_value_heads", H), c.get("head_dim") or c["hidden_size"] // H
+
+
+def zoo_reuse_offset(c: dict) -> int:
+    """The follow-up request's cached prefix in phase 19: the prompt (BOS
+    first for llama and mistral, as DecoderLM.encode_prompt adds it) and the
+    first request's new tokens."""
+    bos = c["model_type"] in ("llama", "mistral")
+    return ZOO_PROMPT_WORDS + bos + ZOO_NEW_TOKENS
+
+
+def zoo_flash_shapes() -> list:
+    """(name, H, Hkv, D, q_offset) of each distinct flash shape of phase 19's
+    decoders: their prefill at S = T = 1024 and their follow-up's cache reuse
+    (S 1024 at q_offset over a kv bucket of 1792)."""
+    out, seen = [], set()
+    for name, _, c, _ in ZOO:
+        H, Hkv, D = heads(c)
+        key = (H, Hkv, D, zoo_reuse_offset(c))
+        if key not in seen:
+            seen.add(key)
+            out.append((name, *key))
+    return out
 # the phases over the Llama-3.2-1B-width weights (3-9 and 14), between the
 # launch counts' reset and their reading
 GENERATION = ("bf16", "int4", "int8", "batch", "chat", "gpt2", "serve", "infra", "f32",
               "surfaces", "parallel", "train")
 # the encoder-decoder phases (10 and 11), also on the main path
 ENC_DEC = ("seq2seq", "whisper")
-FLASH_PER_PREFILL = LLAMA_1B["num_hidden_layers"]
 
 # the public config.json values (the keys the loader reads) of the registry's
 # encoder models; all four use bert-base-uncased's 30,522-token vocabulary
@@ -749,6 +895,13 @@ def _int4_f32_close(tag, out, ref) -> dict:
     return {"max_abs_err": err, "tol": tol, "bf16_store_control_err": control}
 
 
+# (M, K, N) where tinygemm's own rounding misses the int4 check's elementwise
+# allclose (on the H100: max error 0.044 at M = 1024, K = 14,336, where ours
+# passes); there int4_case holds the library to the same function instead:
+# max error within 2e-2 of the largest plain output, cosine > 0.999
+TINYGEMM_ALLCLOSE_MISSES = {(1024, 14336, 4096)}
+
+
 def int4_case(name, M, K, N, seed=0, f32=False) -> dict:
     """One int4 case against the plain version, bit-identical on a repeat,
     timed beside its bound and tinygemm. f32: f32 activations, which the
@@ -789,14 +942,28 @@ def int4_case(name, M, K, N, seed=0, f32=False) -> dict:
         def gemm(a, w, s):
             return i4._launch(a, w, s, plan)
         _close_to_plain(f"int4 {name} gemm", gemm(x, w4, scale), ref)
-    # the library yardstick, checked like the kernel before it is timed
+    # the library yardstick, checked like the kernel before it is timed,
+    # except where its own rounding was measured to miss the elementwise
+    # allclose (TINYGEMM_ALLCLOSE_MISSES): there it is held to computing the
+    # same function; both readings are kept
     tg = "tinygemm takes bf16 x" if f32 else _tinygemm_weights(w4, scale)
+    lib_check = None
     if isinstance(tg, str):
         print(f"{tag}: library_ms null: {tg}")
     else:
         lib = torch._weight_int4pack_mm(x, tg[0], tg[2], tg[1])
         torch.cuda.synchronize()
-        _close_to_plain(f"tinygemm {name}", lib, ref)
+        top = ref.float().abs().max().item()
+        lib_check = {"max_abs_err": (lib.float() - ref.float()).abs().max().item(),
+                     "cosine": _cosine(lib, ref), "allclose_2e-2": bool(
+                         torch.allclose(lib.float(), ref.float(), rtol=2e-2, atol=2e-2))}
+        lib_check["err_share_of_max"] = lib_check["max_abs_err"] / top
+        if (M, K, N) in TINYGEMM_ALLCLOSE_MISSES:
+            check(lib_check["err_share_of_max"] <= 2e-2 and lib_check["cosine"] > 0.999,
+                  f"tinygemm {name}: max_abs_err {lib_check['max_abs_err']} within 2e-2 "
+                  f"of the largest output {top}, cosine {lib_check['cosine']} > 0.999")
+        else:
+            _close_to_plain(f"tinygemm {name}", lib, ref)
     # decode and short prefills find their weights cold: cycle through copies
     # filling > 2x L2; M = 1024 is bound by its operations and cycles through two
     wbytes = w4.numel() + scale.numel() * 4
@@ -831,6 +998,8 @@ def int4_case(name, M, K, N, seed=0, f32=False) -> dict:
            "kernel_ms": kernel_ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by,
            "tb_per_s": 1e-9 * nbytes / kernel_ms}
+    if lib_check is not None:
+        row["library_check"] = lib_check
     if tight:
         row["f32_tol"] = tight["tol"]
         row["bf16_store_control_err"] = tight["bf16_store_control_err"]
@@ -883,8 +1052,34 @@ def phase_flash() -> list:
         flash_case("whisper-encoder B=8 H=12 S=T=1500 non-causal", 8, 12, 12, 1500, 1500,
                    D, causal=False, seed=12, ref_tol=WHISPER_FLASH_REF_TOL,
                    controls=WHISPER_FLASH_CONTROLS),
+        *zoo_flash_cases(flash_case, seed=100),
     ]
     return [r for r in flash if r is not None]
+
+
+def zoo_flash_cases(case, seed: int) -> list:
+    """`case` (flash_case or flash_f32_case) at phase 19's shapes: each
+    decoder's prefill at S = T = 1024 (Phi-3.5-mini's is phase 2's own case)
+    and its follow-up's cache reuse (S 1024 at the cached prefix's q_offset,
+    over the 1792-slot kv bucket of the 4096-slot cache, the tail past kv_len
+    poisoned), then whisper-large-v3's encoder (H20, S = T = 1500, non-causal,
+    held as whisper-small's)."""
+    rows = []
+    for i, (name, H, Hkv, D, off) in enumerate(zoo_flash_shapes()):
+        G = f"G={H // Hkv}"
+        if name != "phi3.5-mini":
+            rows.append(case(f"{name}-prefill H{H} Hkv{Hkv} {G} S=T=1024 D={D}", 1, H, Hkv,
+                             1024, 1024, D, seed=seed + 2 * i))
+        rows.append(case(f"{name}-reuse H{H} Hkv{Hkv} {G} S=1024 q_offset={off} "
+                         f"kv_len={off + 1024} T=1792 D={D}", 1, H, Hkv, 1024, 1792, D,
+                         q_offset=off, kv_len=off + 1024, poison=True, cache_len=4096,
+                         seed=seed + 2 * i + 1))
+    Hw = WHISPER_LARGE_V3["encoder_attention_heads"]
+    whisper = dict(ref_tol=WHISPER_FLASH_REF_TOL, controls=WHISPER_FLASH_CONTROLS) \
+        if case is flash_case else {}
+    rows.append(case(f"whisper-large-v3-encoder B=1 H={Hw} S=T=1500 non-causal", 1, Hw, Hw,
+                     1500, 1500, 64, causal=False, seed=seed + 20, **whisper))
+    return rows
 
 
 FLASH_F32_REF_TOL = 1e-5     # of the plain output's largest magnitude
@@ -923,6 +1118,9 @@ def phase_flash_f32() -> list:
         # (flash is its bf16 form's); the shape is checked and timed all the same
         flash_f32_case("whisper-encoder B=1 H=12 S=T=1500 non-causal", 1, 12, 12, 1500,
                        1500, D, causal=False, seed=26),
+        # phase 19's shapes; f32 runs on its path for Qwen2.5-0.5B (G = 7)
+        # alone, the rest and whisper-large-v3's encoder are held here
+        *zoo_flash_cases(flash_f32_case, seed=130),
     ]
     return [r for r in flash if r is not None]
 
@@ -1065,11 +1263,50 @@ def phase_kernels() -> dict:
           "int4 one batched decode step of 8 rows (113 launches)")
     int4_f32 = phase_int4_f32(shapes, per_token)
     tp = phase_tp_kernels(total, per_token)
+    zoo = phase_zoo_kernels(total)
     return {"flash": flash + tp["flash"], "flash_f32": flash_f32 + tp["flash_f32"],
             "int4_f32": int4_f32,
             "int4": list(int4.values()) + [head8] + [r for rows in prefill.values()
-                                                     for r in rows.values()] + tp["int4"],
-            "int4_token": tok}
+                                                     for r in rows.values()] + tp["int4"]
+            + zoo, "int4_token": tok}
+
+
+# the launches of each int4 shape per layer (zoo_int4_shapes); one for the head
+ZOO_INT4_PER_LAYER = {"q": 1, "k/v": 2, "o": 1, "gate/up": 2, "down": 1}
+
+
+def zoo_int4_shapes(c: dict) -> dict:
+    """name -> (K, N) of each int4 launch of a decoder of config c: the
+    layer's projections (Phi-3's fused qkv and gate_up split as llama.py
+    splits them) and the head."""
+    hid, inter = c["hidden_size"], c["intermediate_size"]
+    H, Hkv, D = heads(c)
+    return {"q": (hid, H * D), "k/v": (hid, Hkv * D), "o": (H * D, hid),
+            "gate/up": (hid, inter), "down": (inter, hid), "lm_head": (hid, c["vocab_size"])}
+
+
+def phase_zoo_kernels(total) -> list:
+    """int4 at phase 19's shapes, against the plain version as every int4
+    case: each decoder's projections and head at M = 1, summed over a
+    decoded token at the model's published depth (7 x layers + 1 launches),
+    and its projections at M = 1024 (one layer of the 1024-token prefill, 7
+    launches). A shape that two decoders share runs once. int4_case's
+    groups of 128 fall back to one scale per column where K / 256 is not
+    whole (Qwen2.5-0.5B's K = 896: G = 1), as quantize_params_int4 does."""
+    done = {}
+
+    def case(M, K, N):
+        if (M, K, N) not in done:
+            done[M, K, N] = int4_case(f"zoo M={M} {K}x{N}", M, K, N, seed=(7 * K + N) % 997 + M)
+        return done[M, K, N]
+    for name, _, c, _ in ZOO:
+        shapes, L = zoo_int4_shapes(c), c["num_hidden_layers"]
+        per_token = {**{n: k * L for n, k in ZOO_INT4_PER_LAYER.items()}, "lm_head": 1}
+        total({n: case(1, K, N) for n, (K, N) in shapes.items()}, per_token,
+              f"int4 one decoded token of {name} ({int4_per_forward(L)} launches)")
+        total({n: case(1024, K, N) for n, (K, N) in shapes.items() if n != "lm_head"},
+              ZOO_INT4_PER_LAYER, f"int4 one layer of {name} at M = 1024 (7 launches)")
+    return list(done.values())
 
 
 # each projection's and the head's (K, N) on one rank of the tp decoder at
@@ -1124,10 +1361,11 @@ def phase_tp_kernels(total, per_token: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 def layers_view(d: Path, dst: Path, n: int) -> Path:
-    """Model dir d (Llama-3.2-1B width) cut to its first n layers: a config
-    of n layers beside links to d's weights and tokenizer files."""
+    """Model dir d cut to its first n layers: d's config with n layers
+    beside links to d's weights and tokenizer files."""
     dst.mkdir(exist_ok=True)
-    (dst / "config.json").write_text(json.dumps({**LLAMA_1B, "num_hidden_layers": n}))
+    c = json.loads((d / "config.json").read_text())
+    (dst / "config.json").write_text(json.dumps({**c, "num_hidden_layers": n}))
     for f in ("model.safetensors", "tokenizer.json", "generation_config.json"):
         if (d / f).exists():
             (dst / f).symlink_to(d / f)
@@ -1135,18 +1373,20 @@ def layers_view(d: Path, dst: Path, n: int) -> Path:
 
 
 def write_model_dir(d: Path, seed: int = 0, c: dict = LLAMA_1B) -> None:
-    """config.json + model.safetensors of random bf16 weights for llama
+    """config.json + model.safetensors of random bf16 weights for llama-family
     config c, generated on the card from a seeded generator (N(0, 0.02);
-    norms are ones)."""
+    norms are ones), under the names models/llama.py reads: Qwen2's q/k/v
+    biases (N(0, ZOO_BIAS_STD), drawn after a layer's weights) and Phi-3's
+    fused qkv_proj and gate_up_proj (the same draws concatenated)."""
     import torch
     from kjarni_tpu_torch.weights.safetensors_loader import save_file
     hid, inter, V = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
-    qd = c["num_attention_heads"] * c["head_dim"]
-    kvd = c["num_key_value_heads"] * c["head_dim"]
+    H, Hkv, D = heads(c)
+    qd, kvd = H * D, Hkv * D
     g = torch.Generator(device="cuda").manual_seed(seed)
 
-    def rnd(*shape):
-        return (torch.randn(*shape, generator=g, device="cuda") * 0.02
+    def rnd(*shape, std=0.02):
+        return (torch.randn(*shape, generator=g, device="cuda") * std
                 ).to(torch.bfloat16).cpu()
 
     ones = torch.ones(hid, dtype=torch.bfloat16)
@@ -1155,17 +1395,23 @@ def write_model_dir(d: Path, seed: int = 0, c: dict = LLAMA_1B) -> None:
         tensors["lm_head.weight"] = rnd(V, hid)
     for i in range(c["num_hidden_layers"]):
         p = f"model.layers.{i}."
-        tensors.update({
-            p + "self_attn.q_proj.weight": rnd(qd, hid),
-            p + "self_attn.k_proj.weight": rnd(kvd, hid),
-            p + "self_attn.v_proj.weight": rnd(kvd, hid),
-            p + "self_attn.o_proj.weight": rnd(hid, qd),
-            p + "mlp.gate_proj.weight": rnd(inter, hid),
-            p + "mlp.up_proj.weight": rnd(inter, hid),
-            p + "mlp.down_proj.weight": rnd(hid, inter),
-            p + "input_layernorm.weight": ones,
-            p + "post_attention_layernorm.weight": ones,
-        })
+        w = {"q_proj": rnd(qd, hid), "k_proj": rnd(kvd, hid), "v_proj": rnd(kvd, hid),
+             "o_proj": rnd(hid, qd), "gate_proj": rnd(inter, hid),
+             "up_proj": rnd(inter, hid), "down_proj": rnd(hid, inter)}
+        if c["model_type"] == "phi3":
+            tensors.update({
+                p + "self_attn.qkv_proj.weight": torch.cat([w.pop(n) for n in
+                                                            ("q_proj", "k_proj", "v_proj")]),
+                p + "mlp.gate_up_proj.weight": torch.cat([w.pop("gate_proj"),
+                                                          w.pop("up_proj")])})
+        tensors.update({p + ("mlp." if n.endswith(("gate_proj", "up_proj", "down_proj"))
+                             else "self_attn.") + n + ".weight": t for n, t in w.items()})
+        if c["model_type"] == "qwen2":
+            tensors.update({p + f"self_attn.{n}.bias": rnd(width, std=ZOO_BIAS_STD)
+                            for n, width in (("q_proj", qd), ("k_proj", kvd),
+                                             ("v_proj", kvd))})
+        tensors.update({p + "input_layernorm.weight": ones,
+                        p + "post_attention_layernorm.weight": ones})
     d.mkdir(parents=True, exist_ok=True)
     save_file(tensors, d / "model.safetensors")
     (d / "config.json").write_text(json.dumps(c))
@@ -1251,11 +1497,13 @@ def plain_kernels(x_as_bf16: bool = False):
         kllama.flash_attention, kllama.int4_matvec = saved
 
 
-def _logits_vs_plain(lm, text: str) -> tuple[dict, object]:
+def _logits_vs_plain(lm, text: str, faults: dict | None = None) -> tuple[dict, object]:
     """The first prefill's logits through the kernels vs the same forward
     with the kernels' plain versions, on the card, both in bf16; and both
     against that forward in f32 (plain versions, f32 copies of the params).
-    Returns the stats and the kernels' logits."""
+    faults: name -> a context manager factory fault(lm) planting a fault in
+    the kernels' forward, whose logits must fall outside the f32 bound that
+    the sound forward keeps. Returns the stats and the kernels' logits."""
     import torch
     ids = lm.encode_prompt(text)
 
@@ -1288,7 +1536,18 @@ def _logits_vs_plain(lm, text: str) -> tuple[dict, object]:
     err32, _, cos32 = cmp(got, ref32)
     plain32, _, _ = cmp(ref, ref32)
     check(bool(torch.isfinite(got).all()), "prefill logits finite")
-    check(got.shape == (1, LLAMA_1B["vocab_size"]), f"logits shape {got.shape}")
+    check(got.shape == (1, lm.config.vocab_size), f"logits shape {got.shape}")
+    planted = {}
+    for name, fault in (faults or {}).items():
+        counts = _all_counts()
+        with fault(lm):
+            bad = fwd(lm.params, lm._cache_dtype)
+        _restore(counts)
+        bad_err32, _, bad_cos = cmp(bad, ref32)
+        planted[name] = {"vs_f32_max_abs_err": bad_err32, "bound": 2 * plain32,
+                         "cosine_vs_f32": bad_cos}
+        check(bad_err32 > 2 * plain32, f"planted fault {name}: vs f32 {bad_err32} falls "
+                                       f"outside the bound 2 x plain bf16 {2 * plain32}")
     # bf16 rounds in other places on the two paths (the flash kernel's bf16
     # probabilities; the int4 plain version's bf16 dequantized weights, which
     # the kernel never forms) and 16 residual layers carry that forward. So
@@ -1298,11 +1557,13 @@ def _logits_vs_plain(lm, text: str) -> tuple[dict, object]:
     check(cos > 0.995, f"prefill logits vs plain: cosine {cos} > 0.995")
     check(err32 <= 2 * plain32, f"prefill logits vs f32: kernels {err32} <= "
                                 f"2 x plain bf16 {plain32}")
-    return {"logits_max_abs_err": err, "logits_rel_err": rel, "logits_cosine": cos,
-            "kernels_vs_f32_max_abs_err": err32, "kernels_vs_f32_cosine": cos32,
-            "plain_bf16_vs_f32_max_abs_err": plain32,
-            "prefill_ms_1024": statistics.median(runs), "prefill_ms_1024_runs": runs
-            }, got.cpu()
+    stats = {"logits_max_abs_err": err, "logits_rel_err": rel, "logits_cosine": cos,
+             "kernels_vs_f32_max_abs_err": err32, "kernels_vs_f32_cosine": cos32,
+             "plain_bf16_vs_f32_max_abs_err": plain32,
+             "prefill_ms_1024": statistics.median(runs), "prefill_ms_1024_runs": runs}
+    if planted:
+        stats["faults"] = planted
+    return stats, got.cpu()
 
 
 def profile_request(gen, text: str, new_tokens: int = 16) -> dict:
@@ -1360,73 +1621,107 @@ def profile_call(fn, top: int = 8, ops: bool = True) -> dict:
                                 for e in top_ops]}
 
 
-def run_slice(model_dir: Path, quantize) -> dict:
-    """Three requests through Generator (see the module docstring), checked
-    and timed; prints one line per request and a summary line. Returns the
-    summary, with the first prefill's logits ("logits", not printed) and the
+def run_slice(model_dir: Path, quantize=None, dtype: str = "auto", new_tokens: int = 64,
+              faults: tuple = (), engine: bool = False, profile: bool = True) -> dict:
+    """Three requests through Generator (see the module docstring, phases 3
+    and 19), checked and timed; prints one line per request and a summary
+    line. The model's depth and vocabulary come from its config. dtype="f32":
+    the first prefill's logits held by _f32_logits_vs_plain; new_tokens: the
+    generate and follow-up requests' greedy tokens; faults: zoo_fault names
+    that must read outside the logits bound; engine: then one ContinuousEngine
+    pass (zoo_engine); profile: a profiled request. Returns the summary, with
+    the first prefill's logits ("logits", not printed; None in f32) and the
     follow-up's prompt and generated ids ("follow_ids", "follow_out")."""
     import torch
     from kjarni_tpu_torch import Generator
     from kjarni_tpu_torch.models import decoder_lm
+    from kjarni_tpu_torch.models import llama as kllama
     from kjarni_tpu_torch.generate.sampling import GenerationConfig
-    from kjarni_tpu_torch.ops.kernels.flash_attention import flash_attention
-    from kjarni_tpu_torch.ops.kernels.int4_matvec import int4_matvec
-    tag = quantize or "bf16"
+    f32 = dtype == "f32"
+    tag = " ".join(filter(None, ["f32" if f32 else None, quantize])) or "bf16"
     t0 = time.perf_counter()
-    gen = Generator(str(model_dir), quantize=quantize)
+    gen = Generator(str(model_dir), quantize=quantize, dtype=dtype)
     lm = gen.lm
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    check(lm.device.type == "cuda" and lm._flash_ok, "model on the card")
-    a, b = _prompt(700, 1), _prompt(600, 2)
-    stats, logits = _logits_vs_plain(lm, a)
+    check(lm.device.type == "cuda" and lm._flash_ok, f"{tag}: model on the card, flash on")
+    L = lm.config.num_layers
+    hi = min(120000, lm.config.vocab_size)
+    a, b = _prompt(700, 1, hi), _prompt(600, 2, hi)
+    if f32:
+        stats, logits = _f32_logits_vs_plain(lm, a, tag), None
+    else:
+        stats, logits = _logits_vs_plain(lm, a, {f: functools.partial(zoo_fault, name=f)
+                                                 for f in faults})
+        if quantize == "int4":
+            stats.update(_int4_teacher_forced(lm, lm.encode_prompt(a), tag))
     torch.cuda.reset_peak_memory_stats()
 
-    def request(name, fn, text, expect_flash):
-        f0, i0 = flash_attention.launches, int4_matvec.launches
+    def request(name, fn, text, expect_flash, shape):
+        """fn(text) with its launches counted (expect_flash on the dtype's
+        flash kernel, each call of (S, T, q_offset, kv_len) `shape`; under
+        int4 int4_per_forward per forward) and its greedy tokens held within
+        SERVE_TIE_BAND of a teacher-forced plain forward."""
+        c0, shapes, real = _all_counts(), [], kllama.flash_attention
+
+        def spy(q, k, v, **kw):
+            shapes.append((q.shape[2], k.shape[2], kw.get("q_offset", 0), kw.get("kv_len")))
+            return real(q, k, v, **kw)
         n_before = len(lm._session_ids)
-        n_prompt = len(lm.encode_prompt(text))
+        ids = lm.encode_prompt(text)
+        kllama.flash_attention = spy
         torch.cuda.synchronize()
         t = time.perf_counter()
-        fn(text)
+        try:
+            fn(text)
+        finally:
+            kllama.flash_attention = real
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
-        out_ids = lm._session_ids[n_prompt:]
-        flash_n = flash_attention.launches - f0
-        int4_n = int4_matvec.launches - i0
-        check(flash_n == expect_flash,
-              f"{tag} {name}: {flash_n} flash launches, expected {expect_flash}")
-        if quantize == "int4":
-            want = INT4_PER_FORWARD * (1 + len(out_ids))
-            check(int4_n == want, f"{tag} {name}: {int4_n} int4 launches, "
-                                  f"expected {want}")
-        else:
-            check(int4_n == 0, f"{tag} {name}: no int4 launches")
+        out_ids = lm._session_ids[len(ids):]
+        flash_n, int4_n, f32_n = (x - y for x, y in zip(_all_counts(), c0))
+        want = (0, expect_flash) if f32 else (expect_flash, 0)
+        check((flash_n, f32_n) == want, f"{tag} {name}: (flash, f32 flash) launches "
+                                        f"{(flash_n, f32_n)}, expected {want}")
+        want4 = int4_per_forward(L) * (1 + len(out_ids)) if quantize == "int4" else 0
+        check(int4_n == want4, f"{tag} {name}: {int4_n} int4 launches, expected {want4}")
+        check(shapes == [shape] * expect_flash, f"{tag} {name}: flash calls {set(shapes)}, "
+                                                f"expected {expect_flash} of {shape}")
         check(len(out_ids) > 0, f"{tag} {name}: generated tokens")
-        row = {"request": f"{tag} {name}", "prompt_tokens": n_prompt,
+        P = len(ids)
+        ref = _teacher_forced(lm, ids + out_ids, list(range(P - 1, P + len(out_ids) - 1)))
+        margin = max(_margins(ref, out_ids))
+        check(margin <= SERVE_TIE_BAND, f"{tag} {name}: greedy tokens within "
+                                        f"{SERVE_TIE_BAND} of the teacher-forced maximum "
+                                        f"({margin})")
+        row = {"request": f"{tag} {name}", "prompt_tokens": P,
                "prefilled_tokens": lm.last_prefill_tokens,
                "new_tokens": len(out_ids), "seconds": secs,
-               "tok_per_s": len(out_ids) / secs, "flash_launches": flash_n,
-               "int4_launches": int4_n, "session_before": n_before}
+               "tok_per_s": len(out_ids) / secs, "flash_launches": flash_n + f32_n,
+               "int4_launches": int4_n, "session_before": n_before,
+               "flash_shape": list(shape) if expect_flash else None,
+               "max_margin": [margin, SERVE_TIE_BAND]}
         print(json.dumps(row))
         return row
 
-    greedy = GenerationConfig.greedy(max_new_tokens=64, max_length=4096)
+    greedy = GenerationConfig.greedy(max_new_tokens=new_tokens, max_length=4096)
     out1 = {}
 
     def generate(text):
         out1["text"] = gen.generate(text, config=greedy)
 
-    r1 = request("generate 700", generate, a, FLASH_PER_PREFILL)
-    follow = f"{a} {out1['text']} {_prompt(600, 3)}"
+    prefill = (1024, 1024, 0, None)
+    r1 = request("generate 700", generate, a, L, prefill)
+    follow = f"{a} {out1['text']} {_prompt(600, 3, hi)}"
     # a checkout without the measured gate keeps the follow-up off flash
     reuse_flash = hasattr(decoder_lm, "REUSE_FLASH_MIN_SCORE_BYTES")
-    r2 = request("follow-up reuse", generate, follow,
-                 FLASH_PER_PREFILL if reuse_flash else 0)
+    off = r1["prompt_tokens"] + r1["new_tokens"]
+    r2 = request("follow-up reuse", generate, follow, L if reuse_flash else 0,
+                 (1024, 1792, off, off + 1024))
     follow_ids = lm.encode_prompt(follow)
     follow_out = lm._session_ids[len(follow_ids):]
-    check(r2["prefilled_tokens"] == r2["prompt_tokens"] - r1["prompt_tokens"]
-          - r1["new_tokens"], "follow-up prefilled only its new suffix")
+    check(r2["prefilled_tokens"] == r2["prompt_tokens"] - off,
+          f"{tag}: the follow-up prefilled only its new suffix")
     stream_cfg = GenerationConfig.greedy(max_new_tokens=32, max_length=4096)
     first = {}
 
@@ -1441,18 +1736,24 @@ def run_slice(model_dir: Path, quantize) -> dict:
         first["decode_s"] = time.perf_counter() - first["t"]
 
     t_req = time.perf_counter()
-    r3 = request("stream 600", stream, b, FLASH_PER_PREFILL)
+    r3 = request("stream 600", stream, b, L, prefill)
     ttft_ms = 1e3 * (first["t"] - t_req)
     decode_tps = (r3["new_tokens"] - 1) / first["decode_s"]
-    prof = profile_request(gen, _prompt(600, 4))
+    prof = profile_request(gen, _prompt(600, 4, hi)) if profile else {}
     summary = {"slice": tag, "load_s": load_s, **stats, **prof,
                "stream_ttft_ms": ttft_ms, "stream_decode_tok_per_s": decode_tps,
+               "max_margin": [max(r["max_margin"][0] for r in (r1, r2, r3)), SERVE_TIE_BAND],
+               "flash_launches": sum(r["flash_launches"] for r in (r1, r2, r3)),
+               "int4_launches": sum(r["int4_launches"] for r in (r1, r2, r3)),
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     print(json.dumps(summary))
+    if engine:
+        summary["engine"] = zoo_engine(lm, tag)
     del gen, lm
+    gc.collect()
     torch.cuda.empty_cache()
     return {**summary, "logits": logits, "follow_ids": follow_ids,
-            "follow_out": follow_out}
+            "follow_out": follow_out, "reuse_offset": off}
 
 
 def _counted(name: str, fn, *args):
@@ -1702,8 +2003,8 @@ def phase_int8(d: Path, bf16: dict | None) -> None:
     secs = time.perf_counter() - t
     flash_n, int4_n = _counts()[0] - f0, _counts()[1] - i0
     out = lm._session_ids[len(s8["follow_ids"]):]
-    check(flash_n == FLASH_PER_PREFILL,
-          f"int8 KV follow-up: {flash_n} flash launches, expected {FLASH_PER_PREFILL}")
+    check(flash_n == lm.config.num_layers, f"int8 KV follow-up: {flash_n} flash launches, "
+                                           f"expected {lm.config.num_layers}")
     check(int4_n == 0, "int8 KV follow-up: no int4 launches")
     check(common >= 16 and lm.last_prefill_tokens == len(s8["follow_ids"]) - common,
           f"int8 KV follow-up prefilled only its suffix ({lm.last_prefill_tokens} of "
@@ -1822,7 +2123,7 @@ def run_batch(gen, prompts: list, cfg, tag: str) -> dict:
     new = sum(len(t.split()) for t in texts)
     forwards = int(lm._batch_prefix_len > 0) + 1 + lm.last_batch_steps
     check(flash_n == 0, f"{tag}: no flash launches in the padded batch ({flash_n})")
-    want = INT4_PER_FORWARD * forwards if "int4" in tag else 0
+    want = int4_per_forward(lm.config.num_layers) * forwards if "int4" in tag else 0
     check(int4_n == want, f"{tag}: {int4_n} int4 launches, expected {want}")
     check(new > 0, f"{tag}: generated tokens")
     row = {"batch": tag, "B": len(prompts), "prefix_len": lm._batch_prefix_len,
@@ -2053,8 +2354,8 @@ def phase_chat(src: Path, d: Path) -> None:
         common = _common_prefix(before, prompt)
         reused = common if common >= lm._min_reuse_prefix else 0
         check(n > 0, f"chat turn {turn}: a reply")
-        check(flash_n == FLASH_PER_PREFILL and int4_n == 0,
-              f"chat turn {turn}: {flash_n} flash launches, expected {FLASH_PER_PREFILL}")
+        check(flash_n == lm.config.num_layers and int4_n == 0,
+              f"chat turn {turn}: {flash_n} flash launches, expected {lm.config.num_layers}")
         check(lm.last_prefill_tokens == len(prompt) - reused,
               f"chat turn {turn}: prefilled {lm.last_prefill_tokens} of {len(prompt)} "
               f"with {reused} cached")
@@ -2189,7 +2490,7 @@ SERVE_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9, min_p=0.0)
 # greedy request's admission row and first SERVE_CHECK_STEPS decode rows
 # against the same forward.
 SERVE_TIE_BAND = 0.5
-SERVE_LAYERS = 8            # the served model's depth here: full width, cut depth
+SERVE_LAYERS = 4            # the served model's depth here: full width, cut depth
 SERVE_CHECK_STEPS = 4
 SERVE_FAULTS = ("decode_at_pos_minus_1", "admission_scatter_permuted",
                 "flash_wave_q_offset_0")
@@ -2447,7 +2748,7 @@ def serve_engine(d: Path, quantize) -> dict:
     check(flash_n == layers * a["probe"].modes.get("flash", 0),
           f"{tag} engine: {flash_n} flash launches, {layers} per flash wave")
     forwards = 1 + eng.stats["admission_waves"] + a["probe"].steps
-    want4 = (7 * layers + 1) * forwards if quantize == "int4" else 0
+    want4 = int4_per_forward(layers) * forwards if quantize == "int4" else 0
     check(int4_n == want4, f"{tag} engine: {int4_n} int4 launches, expected {want4}")
     if quantize == "int4":
         check(shapes.get(SERVE_SLOTS, 0) > 0 and shapes.get(8 * 2048, 0) > 0,
@@ -2731,16 +3032,16 @@ def write_gguf_file(path: Path, tensors: dict, metadata: dict) -> None:
 
 
 def q8_0(w):
-    """Q8_0 blocks of f32 w (numpy, rows of a multiple of 32): (raw bytes,
-    the dequantized f32 values as a reader computes them, f16 scale times
-    int8)."""
-    import numpy as np
+    """Q8_0 blocks of f32 tensor w (rows of a multiple of 32), computed on
+    w's device: (raw bytes, the dequantized f32 values on the CPU as a reader
+    computes them, f16 scale times int8)."""
+    import torch
     blocks = w.reshape(-1, 32)
-    d = (np.abs(blocks).max(axis=1, keepdims=True) / 127.0).astype(np.float16)
+    d = (blocks.abs().amax(dim=1, keepdim=True) / 127.0).half()
     d[d == 0] = 1.0
-    q = np.clip(np.round(blocks / d.astype(np.float32)), -127, 127).astype(np.int8)
-    raw = np.concatenate([d.view(np.uint8), q.view(np.uint8)], axis=1)
-    return raw.tobytes(), (d.astype(np.float32) * q.astype(np.float32)).reshape(w.shape)
+    q = torch.round(blocks / d.float()).clamp(-127, 127).to(torch.int8)
+    raw = torch.cat([d.view(torch.uint8), q.view(torch.uint8)], dim=1)
+    return raw.cpu().numpy().tobytes(), (d.float() * q.float()).reshape(w.shape).cpu()
 
 
 def gguf_bpe_metadata(vocab: int) -> dict:
@@ -2752,7 +3053,9 @@ def gguf_bpe_metadata(vocab: int) -> dict:
     syms = list(bytes_to_unicode().values())
     n_plain = LLAMA3_SPECIALS["<|begin_of_text|>"]
     pairs = [(a, b) for a in syms for b in syms]                 # 65,536
-    merges = (pairs + [(a + b, c) for a, b in pairs for c in syms])[:n_plain - len(syms)]
+    merges = list(itertools.islice(itertools.chain(pairs, ((a + b, c) for a, b in pairs
+                                                           for c in syms)),
+                                   n_plain - len(syms)))
     specials = [f"<|reserved_special_token_{i}|>" for i in range(vocab - n_plain)]
     specials[0], specials[1] = "<|begin_of_text|>", "<|end_of_text|>"
     tokens = syms + [a + b for a, b in merges] + specials
@@ -2778,6 +3081,7 @@ def serve_gguf(tmp: Path) -> dict:
     qd, kvd = c["num_attention_heads"] * c["head_dim"], c["num_key_value_heads"] * c["head_dim"]
     t0 = time.perf_counter()
     rng = np.random.default_rng(11)
+    gw = torch.Generator(device="cuda").manual_seed(11)
     md = {"general.architecture": "llama", "llama.block_count": L,
           "llama.embedding_length": H, "llama.feed_forward_length": I_,
           "llama.attention.head_count": c["num_attention_heads"],
@@ -2788,13 +3092,13 @@ def serve_gguf(tmp: Path) -> dict:
     tensors, dense = {}, {}
 
     def add(gname, hname, out_f, in_f):
-        w = (rng.standard_normal((out_f, in_f), dtype=np.float32) * 0.02)
-        raw, deq = q8_0(w)
+        raw, deq = q8_0(torch.randn(out_f, in_f, generator=gw, device="cuda") * 0.02)
         tensors[gname], dense[hname] = ([in_f, out_f], 8, raw), deq
 
-    ones = np.ones(H, np.float32)
+    ones = torch.ones(H)
     add("token_embd.weight", "model.embed_tokens.weight", V, H)
-    tensors["output_norm.weight"], dense["model.norm.weight"] = ([H], 0, ones.tobytes()), ones
+    norm = ([H], 0, ones.numpy().tobytes())
+    tensors["output_norm.weight"], dense["model.norm.weight"] = norm, ones
     for i in range(L):
         g, h = f"blk.{i}.", f"model.layers.{i}."
         for gn, hn, o, n in (("attn_q", "self_attn.q_proj", qd, H),
@@ -2806,13 +3110,12 @@ def serve_gguf(tmp: Path) -> dict:
             add(g + gn + ".weight", h + hn + ".weight", o, n)
         for gn, hn in (("attn_norm", "input_layernorm"),
                        ("ffn_norm", "post_attention_layernorm")):
-            tensors[g + gn + ".weight"], dense[h + hn + ".weight"] = \
-                ([H], 0, ones.tobytes()), ones
+            tensors[g + gn + ".weight"], dense[h + hn + ".weight"] = norm, ones
     gd, sd = tmp / "llama-1b-width-2-layers-gguf", tmp / "llama-1b-width-2-layers-st"
     gd.mkdir()
     sd.mkdir()
     write_gguf_file(gd / "model.gguf", tensors, md)
-    save_file({k: torch.from_numpy(v) for k, v in dense.items()}, sd / "model.safetensors")
+    save_file(dense, sd / "model.safetensors")
     (sd / "config.json").write_text(json.dumps(GgufWeights(gd / "model.gguf").hf_config()))
     write_tokenizer(sd / "tokenizer.json", V)
     del tensors, dense
@@ -2906,6 +3209,13 @@ WHISPER_SMALL = {
     "max_source_positions": 1500, "max_target_positions": 448, "bos_token_id": 50257,
     "eos_token_id": 50257, "pad_token_id": 50257, "decoder_start_token_id": 50258,
 }
+WHISPER_LARGE_V3 = {   # openai/whisper-large-v3 (phase 19: the decoder's first 4 layers)
+    **WHISPER_SMALL, "vocab_size": 51866, "d_model": 1280, "encoder_layers": 32,
+    "decoder_layers": 32, "encoder_attention_heads": 20, "decoder_attention_heads": 20,
+    "encoder_ffn_dim": 5120, "decoder_ffn_dim": 5120, "num_mel_bins": 128,
+    "pad_token_id": 50256,
+}
+WHISPER_LARGE_V3_DECODER_LAYERS = 4
 # (registry name, public source, config, special tokens {text: id}, post-processor)
 SEQ2SEQ = (
     ("distilbart-cnn", "sshleifer/distilbart-cnn-12-6", DISTILBART_CNN,
@@ -3389,14 +3699,18 @@ def phase_seq2seq() -> list:
     return rows
 
 
-def whisper_specials() -> dict:
-    """Whisper's special tokens at their fixed ids (whisper-small's vocabulary)."""
+def whisper_specials(languages: int = len(WHISPER_LANGUAGES)) -> dict:
+    """Whisper's special tokens at their fixed ids: whisper-small's 99
+    languages, or large-v3's 100 (<|yue|> added), which move every id after
+    them up by one."""
+    langs = (*WHISPER_LANGUAGES, "yue")[:languages]
     sp = {"<|endoftext|>": 50257, "<|startoftranscript|>": 50258}
-    sp.update({f"<|{lang}|>": 50259 + i for i, lang in enumerate(WHISPER_LANGUAGES)})
-    sp.update({"<|translate|>": 50358, "<|transcribe|>": 50359, "<|startoflm|>": 50360,
-               "<|startofprev|>": 50361, "<|nocaptions|>": 50362,
-               "<|notimestamps|>": 50363})
-    sp.update({f"<|{0.02 * i:.2f}|>": 50364 + i for i in range(1501)})
+    sp.update({f"<|{lang}|>": 50259 + i for i, lang in enumerate(langs)})
+    after = ("<|translate|>", "<|transcribe|>", "<|startoflm|>", "<|startofprev|>",
+             "<|nocaptions|>", "<|notimestamps|>")
+    sp.update({t: 50259 + len(langs) + i for i, t in enumerate(after)})
+    ts = 50259 + len(langs) + len(after)
+    sp.update({f"<|{0.02 * i:.2f}|>": ts + i for i in range(1501)})
     return sp
 
 
@@ -4359,9 +4673,10 @@ def _plan_ok(st: dict) -> bool:
 
 
 def _plan_request(gen, text: str, tag: str, flash_want: int | None,
-                  int4_per_forward: int = 0) -> dict:
-    """One greedy generate of INFRA_NEW_TOKENS, its launches checked; returns
-    the prompt and generated ids and the seconds."""
+                  int4: bool = False) -> dict:
+    """One greedy generate of INFRA_NEW_TOKENS, its launches checked (int4:
+    int4_per_forward per forward); returns the prompt and generated ids and
+    the seconds."""
     import torch
     from kjarni_tpu_torch.generate.sampling import GenerationConfig
     lm = gen.lm
@@ -4377,8 +4692,9 @@ def _plan_request(gen, text: str, tag: str, flash_want: int | None,
     flash_n, int4_n = _counts()[0] - f0, _counts()[1] - i0
     if flash_want is not None:
         check(flash_n == flash_want, f"{tag}: {flash_n} flash launches, expected {flash_want}")
-    check(int4_n == int4_per_forward * (1 + len(out)),
-          f"{tag}: {int4_n} int4 launches, expected {int4_per_forward} per forward")
+    per = int4_per_forward(lm.config.num_layers) if int4 else 0
+    check(int4_n == per * (1 + len(out)),
+          f"{tag}: {int4_n} int4 launches, expected {per} per forward")
     check(len(out) > 0, f"{tag}: generated tokens")
     return {"ids": ids, "out": out, "seconds": secs, "flash": flash_n, "int4": int4_n}
 
@@ -4481,11 +4797,11 @@ def phase_infra(d: Path, tmp: Path) -> dict:
         check(not _plan_ok(bad), f"the {name} fault fails the logits check: {bad}")
         faults[name] = bad
     _restore(counts)
-    req = _plan_request(off, text, "offload_ends", FLASH_PER_PREFILL)
+    req = _plan_request(off, text, "offload_ends", off.lm.config.num_layers)
     margin = _tie_band(dev.lm, req)
     check(margin <= SERVE_TIE_BAND, f"offload_ends greedy tokens within the tie band "
                                     f"of the device plan: {margin}")
-    dev_req = _plan_request(dev, text, "device plan", FLASH_PER_PREFILL)
+    dev_req = _plan_request(dev, text, "device plan", dev.lm.config.num_layers)
     x = torch.randn(1, LLAMA_1B["hidden_size"], dtype=torch.bfloat16, device="cuda")
     tok = torch.tensor([[12345]], device="cuda")
     row["bf16"] = {
@@ -4510,8 +4826,8 @@ def phase_infra(d: Path, tmp: Path) -> dict:
     emb4 = Generator(str(d), quantize="int4", execution_plan="offload_embeddings")
     check(emb4.lm.config.embed_on_host and not emb4.lm.config.lm_head_on_host,
           "offload_embeddings in int4: the table on the host, the head on the card")
-    req4 = _plan_request(emb4, text, "int4 offload_embeddings", FLASH_PER_PREFILL,
-                         INT4_PER_FORWARD)
+    req4 = _plan_request(emb4, text, "int4 offload_embeddings", emb4.lm.config.num_layers,
+                         int4=True)
     margin4 = _tie_band(dev4.lm, req4)
     check(margin4 <= SERVE_TIE_BAND, f"int4 offload_embeddings tokens within the tie "
                                      f"band of the device plan: {margin4}")
@@ -4578,22 +4894,32 @@ F32_TIE = 1e-4          # a card / CPU greedy parting is allowed only below this
 F32_LOGITS_REL = 1e-4
 
 
-def _int4_teacher_forced(lm, ids: list, tag: str) -> dict:
-    """Each int4 launch of a full-depth f32 prefill, held on its own input,
-    and the cause of the forward's end-to-end drift.
+# bf16 int4 launches held one by one on their own input: the card tests'
+# int4 check against the plain version evaluated in f32
+INT4_BF16_REL, INT4_BF16_COS = 2e-2, 0.999
 
-    The plain forward in the kernels' form (plain_kernels(x_as_bf16=True))
-    first keeps every int4 input rounded to bf16. The kernels' forward then
-    holds each int4 launch, on the x it was given, to the plain version in
-    that form with _int4_f32_close (INT4_F32_REF_TOL, and the bf16-store
-    control outside it), and counts the elements whose bf16 rounding differs
-    from the plain forward's at the same call: none at the first call (the
-    same embedding and norm), then more with depth, as the f32 sums' order
-    differs upstream."""
+
+def _int4_teacher_forced(lm, ids: list, tag: str) -> dict:
+    """Each int4 launch of a full-depth prefill, held on its own input.
+
+    bf16: against int4_matvec_plain evaluated in f32, max error within
+    INT4_BF16_REL of the largest plain output and cosine above
+    INT4_BF16_COS.
+
+    f32: and the cause of the forward's end-to-end drift. The plain forward
+    in the kernels' form (plain_kernels(x_as_bf16=True)) first keeps every
+    int4 input rounded to bf16. The kernels' forward then holds each int4
+    launch, on the x it was given, to the plain version in that form with
+    _int4_f32_close (INT4_F32_REF_TOL, and the bf16-store control outside
+    it), and counts the elements whose bf16 rounding differs from the plain
+    forward's at the same call: none at the first call (the same embedding
+    and norm), then more with depth, as the f32 sums' order differs
+    upstream."""
     import torch
     from kjarni_tpu_torch.models import llama as kllama
     from kjarni_tpu_torch.ops.kernels import int4_matvec as i4
     kernel = kllama.int4_matvec
+    f32 = lm._cache_dtype == torch.float32
     kept, calls = [], []
 
     def keep(x, w4, scale):
@@ -4602,8 +4928,13 @@ def _int4_teacher_forced(lm, ids: list, tag: str) -> dict:
 
     def held(x, w4, scale):
         out = kernel(x, w4, scale)
-        ref = i4.int4_matvec_plain(x, w4, scale, x_as_bf16=True)
         i = len(calls)
+        if not f32:
+            ref = i4.int4_matvec_plain(x.float(), w4, scale)
+            calls.append({"rel": (out.float() - ref).abs().max().item()
+                          / ref.abs().max().item(), "cos": _cosine(out, ref)})
+            return out
+        ref = i4.int4_matvec_plain(x, w4, scale, x_as_bf16=True)
         row = _int4_f32_close(f"{tag} teacher-forced int4 call {i}", out, ref)
         xb = x.to(torch.bfloat16)
         row["flips"] = int((xb != kept[i]).sum().item()) if i < len(kept) and \
@@ -4612,9 +4943,10 @@ def _int4_teacher_forced(lm, ids: list, tag: str) -> dict:
         calls.append(row)
         return out
 
-    with plain_kernels(x_as_bf16=True):
-        kllama.int4_matvec = keep
-        prefill_logits(lm, ids)
+    if f32:
+        with plain_kernels(x_as_bf16=True):
+            kllama.int4_matvec = keep
+            prefill_logits(lm, ids)
     counts = _all_counts()
     kllama.int4_matvec = held
     try:
@@ -4622,21 +4954,30 @@ def _int4_teacher_forced(lm, ids: list, tag: str) -> dict:
     finally:
         kllama.int4_matvec = kernel
         _restore(counts)
-    check(len(calls) == len(kept) == INT4_PER_FORWARD,
-          f"{tag} teacher-forced: {len(calls)} int4 calls, {len(kept)} kept, "
-          f"expected {INT4_PER_FORWARD}")
+    L = lm.config.num_layers
+    want = int4_per_forward(L)
+    check(len(calls) == want and (not f32 or len(kept) == want),
+          f"{tag} teacher-forced: {len(calls)} int4 calls, {len(kept)} kept, expected {want}")
+    if not f32:
+        rel, cos = max(c["rel"] for c in calls), min(c["cos"] for c in calls)
+        check(rel <= INT4_BF16_REL and cos > INT4_BF16_COS,
+              f"{tag} teacher-forced: every int4 launch within {INT4_BF16_REL} of the plain "
+              f"output's largest value ({rel}) at cosine > {INT4_BF16_COS} ({cos})")
+        out = {"teacher_forced_calls": len(calls), "int4_max_err_share": [rel, INT4_BF16_REL],
+               "int4_min_cosine": [cos, INT4_BF16_COS]}
+        print(json.dumps({"case": f"{tag} teacher-forced", **out}))
+        return out
     check(calls[0]["flips"] == 0, f"{tag} teacher-forced: the first int4 input rounds "
                                   f"alike in both forwards ({calls[0]['flips']} flips)")
-    per = INT4_PER_FORWARD // LLAMA_1B["num_hidden_layers"]
-    flips = [sum(c["flips"] for c in calls[i:i + per]) / sum(c["elements"]
-                                                              for c in calls[i:i + per])
-             for i in range(0, per * LLAMA_1B["num_hidden_layers"], per)]
+    flips = [sum(c["flips"] for c in calls[i:i + 7]) / sum(c["elements"]
+                                                            for c in calls[i:i + 7])
+             for i in range(0, 7 * L, 7)]
     out = {"teacher_forced_calls": len(calls),
            "teacher_forced_err_over_tol": max(c["max_abs_err"] / c["tol"] for c in calls),
            "teacher_forced_control_over_tol": min(c["bf16_store_control_err"] / c["tol"]
                                                   for c in calls),
            "x_bf16_flip_share_by_layer": flips}
-    print(json.dumps({"case": f"{tag} int4 teacher-forced", **out}))
+    print(json.dumps({"case": f"{tag} teacher-forced", **out}))
     del kept
     return out
 
@@ -4676,7 +5017,7 @@ def _f32_logits_vs_plain(lm, text: str, tag: str) -> dict:
     out = {"logits_max_abs_err": err, "logits_rel_err": rel,
            "logits_cosine": _cosine(got, ref),
            "prefill_ms_1024": statistics.median(runs), "prefill_ms_1024_runs": runs}
-    check(bool(torch.isfinite(got).all()) and got.shape == (1, LLAMA_1B["vocab_size"]),
+    check(bool(torch.isfinite(got).all()) and got.shape == (1, lm.config.vocab_size),
           f"{tag}: finite logits of shape {tuple(got.shape)}")
     if "int4" not in tag:
         check(rel <= F32_LOGITS_REL, f"{tag} prefill logits vs plain: {rel} of the "
@@ -4732,10 +5073,11 @@ def f32_request(d: Path, quantize) -> dict:
         n_new = len(lm._session_ids) - n_prompt
         got = (flash_attention.launches - before[0], flash_attention.launches_f32 - before[1],
                int4_matvec.launches - before[2])
-        want_int4 = INT4_PER_FORWARD * (1 + n_new) if quantize == "int4" else 0
-        check(n_new > 0 and got == (0, FLASH_PER_PREFILL, want_int4),
+        L = lm.config.num_layers
+        want_int4 = int4_per_forward(L) * (1 + n_new) if quantize == "int4" else 0
+        check(n_new > 0 and got == (0, L, want_int4),
               f"{tag} {name}: launches (bf16 flash, f32 flash, int4) {got}, expected "
-              f"(0, {FLASH_PER_PREFILL}, {want_int4})")
+              f"(0, {L}, {want_int4})")
         row = {"request": f"{tag} {name}", "prompt_tokens": n_prompt, "new_tokens": n_new,
                "seconds": end - t, "flash_f32_launches": got[1], "int4_launches": got[2]}
         if first is not None:
@@ -5182,7 +5524,7 @@ def _par_tp(model: str, quantize, prompt: str) -> dict:
     flash_n, int4_n = _all_counts()[0] - f0, _all_counts()[1] - i0
     layers = lm.config.num_layers
     check(flash_n == layers, f"tp: {flash_n} flash launches on a rank's prefill")
-    want = (7 * layers + 1) * (1 + len(out)) if quantize == "int4" else 0
+    want = int4_per_forward(layers) * (1 + len(out)) if quantize == "int4" else 0
     check(int4_n == want, f"tp: {int4_n} int4 launches on a rank, expected {want}")
     counts = _all_counts()
     times = []
@@ -5963,11 +6305,264 @@ def phase_train(d: Path, tmp: Path) -> dict:
     print(json.dumps(row))
     return row
 
+# ---------------------------------------------------------------------------
+# phase 19: the model zoo's decoders and whisper-large-v3
+# ---------------------------------------------------------------------------
+
+ZOO_FAULTS = ("kv_heads_rolled", "qkv_bias_dropped", "longrope_long_factors")
+
+
+@contextlib.contextmanager
+def zoo_fault(lm, name: str):
+    """Within the block one ZOO_FAULTS fault is planted in decoder lm's
+    forward: its flash calls given k and v rolled by one KV head (each group
+    of query heads attends another group's K/V: a wrong head map in the
+    kernel's fold), Qwen2's q/k/v biases dropped, or Phi-3's rope tables
+    built with the long factors where the cache's length (the original
+    window, 4,096) takes the short ones."""
+    import torch
+    from kjarni_tpu_torch.models import llama as kllama
+    saved = kllama.flash_attention, lm.params
+    if name == "kv_heads_rolled":
+        real = kllama.flash_attention
+        kllama.flash_attention = lambda q, k, v, **kw: real(q, k.roll(1, 1), v.roll(1, 1),
+                                                            **kw)
+    elif name == "qkv_bias_dropped":
+        layers = {n: ({k: t for k, t in e.items() if k != "b"} if n in ("q", "k", "v") else e)
+                  for n, e in lm.params["layers"].items()}
+        check(all("b" in lm.params["layers"][n] for n in ("q", "k", "v")),
+              "qkv_bias_dropped: the model has q/k/v biases")
+        lm.params = {**lm.params, "layers": layers}
+    else:
+        cfg = lm.config
+        check(cfg.longrope_long_factor is not None, "longrope_long_factors: a longrope model")
+        swapped = dataclasses.replace(cfg, longrope_short_factor=cfg.longrope_long_factor)
+        cos, sin = (torch.from_numpy(t).to(lm.device)
+                    for t in kllama.rope_cache(swapped, lm.max_context))
+        check(not torch.equal(cos, lm.params["rope_cos"]), "the long factors' tables differ")
+        lm.params = {**lm.params, "rope_cos": cos, "rope_sin": sin}
+    try:
+        yield
+    finally:
+        kllama.flash_attention, lm.params = saved
+
+
+def zoo_engine(lm, tag: str) -> dict:
+    """One ContinuousEngine pass of 8 greedy requests in two bursts after a
+    256-token system prompt, the admission gate at 1 byte so that every
+    wave takes the flash plan (lanes at q_offset 256): flash launches, and
+    every token within the tie band of a teacher-forced plain forward."""
+    bos = len(lm.encode_prompt("w5")) - 1
+    system = _prompt(SERVE_SYSTEM - bos, 100, lm.config.vocab_size)
+    small = [[(200 + 100 * i, 8, False) for i in range(4)],
+             [(150 + 120 * i, 8, False) for i in range(4)]]
+    c0 = _counts()
+    run = run_engine(lm, system, small, seed=500, capture=True, score_limit=1)
+    flash_n, int4_n = (a - b for a, b in zip(_counts(), c0))
+    waves = run["eng"].stats["admission_waves"]
+    check(set(run["probe"].modes) == {"flash"} and flash_n == lm.config.num_layers * waves,
+          f"{tag} engine: every wave on flash ({run['probe'].modes}), {flash_n} launches, "
+          f"{lm.config.num_layers} per wave x {waves}")
+    held = hold_engine_rows(lm, run)
+    check(held["max_margin"] <= SERVE_TIE_BAND, f"{tag} engine: tokens within "
+                                                f"{SERVE_TIE_BAND} ({held['max_margin']})")
+    return {"requests": len(run["done"]), "admission_waves": waves, "seconds": run["seconds"],
+            "tok_per_s": run["tok_per_s"], "flash_launches": flash_n,
+            "int4_launches": int4_n, "max_margin": [held["max_margin"], SERVE_TIE_BAND],
+            "min_cosine": held["min_cosine"], "tokens": held["tokens"]}
+
+
+# the readings of a run_slice summary that phase 19's line per model keeps
+ZOO_KEYS = ("load_s", "prefill_ms_1024", "stream_ttft_ms", "stream_decode_tok_per_s",
+            "peak_mem_gb", "logits_cosine", "kernels_vs_f32_max_abs_err",
+            "plain_bf16_vs_f32_max_abs_err", "logits_rel_err", "max_margin", "faults",
+            "int4_max_err_share", "int4_min_cosine", "flash_launches", "int4_launches",
+            "engine")
+
+
+def run_zoo_family(name: str, src: str, c: dict, depth: int, tmp: Path, seed: int) -> dict:
+    """Write one ZOO decoder's dir (full width, `depth` layers, random bf16
+    weights from `seed`, a word-level tokenizer over its vocabulary), run it
+    through run_slice in bf16 and int4 (Qwen2.5-0.5B also in f32 and through
+    the engine), print its line and delete the dir."""
+    import shutil
+    d = tmp / name
+    t0 = time.perf_counter()
+    write_model_dir(d, seed, {**c, "num_hidden_layers": depth})
+    write_tokenizer(d / "tokenizer.json", c["vocab_size"])
+    H, Hkv, D = heads(c)
+    row = {"zoo": name, "source": src, "layers": f"{depth} of {c['num_hidden_layers']}",
+           "H": H, "Hkv": Hkv, "G": H // Hkv, "D": D, "write_s": time.perf_counter() - t0,
+           "gb": (d / "model.safetensors").stat().st_size / 1e9}
+    first = name == ZOO[0][0]
+    faults = {ZOO[0][0]: ("kv_heads_rolled", "qkv_bias_dropped"),
+              "phi3.5-mini": ("longrope_long_factors",)}.get(name, ())
+    slices = {"bf16": dict(faults=faults, engine=first), "int4": dict(quantize="int4")}
+    if first:
+        slices["f32"] = dict(dtype="f32")
+    for tag, kw in slices.items():
+        got = run_slice(d, new_tokens=ZOO_NEW_TOKENS, profile=False, **kw)
+        check(got["reuse_offset"] == zoo_reuse_offset(c), f"{name} {tag}: the follow-up "
+              f"resumed at {got['reuse_offset']}, phase 2's q_offset {zoo_reuse_offset(c)}")
+        row[tag] = {k: got[k] for k in ZOO_KEYS if k in got}
+        # each logits check's reading beside its bound
+        if tag == "f32":
+            row[tag]["logits_rel_err"] = [got["logits_rel_err"], F32_LOGITS_REL]
+        else:
+            row[tag]["logits_cosine"] = [got["logits_cosine"], 0.995]
+            row[tag]["kernels_vs_f32_max_abs_err"] = [got["kernels_vs_f32_max_abs_err"],
+                                                      2 * got["plain_bf16_vs_f32_max_abs_err"]]
+    shutil.rmtree(d)
+    row["seconds"] = time.perf_counter() - t0
+    print(json.dumps(row))
+    return row
+
+
+def zoo_whisper(tmp: Path) -> dict:
+    """whisper-large-v3 (full width, the encoder's 32 layers, the decoder's
+    first 4) through Transcriber on the card: the encoder on flash (32
+    launches per encode) against the plain encoder under phase 11's bound
+    (and its causal fault outside it), one 30 s transcribe with
+    task="translate" whose prompt holds large-v3's own ids and whose tokens
+    lie in the tie band of a teacher-forced forward, and one with
+    language="auto" whose detected language is the argmax over all 100 of
+    large-v3's language tokens."""
+    import torch
+    from kjarni_tpu_torch import Transcriber
+    from kjarni_tpu_torch.audio.loader import write_wav
+    from kjarni_tpu_torch.audio.mel import log_mel_spectrogram
+    from kjarni_tpu_torch.models import whisper as kwhisper
+    from kjarni_tpu_torch.models import whisper_transcriber as wt
+    from kjarni_tpu_torch.ops.kernels.flash_attention import flash_attention
+    c = {**WHISPER_LARGE_V3, "decoder_layers": WHISPER_LARGE_V3_DECODER_LAYERS}
+    E = c["encoder_layers"]
+    d = tmp / "whisper-large-v3"
+    t0 = time.perf_counter()
+    row = {"zoo": "whisper-large-v3", "source": "openai/whisper-large-v3",
+           "layers": f"encoder {E} of {E}, decoder {WHISPER_LARGE_V3_DECODER_LAYERS} of "
+                     f"{WHISPER_LARGE_V3['decoder_layers']}", "heads": c["encoder_attention_heads"],
+           "D": c["d_model"] // c["encoder_attention_heads"]}
+    stage = _stages(row)
+    write_encdec_dir(d, c, seed=80)
+    specials = whisper_specials(100)
+    write_tokenizer(d / "tokenizer.json", c["vocab_size"], specials)
+    a30 = _speech(30.0, 61)
+    wav = tmp / "a30.wav"
+    write_wav(wav, a30, 16000)
+    stage("write")
+    tr = Transcriber(str(d), task="translate")
+    wm = tr._model
+    check(wm.use_flash and wm.dtype == torch.bfloat16, "whisper-large-v3: bf16, flash")
+    prompt = wm.build_prompt_tokens(tr.config)
+    want = [specials[t] for t in ("<|startoftranscript|>", "<|en|>", "<|translate|>",
+                                  "<|notimestamps|>")]
+    check(prompt == want, f"whisper-large-v3 translate prompt {prompt}, expected {want}")
+    encodes, real_encode = [0], kwhisper.encode
+
+    def counted(*a, **kw):
+        encodes[0] += 1
+        return real_encode(*a, **kw)
+    # the language="auto" Transcriber over the same loaded model
+    auto = copy.copy(tr)
+    auto.config = wt.WhisperTranscriberConfig(language="auto")
+    detected, real_detect = [], wm.detect_language
+
+    def detect(kv):
+        detected.append(real_detect(kv))
+        return detected[-1]
+    wm.detect_language = detect
+    stage("load")
+    kwhisper.encode = counted
+    torch.cuda.reset_peak_memory_stats()
+    f0 = flash_attention.launches
+    try:
+        secs = {}
+        for what, t in (("translate", tr), ("auto", auto)):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = t.transcribe_file(wav)
+            torch.cuda.synchronize()
+            secs[what] = time.perf_counter() - t1
+            row[f"{what}_words"] = len(res.text.split())
+    finally:
+        kwhisper.encode, wm.detect_language = real_encode, real_detect
+    launched = flash_attention.launches - f0
+    check(launched == E * encodes[0] and encodes[0] >= 2,
+          f"whisper-large-v3: {launched} flash launches, {E} per encode x {encodes[0]}")
+    row.update(flash_launches=launched, encode_calls=encodes[0], transcribe_s=secs,
+               rtf={k: 30.0 / v for k, v in secs.items()},
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    stage("main_path")
+    main_counts = _counts()
+    # the language detection: the argmax over large-v3's 100 language tokens
+    chunk = wm.chunk_audio(a30)[0]
+    with torch.inference_mode():
+        ck, cv = wm._encode_chunk(wt.audio_pcm16(chunk))
+        sk, sv = wm._new_cache(1, 8)
+        lg = wm._logits(wm._prompt_ids([specials["<|startoftranscript|>"]]), sk, sv, ck, cv,
+                        0)[0].float()
+    langs = {t: i for t, i in specials.items() if 50259 <= i < specials["<|translate|>"]}
+    best = max(langs, key=lambda t: lg[langs[t]].item())
+    check(len(langs) == 100 and detected == [best.strip("<|>")],
+          f"whisper-large-v3: detected {detected}, the argmax over 100 languages {best}")
+    row["detected_language"] = detected[0]
+    stage("detection")
+    # the encoder on flash against the plain one, and the causal fault
+    pcm = torch.from_numpy(wt.audio_pcm16(chunk[None])).cuda()
+    mel = log_mel_spectrogram(wt._dequant_pcm(pcm), wm.mel_config).to(wm.dtype)
+    with torch.inference_mode():
+        hf = kwhisper.encode(wm.params, wm.config, mel, use_flash=True)
+        hp = kwhisper.encode(wm.params, wm.config, mel, use_flash=False)
+        with whisper_fault(wm, "encoder_flash_causal"):
+            hc = kwhisper.encode(wm.params, wm.config, mel, use_flash=True)
+        cos, fault = (torch.nn.functional.cosine_similarity(h.float(), hp.float(), dim=-1)
+                      .min().item() for h in (hf, hc))
+        row["encoder_ms"] = {
+            f"{'flash' if fl else 'plain'}": cuda_ms(
+                lambda fl=fl: kwhisper.encode(wm.params, wm.config, mel, use_flash=fl),
+                iters=3) for fl in (True, False)}
+    check(cos >= WHISPER_FLASH_COS_MIN and fault < WHISPER_FLASH_COS_MIN,
+          f"whisper-large-v3: encoder flash vs plain cosine {cos} >= {WHISPER_FLASH_COS_MIN}, "
+          f"the causal fault {fault} below")
+    row["encoder_flash_vs_plain_min_cosine"] = [cos, WHISPER_FLASH_COS_MIN]
+    row["fault_encoder_flash_causal"] = fault
+    stage("encoder")
+    # the translate request's tokens against a teacher-forced forward
+    cfg = tr.config
+    cache_len, max_steps, allow = wm._plan(prompt, cfg)
+    ids, _ = wm._decode_loop(prompt, ck, cv, allow, cache_len, 0.0, None, max_steps)
+    margins = _wave_margins(wm, [chunk], [ids], prompt, allow)
+    check(max(margins) <= WHISPER_TIE_BAND, f"whisper-large-v3: translate tokens within "
+                                            f"{WHISPER_TIE_BAND} ({max(margins)})")
+    row["max_margin"] = [max(margins), WHISPER_TIE_BAND]
+    row["tokens"] = len(ids)
+    stage("tie_band")
+    _restore(main_counts)
+    del tr, auto, wm, ck, cv, hf, hp, hc, mel
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["seconds"] = time.perf_counter() - t0
+    print(json.dumps(row))
+    return row
+
+
+def phase_zoo() -> dict:
+    """Phase 19 (see the module docstring): the ZOO decoders in turn, then
+    whisper-large-v3; every planted fault must have read outside its bound."""
+    rows = {}
+    with tempfile.TemporaryDirectory(prefix="kjarni_zoo_") as tmp:
+        for i, (name, src, c, depth) in enumerate(ZOO):
+            rows[name] = run_zoo_family(name, src, c, depth, Path(tmp), seed=200 + i)
+        rows["whisper-large-v3"] = zoo_whisper(Path(tmp))
+    planted = {f for r in rows.values() for f in r.get("bf16", {}).get("faults", {})}
+    check(planted == set(ZOO_FAULTS), f"every zoo fault planted ({sorted(planted)})")
+    return rows
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(["env", "kernels", *GENERATION, *ENC_DEC,
-                                                  "embed", "search"]))
+                                                  "embed", "search", "zoo"]))
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="the checkout whose kjarni_tpu_torch is imported")
     args = ap.parse_args()
@@ -6002,13 +6597,15 @@ def main() -> int:
         _counted("embed", phase_embed)
     if "search" in phases:
         _counted("search", phase_search)
+    if "zoo" in phases:
+        _counted("zoo", phase_zoo)
     launches = dict(zip(("flash", "int4", "flash_f32"), _all_counts()))
     if {"bf16", "int4", "int8", "chat", "serve", "infra", "whisper", "surfaces",
-            "parallel"} & set(phases):
+            "parallel", "zoo"} & set(phases):
         check(launches["flash"] > 0, "the main path launched the flash kernel")
-    if {"int4", "batch", "serve", "infra", "f32", "surfaces", "parallel"} & set(phases):
+    if {"int4", "batch", "serve", "infra", "f32", "surfaces", "parallel", "zoo"} & set(phases):
         check(launches["int4"] > 0, "the main path launched the int4 kernel")
-    if "f32" in phases:
+    if {"f32", "zoo"} & set(phases):
         check(launches["flash_f32"] > 0, "the main path launched the f32 flash kernel")
     if kern is not None:
         f0, tok = kern["flash"][0], kern["int4_token"]

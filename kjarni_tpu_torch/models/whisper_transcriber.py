@@ -33,7 +33,9 @@ from ..weights.safetensors_loader import ModelWeights
 from . import whisper as kwhisper
 from .decoder_lm import auto_dtype, resolve_device
 
-# Token constants (transcriber.rs:20-24)
+# Token constants (transcriber.rs:20-24): whisper-small's vocabulary of
+# 51,865 ids (99 languages). The ids after the languages move with their
+# count: a model's own ids are WhisperSpecials.for_vocab(vocab_size).
 SOT_TOKEN = 50258
 EOT_TOKEN = 50257
 TRANSCRIBE_TOKEN = 50359
@@ -42,6 +44,39 @@ NO_TIMESTAMPS_TOKEN = 50363
 FIRST_SPECIAL_TOKEN = 50257
 TIMESTAMP_BEGIN = 50364
 CHUNK_LENGTH_SECS = 30.0
+_SMALL_VOCAB, _SMALL_LANGUAGES = 51865, 99
+
+
+@dataclasses.dataclass(frozen=True)
+class WhisperSpecials:
+    """The special ids of a multilingual Whisper vocabulary: <|endoftext|>,
+    <|startoftranscript|>, then one id per language, then <|translate|>,
+    <|transcribe|>, <|startoflm|>, <|startofprev|>, <|nocaptions|>,
+    <|notimestamps|> and the timestamps, in that order. whisper-small's
+    51,865 ids hold 99 languages; large-v3's 51,866 hold 100 (<|yue|> added),
+    which moves every id after the languages up by one. The JAX package keeps
+    whisper-small's ids for every model."""
+    languages: int
+
+    @staticmethod
+    def for_vocab(vocab_size: int) -> "WhisperSpecials":
+        return WhisperSpecials(_SMALL_LANGUAGES + max(0, vocab_size - _SMALL_VOCAB))
+
+    @property
+    def translate(self) -> int:
+        return SOT_TOKEN + 1 + self.languages
+
+    @property
+    def transcribe(self) -> int:
+        return self.translate + 1
+
+    @property
+    def no_timestamps(self) -> int:
+        return self.translate + 5
+
+    @property
+    def timestamp_begin(self) -> int:
+        return self.translate + 6
 
 # The encoder's self-attention takes the flash kernel by default in bf16 on
 # the card. The JAX package keeps its Pallas kernel off, on a TPU timing that
@@ -148,11 +183,12 @@ class WhisperModel:
         self.use_flash = (ENCODER_FLASH and self.device.type == "cuda"
                           and dtype == torch.bfloat16)
         self.mel_config = MelConfig.whisper(n_mels=self.config.num_mel_bins)
+        self.specials = WhisperSpecials.for_vocab(self.config.vocab_size)
         # suppression: allow text tokens, EOT, and (optionally) timestamps
         ids = torch.arange(self.config.vocab_size, device=self.device)
         allow_base = (ids < FIRST_SPECIAL_TOKEN) | (ids == EOT_TOKEN)
         self._allow_no_ts = allow_base
-        self._allow_ts = allow_base | (ids >= TIMESTAMP_BEGIN)
+        self._allow_ts = allow_base | (ids >= self.specials.timestamp_begin)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -274,7 +310,8 @@ class WhisperModel:
         ck, cv = cross_kv
         sk, sv = self._new_cache(1, 8)
         logits = self._logits(self._prompt_ids([SOT_TOKEN]), sk, sv, ck, cv, 0)
-        lang_lo, lang_hi = SOT_TOKEN + 1, SOT_TOKEN + 100  # <|en|>..<|su|>
+        lang_lo = SOT_TOKEN + 1                       # <|en|>
+        lang_hi = lang_lo + self.specials.languages
         tok = int(lang_lo + torch.argmax(logits[0, lang_lo:lang_hi]))
         text = self.tokenizer.decode([tok], skip_special_tokens=False)
         return text.strip("<|>") if text else "en"
@@ -286,10 +323,10 @@ class WhisperModel:
         tokens = [SOT_TOKEN]
         lang = config.language or "en"
         tokens.append(self.resolve_language_token(lang) or 50259)
-        tokens.append(TRANSCRIBE_TOKEN if config.task == WhisperTask.TRANSCRIBE
-                      else TRANSLATE_TOKEN)
+        tokens.append(self.specials.transcribe if config.task == WhisperTask.TRANSCRIBE
+                      else self.specials.translate)
         if not config.timestamps:
-            tokens.append(NO_TIMESTAMPS_TOKEN)
+            tokens.append(self.specials.no_timestamps)
         return tokens
 
     def _plan(self, prompt: list[int], config: WhisperTranscriberConfig):
@@ -377,8 +414,8 @@ class WhisperModel:
         start: Optional[float] = None
         buf: list[int] = []
         for i in ids:
-            if i >= TIMESTAMP_BEGIN:
-                ts = (i - TIMESTAMP_BEGIN) * 0.02 + offset
+            if i >= self.specials.timestamp_begin:
+                ts = (i - self.specials.timestamp_begin) * 0.02 + offset
                 if start is None:
                     start = ts
                 else:

@@ -2,8 +2,8 @@
 
 int4 at M = 1 (the decode GEMV) and at Ms across the GEMM's row tiles, with
 one group and with groups of 128, ragged K/2 and N, K split across blocks
-and not, and bit-identical repeat calls; flash at D = 32, 64, 96 and 128 and G = 1, 4
-and 8, with batch > 1, S and T across several 64-key tiles with ragged edges,
+and not, and bit-identical repeat calls; flash at D = 32, 64, 96 and 128 and G = 1, 3, 4, 6, 7
+and 8 (the zoo's groups at their prefill and cache-reuse shapes), with batch > 1, S and T across several 64-key tiles with ragged edges,
 every tile class (interior, causal diagonal, window left edge, kv_len edge
 with a poisoned tail), q in the [B, S, H, D] storage that the model passes,
 and bit-identical repeat calls. Also the encoder (the embed path, which has no
@@ -114,6 +114,62 @@ def test_flash_kernel_at_whisper_tp_rank_heads(card, H):
     """A tp rank of whisper-small's encoder: 12 heads split 2 and 4 ways,
     S = T = 1500, non-causal."""
     test_flash_kernel_tile_classes(card, 1, H, H, 1500, 1500, 64, False, None, 0, None)
+
+
+# the zoo's decoders (chip_smoke.py phase 19, zoo_flash_shapes): GQA groups
+# 7 (Qwen2.5-0.5B, 14 / 2 heads, D 64), 6 (Qwen2.5-1.5B, 12 / 2, D 128) and 3
+# (Llama-3.2-3B, 24 / 8, D 128), each at its 1024 prefill and its follow-up's
+# cache reuse (S 1024 at q_offset over a kv bucket of 1792, the tail
+# poisoned), a ragged S, and whisper-large-v3's encoder (20 heads)
+_ZOO_TILES = [
+    (1, 14, 2, 1024, 1024, 64, True, None, 0, None),
+    (1, 14, 2, 1024, 1792, 64, True, None, 732, 1756),
+    (1, 14, 2, 700, 700, 64, True, None, 0, None),
+    (1, 12, 2, 1024, 1024, 128, True, None, 0, None),
+    (1, 12, 2, 1024, 1792, 128, True, None, 732, 1756),
+    (1, 12, 2, 333, 333, 128, True, None, 0, None),
+    (1, 24, 8, 1024, 1024, 128, True, None, 0, None),
+    (1, 24, 8, 1024, 1792, 128, True, None, 733, 1757),
+    (2, 24, 8, 130, 130, 128, True, 40, 0, None),
+    (1, 32, 32, 1024, 1792, 96, True, None, 732, 1756),
+    (1, 20, 20, 1500, 1500, 64, False, None, 0, None),
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,T,D,causal,window,q_offset,kv_len", _ZOO_TILES)
+def test_flash_kernel_at_zoo_shapes(card, B, H, Hkv, S, T, D, causal, window, q_offset,
+                                    kv_len):
+    test_flash_kernel_tile_classes(card, B, H, Hkv, S, T, D, causal, window, q_offset,
+                                   kv_len)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,T,D,causal,window,q_offset,kv_len", _ZOO_TILES)
+def test_flash_f32_kernel_at_zoo_shapes(card, B, H, Hkv, S, T, D, causal, window,
+                                        q_offset, kv_len):
+    test_flash_f32_kernel_tile_classes(card, B, H, Hkv, S, T, D, causal, window,
+                                       q_offset, kv_len)
+
+
+# every int4 projection shape (K, N) of the zoo's decoders (chip_smoke.py
+# zoo_int4_shapes): Qwen2.5-0.5B (K = 896: one scale per column), Qwen2.5-1.5B,
+# Llama-3.2-3B and Phi-3.5-mini, Mistral-7B and Llama-3.1-8B; then their heads
+_ZOO_INT4 = [(896, 896), (896, 128), (896, 4864), (4864, 896),
+             (1536, 1536), (1536, 256), (1536, 8960), (8960, 1536),
+             (3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072),
+             (4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+_ZOO_HEADS = [(896, 151936), (1536, 151936), (3072, 128256), (3072, 32064),
+              (4096, 32768), (4096, 128256)]
+
+
+@pytest.mark.parametrize("M", [1, 1024])
+@pytest.mark.parametrize("K,N", _ZOO_INT4)
+def test_int4_kernel_at_zoo_shapes(card, M, K, N):
+    test_int4_kernel_matches_plain(card, M, K, N, 128)
+
+
+@pytest.mark.parametrize("K,N", _ZOO_HEADS)
+def test_int4_kernel_at_zoo_heads(card, K, N):
+    test_int4_kernel_matches_plain(card, 1, K, N, 128)
 
 
 # a batched prefill: B = 8 rows at bucket 1024, every Llama-1B projection

@@ -46,6 +46,15 @@ FLASH_CASES = {
     "autotuned_gqa_offset": (1, 4, 2, 256, 640, 32, True, None, 384, 640, None, None),
     # Phi-3's head width (hidden 3072 / 32 heads), ragged S
     "causal_d96": (1, 2, 2, 100, 100, 96, True, None, None, None, None, None),
+    # the zoo's GQA groups: G = 7 (Qwen2.5-0.5B, 14 / 2 heads, D 64), 6
+    # (Qwen2.5-1.5B, 12 / 2, D 128) and 3 (Llama-3.2-3B, 24 / 8, D 128), causal
+    # over a ragged S, and resuming a cache at q_offset over kv_len
+    "zoo_g7_ragged": (1, 14, 2, 70, 70, 64, True, None, None, None, None, None),
+    "zoo_g7_offset": (1, 7, 1, 70, 192, 64, True, None, 110, 180, 64, 64),
+    "zoo_g6_ragged": (1, 12, 2, 70, 70, 128, True, None, None, None, None, None),
+    "zoo_g6_offset": (1, 6, 1, 70, 192, 128, True, None, 100, 170, 64, 64),
+    "zoo_g3_ragged": (1, 6, 2, 70, 70, 128, True, None, None, None, None, None),
+    "zoo_g3_offset": (1, 3, 1, 50, 192, 128, True, None, 120, 170, 64, 64),
 }
 
 
@@ -175,7 +184,11 @@ class TestInt4PlainVsJax:
                                    rtol=2e-2, atol=2e-2)
         assert _cos(got.float().numpy(), ref) > 0.999
 
-    @pytest.mark.parametrize("B,K,N,g", [(1, 256, 512, 64), (5, 512, 1000, 128)])
+    # and Qwen2.5-1.5B's down projection, K = 8,960 (70 groups of 128), where
+    # the bf16 rounding of x alone moves outputs of ~10 by ~0.04: past the
+    # f32-x comparison's atol, so the kernel's form is the one held there
+    @pytest.mark.parametrize("B,K,N,g", [(1, 256, 512, 64), (5, 512, 1000, 128),
+                                         (1, 8960, 256, 128), (3, 8960, 512, 128)])
     def test_x_as_bf16_matches_the_pallas_kernel(self, B, K, N, g):
         """The kernel's form for f32 activations: the Pallas kernel rounds an
         f32 x to bf16, accumulates in f32 and writes f32; the plain version
@@ -194,6 +207,21 @@ class TestInt4PlainVsJax:
         assert _cos(got.numpy(), ref) > 0.999
         plain = int4_matvec_plain(to_torch(x), torch.from_numpy(w4), to_torch(scale))
         assert not torch.equal(plain, got)
+
+    @pytest.mark.parametrize("B,K,N", [(1, 896, 896), (3, 896, 4864), (1, 896, 2000)])
+    def test_single_group_at_qwen_width(self, B, K, N):
+        """Qwen2.5-0.5B's K = 896 is no multiple of 256: quantize_params_int4
+        takes one scale per column (G = 1). The Pallas kernel takes even G
+        alone, so the JAX package runs G = 1 through _mm's w4 branch; the
+        plain version equals it."""
+        x, w4, scale, _, ref = make_int4_case(B, K, N, K, seed=K + N + B)
+        assert scale.shape == (1, N)
+        got = int4_matvec(to_torch(x), torch.from_numpy(w4), to_torch(scale)).numpy()
+        mm = np.asarray(jax_mm(jnp.asarray(x), {"w4": jnp.asarray(w4),
+                                                "scale": jnp.asarray(scale)}))
+        np.testing.assert_allclose(got, mm, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got, ref, rtol=2e-2, atol=2e-2)
+        assert _cos(got, ref) > 0.9995
 
     def test_single_group_matches_mm(self):
         # K % 256 != 0: quantize_params_int4 falls back to one scale per column

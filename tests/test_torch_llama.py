@@ -217,3 +217,87 @@ def test_qwen2_qkv_bias_forward_matches_jax(qwen2, case):
     lg_t, ck_t = _run_torch(cfg_t, p_t, chunks)
     np.testing.assert_allclose(lg_t, lg_j, atol=ATOL)
     np.testing.assert_allclose(ck_t, ck_j, atol=ATOL)
+
+
+# the zoo's head ratios, tiny: Qwen2.5-0.5B's 7:1 with q/k/v biases (K = 224:
+# one int4 scale per column, as Qwen2.5-0.5B's K = 896), Llama-3.2-3B's 24 / 8
+# heads (3:1, K = 768: groups of 128) and Phi-3's 1:1 at D = 96 (fused qkv
+# and gate_up)
+ZOO_RATIOS = {
+    "qwen2_7to1_bias": ("Qwen2", dict(hidden_size=224, num_attention_heads=14,
+                                      num_key_value_heads=2)),
+    "llama_3to1": ("Llama", dict(hidden_size=768, num_attention_heads=24,
+                                 num_key_value_heads=8)),
+    "phi3_1to1_d96": ("Phi3", dict(hidden_size=192, num_attention_heads=2,
+                                   num_key_value_heads=2, pad_token_id=0)),
+}
+
+
+@pytest.fixture(scope="module", params=list(ZOO_RATIOS))
+def zoo_ratio(request, tmp_path_factory):
+    """One ZOO_RATIOS checkpoint (2 layers, random HF weights) loaded by both
+    packages, f32."""
+    import transformers
+    family, kw = ZOO_RATIOS[request.param]
+    d = tmp_path_factory.mktemp(request.param)
+    config = getattr(transformers, f"{family}Config")(
+        vocab_size=160, intermediate_size=256, num_hidden_layers=2,
+        max_position_embeddings=512, tie_word_embeddings=False, **kw)
+    torch.manual_seed(7)
+    model = getattr(transformers, f"{family}ForCausalLM")(config).eval()
+    if family == "Qwen2":
+        with torch.no_grad():   # HF zero-initialises biases; make them count
+            for layer in model.model.layers:
+                for proj in (layer.self_attn.q_proj, layer.self_attn.k_proj,
+                             layer.self_attn.v_proj):
+                    proj.bias.normal_(0.0, 0.5)
+    save_torch_model(d, model, config)
+    hf = json.loads((d / "config.json").read_text())
+    cfg_j, cfg_t = jl.DecoderConfig.from_hf(hf), tl.DecoderConfig.from_hf(hf)
+    return (request.param, cfg_j, jl.load_params(JaxWeights(d), cfg_j, rope_cache_len=256),
+            cfg_t, tl.load_params(ModelWeights(d), cfg_t, rope_cache_len=256))
+
+
+def _greedy(forward, argmax, params, cfg, ids, cache, steps):
+    """A flash prefill of ids at slot 0, then `steps` greedy decode steps;
+    (the logits of every step, the greedy ids)."""
+    ck, cv = cache
+    lg, ck, cv = forward(params, cfg, ids, ck, cv, 0, use_flash=True)
+    logits, out = [np.asarray(lg)], []
+    for i in range(steps):
+        out.append(int(argmax(lg)))
+        lg, ck, cv = forward(params, cfg, out[-1], ck, cv, ids.shape[1] + i)
+        logits.append(np.asarray(lg))
+    return logits, out
+
+
+@pytest.mark.parametrize("quantize", [None, "int4"])
+def test_zoo_head_ratios_match_jax(zoo_ratio, interpret_flash, quantize):
+    """The prefill's logits (both flash paths) and 8 greedy ids after it, at
+    the zoo's head ratios, plain and int4, equal the JAX package's."""
+    name, cfg_j, p_j, cfg_t, p_t = zoo_ratio
+    H, Hkv = cfg_t.num_heads, cfg_t.num_kv_heads
+    assert (H // Hkv, cfg_t.qkv_bias) == {"qwen2_7to1_bias": (7, True),
+                                          "llama_3to1": (3, False),
+                                          "phi3_1to1_d96": (1, False)}[name]
+    assert name != "phi3_1to1_d96" or cfg_t.head_dim == 96
+    if quantize:
+        p_j, p_t = jl.quantize_params_int4(p_j), tl.quantize_params_int4(p_t)
+        G = p_t["layers"]["q"]["scale"].shape[1]
+        assert G == (6 if name == "llama_3to1" else 1)
+    ids = _ids(100, 20, vocab=160)
+
+    def jax_fwd(params, cfg, x, ck, cv, pos, **kw):
+        x = jnp.asarray(np.asarray(x, np.int32).reshape(1, -1))
+        return jl.forward(params, cfg, x, ck, cv, jnp.int32(pos), **kw)
+
+    def torch_fwd(params, cfg, x, ck, cv, pos, **kw):
+        x = torch.from_numpy(np.asarray(x, np.int64).reshape(1, -1))
+        return tl.forward(params, cfg, x, ck, cv, pos, **kw)
+    lg_j, ids_j = _greedy(jax_fwd, lambda lg: np.argmax(np.asarray(lg)[0]), p_j, cfg_j,
+                          ids, jl.init_cache(cfg_j, 1, 128), 8)
+    lg_t, ids_t = _greedy(torch_fwd, lambda lg: torch.argmax(lg[0]), p_t, cfg_t, ids,
+                          tl.init_cache(cfg_t, 1, 128), 8)
+    assert ids_t == ids_j
+    for a, b in zip(lg_t, lg_j):
+        np.testing.assert_allclose(a, b, atol=ATOL)

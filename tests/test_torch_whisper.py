@@ -382,3 +382,47 @@ def test_transcriber_needs_the_card_unless_asked_for_the_cpu(wdir):
     wm = twt.WhisperModel(wdir[0], device="cpu")
     assert not wm.use_flash and wm.dtype == torch.float32     # flash: bf16 on the card
     assert dataclasses.replace(twt.WhisperTranscriberConfig(), seed=3).seed == 3
+
+
+def test_large_v3_takes_its_own_special_ids(tmp_path):
+    """whisper-large-v3's vocabulary (51,866 ids) adds <|yue|> as its 100th
+    language, which moves every special id after the languages up by one.
+    The port takes the model's own ids from its vocabulary size: the task
+    and no-timestamps tokens of its prompt, the first timestamp, and
+    detection over all 100 languages. (The JAX package keeps whisper-small's
+    ids for every model, so it has no large-v3 result to compare with.)"""
+    import chip_smoke
+    from helpers import save_torch_model
+    from transformers import WhisperConfig, WhisperForConditionalGeneration
+    config = WhisperConfig(
+        vocab_size=51866, d_model=32, encoder_layers=1, decoder_layers=1,
+        encoder_attention_heads=4, decoder_attention_heads=4, encoder_ffn_dim=64,
+        decoder_ffn_dim=64, num_mel_bins=128, max_source_positions=1500,
+        max_target_positions=448)
+    torch.manual_seed(3)
+    save_torch_model(tmp_path, WhisperForConditionalGeneration(config).eval(), config)
+    chip_smoke.write_tokenizer(tmp_path / "tokenizer.json", 51866,
+                               chip_smoke.whisper_specials(100))
+    wm = twt.WhisperModel(tmp_path, device="cpu")
+    tok = wm.tokenizer.token_to_id
+    assert wm.mel_config.n_mels == 128 and wm.specials.languages == 100
+    for kw, task in (({}, "<|transcribe|>"),
+                     ({"task": twt.WhisperTask.TRANSLATE}, "<|translate|>")):
+        assert wm.build_prompt_tokens(twt.WhisperTranscriberConfig(**kw)) == [
+            tok("<|startoftranscript|>"), tok("<|en|>"), tok(task), tok("<|notimestamps|>")]
+    assert bool(wm._allow_ts[tok("<|0.00|>")])
+    assert not bool(wm._allow_ts[tok("<|notimestamps|>")])
+    segs = wm._parse_timestamp_segments([tok("<|0.00|>"), 500, tok("<|1.00|>")], 30.0)
+    assert [(s.start, s.end) for s in segs] == [(30.0, 31.0)]
+
+    def logits(*_):   # the SOT step's logits, largest at the 100th language
+        out = torch.zeros(1, 51866)
+        out[0, tok("<|yue|>")] = 1.0
+        return out
+    wm._logits = logits
+    assert wm.detect_language((None, None)) == "yue"
+    # whisper-small's vocabulary keeps the module's (and the JAX package's) ids
+    small = twt.WhisperSpecials.for_vocab(51865)
+    assert (small.translate, small.transcribe, small.no_timestamps,
+            small.timestamp_begin) == (twt.TRANSLATE_TOKEN, twt.TRANSCRIBE_TOKEN,
+                                       twt.NO_TIMESTAMPS_TOKEN, twt.TIMESTAMP_BEGIN)
