@@ -23,15 +23,23 @@ admission). Admission prefills every joining request of one prompt bucket
 in one batched forward (lanes), broadcasting a registered prefix's KV into
 [0:m] and prefilling the right-padded suffixes at pos_start = m, under the
 same memory plan as the JAX engine (plain / flash / chunked).
+
+While a torch profiler runs, the engine records its spans
+(core/profiling.py): kjarni.engine.step, .admit_wave and .decode (with the
+card's time), .readback and .deliver, and for each request submitted while
+recording a kjarni.engine.first_token record, from its submit to the
+readback that delivers its first token.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import torch
 
+from ..core import profiling
 from ..core.bucketing import seq_bucket
 from ..core.errors import GenerationError
 from ..core.kvcache import slice_working
@@ -149,6 +157,9 @@ class ContinuousEngine:
         self._next_id = 0
         self._queue: list[tuple] = []                   # waiting requests
         self._finished: list[FinishedRequest] = []
+        # rid -> (recording session, submit time in ns) of a request
+        # submitted while a profiler records, until its first token
+        self._stamps: dict[int, tuple] = {}
         # serving telemetry (surfaced at /v1/batch_stats)
         self.stats = {"submitted": 0, "finished": 0, "windows": 0,
                       "admission_waves": 0, "prefix_hits": 0, "tokens": 0}
@@ -417,6 +428,8 @@ class ContinuousEngine:
                 f"overshoot ({need} total) exceeds slot capacity {self.T}")
         rid = self._next_id
         self._next_id += 1
+        if profiling.recording():
+            self._stamps[rid] = (profiling.session(), time.perf_counter_ns())
         self._queue.append((rid, ids, max_new_tokens, sampling, seed,
                             repetition_penalty, no_repeat_ngram))
         self.stats["submitted"] += 1
@@ -451,7 +464,11 @@ class ContinuousEngine:
             self.stats["admission_waves"] += 1
             if m:
                 self.stats["prefix_hits"] += len(grp)
-            self._admit_wave(grp, pi, m, bucket)
+            with profiling.annotate("kjarni.engine.admit_wave", device=self.device.type == "cuda",
+                                    lanes=len(grp), bucket=bucket) as span:
+                if span:
+                    span.count(prompt_tokens=sum(len(req[1]) - m for _, req in grp))
+                self._admit_wave(grp, pi, m, bucket)
             for slot_idx, req in grp:
                 rid, ids, max_new, sampling = req[0], req[1], req[2], req[3]
                 sp = sampling or SamplingParams(temperature=0.0)
@@ -514,24 +531,31 @@ class ContinuousEngine:
         ngram = self.no_repeat_ngram_size
         toks = self._last_tok
         cols = [toks]
-        for i in range(k):
-            logits, _, _ = self.family.forward(lm.params, self.cfg, toks[:, None],
-                                               wk, wv, pos_d + i, **lm.fwd_kw)
-            if plain:
-                toks = torch.argmax(logits, dim=-1)
-            else:
-                lg = logits.float()
-                valid = torch.arange(_HIST_BUF, device=dev)[None] < self._hist_len[:, None]
-                lg = apply_repetition_penalty(lg, self._hist, valid, self._penalty)
-                if ngram > 1:
-                    lg = torch.where(self._ngram_on[:, None], apply_no_repeat_ngram(
-                        lg, self._hist, self._hist_len, ngram), lg)
-                toks = _sample_slot(lg, self._gens, rows, self._temp, self._top_k,
-                                    self._top_p, self._min_p)
-                self._hist, self._hist_len = _hist_append(self._hist, self._hist_len, toks)
-            cols.append(toks)
-        self._last_tok = toks
-        return torch.stack(cols, dim=1).cpu().tolist()
+        with profiling.annotate("kjarni.engine.decode", device=self.device.type == "cuda", k=k,
+                                S=self.S) as span:
+            if span:
+                span.count(active=sum(s.active for s in self._slots))
+            for i in range(k):
+                logits, _, _ = self.family.forward(lm.params, self.cfg, toks[:, None],
+                                                   wk, wv, pos_d + i, **lm.fwd_kw)
+                if plain:
+                    toks = torch.argmax(logits, dim=-1)
+                else:
+                    lg = logits.float()
+                    valid = torch.arange(_HIST_BUF, device=dev)[None] < self._hist_len[:, None]
+                    lg = apply_repetition_penalty(lg, self._hist, valid, self._penalty)
+                    if ngram > 1:
+                        lg = torch.where(self._ngram_on[:, None], apply_no_repeat_ngram(
+                            lg, self._hist, self._hist_len, ngram), lg)
+                    toks = _sample_slot(lg, self._gens, rows, self._temp, self._top_k,
+                                        self._top_p, self._min_p)
+                    self._hist, self._hist_len = _hist_append(self._hist, self._hist_len,
+                                                              toks)
+                cols.append(toks)
+            self._last_tok = toks
+            block = torch.stack(cols, dim=1)
+        with profiling.annotate("kjarni.engine.readback"):
+            return block.cpu().tolist()
 
     @torch.inference_mode()
     def step(self) -> None:
@@ -542,51 +566,58 @@ class ContinuousEngine:
         window tokens discarded; the capacity check in submit() reserves the
         overshoot, so those cache writes stay inside the slot.
         """
-        self._admit()   # freed slots pick up waiting requests first
-        if self.num_active == 0:
-            return
-        was_active = [s.active for s in self._slots]
-        pending = [s.pending_first for s in self._slots]
-        # an inactive slot decodes in lockstep at 0, 1, ... of its own row,
-        # always inside the working slice
-        pos = [s.pos if s.active else 0 for s in self._slots]
-        # adaptive window: the smallest power of two covering the least-
-        # loaded active slot's outstanding tokens, capped at steps_per_sync
-        needed = min(
-            (s.remaining - (1 if s.pending_first else 0)
-             for s in self._slots if s.active))
-        k = 1
-        while k < needed and k * 2 <= self.steps_per_sync:
-            k *= 2
-        self.stats["windows"] += 1
-        plain = all(s.plain for s in self._slots if s.active)
-        # working-cache bucket: the highest active frontier plus this
-        # window, rounded up to the bucket step
-        kbs = self._kv_bucket_step
-        top = max(s.pos for s in self._slots if s.active)
-        kb = -(-(top + k + 1) // kbs) * kbs
-        if kb >= self.T:
-            kb = None
-        out = self._window(k, plain, kb, pos)
-        for i, slot in enumerate(self._slots):
-            if not was_active[i]:
-                continue
-            if pending[i]:
-                # column 0 = the token sampled at admission; its cache write
-                # happened as step 0 of THIS window, so pos does not advance
-                slot.pending_first = False
-                self._note_token(i, out[i][0])
-                if not slot.active:
-                    continue
-            for j in range(1, k + 1):
-                slot.pos += 1
-                self._note_token(i, out[i][j])
-                if not slot.active:
-                    break   # discard the rest of the window
-        # slots freed this window admit waiting work at once, so the next
-        # step() decodes them
-        if self._queue:
-            self._admit()
+        with profiling.annotate("kjarni.engine.step"):
+            self._admit()   # freed slots pick up waiting requests first
+            if self.num_active == 0:
+                return
+            was_active = [s.active for s in self._slots]
+            pending = [s.pending_first for s in self._slots]
+            # an inactive slot decodes in lockstep at 0, 1, ... of its own row,
+            # always inside the working slice
+            pos = [s.pos if s.active else 0 for s in self._slots]
+            # adaptive window: the smallest power of two covering the least-
+            # loaded active slot's outstanding tokens, capped at steps_per_sync
+            needed = min(
+                (s.remaining - (1 if s.pending_first else 0)
+                 for s in self._slots if s.active))
+            k = 1
+            while k < needed and k * 2 <= self.steps_per_sync:
+                k *= 2
+            self.stats["windows"] += 1
+            plain = all(s.plain for s in self._slots if s.active)
+            # working-cache bucket: the highest active frontier plus this
+            # window, rounded up to the bucket step
+            kbs = self._kv_bucket_step
+            top = max(s.pos for s in self._slots if s.active)
+            kb = -(-(top + k + 1) // kbs) * kbs
+            if kb >= self.T:
+                kb = None
+            out = self._window(k, plain, kb, pos)
+            first_ns = time.perf_counter_ns() if self._stamps else None
+            with profiling.annotate("kjarni.engine.deliver"):
+                for i, slot in enumerate(self._slots):
+                    if not was_active[i]:
+                        continue
+                    if pending[i]:
+                        # column 0 = the token sampled at admission; its cache
+                        # write happened as step 0 of THIS window, so pos does
+                        # not advance
+                        slot.pending_first = False
+                        stamp = self._stamps.pop(slot.request_id, None) if first_ns else None
+                        if stamp is not None and stamp[0] == profiling.session():
+                            profiling.note("kjarni.engine.first_token", stamp[1], first_ns)
+                        self._note_token(i, out[i][0])
+                        if not slot.active:
+                            continue
+                    for j in range(1, k + 1):
+                        slot.pos += 1
+                        self._note_token(i, out[i][j])
+                        if not slot.active:
+                            break   # discard the rest of the window
+            # slots freed this window admit waiting work at once, so the next
+            # step() decodes them
+            if self._queue:
+                self._admit()
 
     def drain(self) -> list[FinishedRequest]:
         out, self._finished = self._finished, []

@@ -153,8 +153,6 @@ class SpeculativeGenerator:
             dck, dcv = draft._ensure_cache()
         t_logits = self._prefill(target, ids, tck, tcv)
         self._prefill(draft, ids, dck, dcv)
-        if stats is not None:
-            stats.mark_prefill(prompt_len)
         cur = torch.argmax(t_logits)
         seed = target.sampling_seed(gen.seed)
         generator = torch.Generator(device=target.device).manual_seed(seed)
@@ -165,6 +163,8 @@ class SpeculativeGenerator:
         pos = prompt_len
         n = 0
         c = int(cur)
+        if stats is not None:     # the first token is read back: both prefills are done
+            stats.mark_prefill(prompt_len)
         if c in stop:
             return
         yield c

@@ -11,6 +11,10 @@ semantics: the stop token is dropped, and decode attention reads the cache
 only up to the current 512-slot bucket. `generate_batch` runs ragged prompts
 left-padded in one per-call cache, with a shared prompt prefix prefilled
 once and broadcast into every row.
+
+While a torch profiler runs, the stream records its spans
+(core/profiling.py): kjarni.stream.request, .start, .prefill (with the
+card's time) and one .decode_step a token.
 """
 
 from __future__ import annotations
@@ -19,12 +23,14 @@ import dataclasses
 import json
 import logging
 import random as _random
+import time
 from pathlib import Path
-from typing import Iterator, Optional, Sequence
+from typing import Callable, Iterator, Optional, Sequence
 
 import torch
 
 from ..chat_templates import ChatTemplate, Conversation, template_for_arch
+from ..core import profiling
 from ..core.bucketing import seq_bucket
 from ..core.cancellation import CancellationToken
 from ..core.errors import GenerationError, InvalidConfigError
@@ -327,9 +333,11 @@ class DecoderLM:
             use_flash = score_bytes > REUSE_FLASH_MIN_SCORE_BYTES
         if use_flash:
             kv_bucket = min(-(-(common + bucket) // 128) * 128, self.max_context)
-        logits, ck, cv = self.family.forward(
-            self.params, self.config, padded.to(self.device), ck, cv, common,
-            len(suffix) - 1, use_flash=use_flash, kv_bucket=kv_bucket, **self.fwd_kw)
+        with profiling.annotate("kjarni.stream.prefill", device=self.device.type == "cuda",
+                                prompt_tokens=len(suffix), bucket=bucket):
+            logits, ck, cv = self.family.forward(
+                self.params, self.config, padded.to(self.device), ck, cv, common,
+                len(suffix) - 1, use_flash=use_flash, kv_bucket=kv_bucket, **self.fwd_kw)
         self.last_prefill_tokens = len(suffix)  # observability for tests/stats
         return logits[0], ck, cv, common
 
@@ -344,12 +352,14 @@ class DecoderLM:
     def _decode(self, logits, ck, cv, history: torch.Tensor, pos: int,
                 gen: GenerationConfig, generator: torch.Generator, steps: int,
                 cancellation: Optional[CancellationToken] = None,
+                first_read: Optional[Callable[[], None]] = None,
                 ) -> Iterator[int]:
         """Sample, then forward the sampled token, one host sync per token.
 
         Yields at most `steps` generated ids, each after its K/V is in the
         cache. Stops before yielding a stop token (it is dropped, as the JAX
         package's `n = i - done` does) and at the context or max_length limit.
+        `first_read` is called once the first token is read back to the host.
         """
         greedy = gen.strategy == "greedy"
         pen, ngram = gen.repetition_penalty, gen.no_repeat_ngram_size
@@ -358,20 +368,24 @@ class DecoderLM:
                 return
             if pos >= self.max_context or pos >= gen.max_length:
                 return
-            lg = process_logits(logits, history, pos, pen, ngram)
-            tok = sample_token(lg, generator, gen.sampling, greedy)
-            t = int(tok)
-            if t in self.stop_token_ids:
-                return
-            history[pos] = tok
-            # the static bucket changes every _kv_bucket_step tokens: the
-            # segments of the JAX package's fused loop
-            kb = self._kv_bucket(pos)
-            wk = ck if kb is None else slice_working(ck, kb, axis=3)
-            wv = cv if kb is None else slice_working(cv, kb, axis=3)
-            logits, _, _ = self.family.forward(self.params, self.config,
-                                               tok.view(1, 1), wk, wv, pos, **self.fwd_kw)
-            logits = logits[0]
+            with profiling.annotate("kjarni.stream.decode_step"):
+                lg = process_logits(logits, history, pos, pen, ngram)
+                tok = sample_token(lg, generator, gen.sampling, greedy)
+                t = int(tok)
+                if first_read is not None:
+                    first_read()
+                    first_read = None
+                if t in self.stop_token_ids:
+                    return
+                history[pos] = tok
+                # the static bucket changes every _kv_bucket_step tokens: the
+                # segments of the JAX package's fused loop
+                kb = self._kv_bucket(pos)
+                wk = ck if kb is None else slice_working(ck, kb, axis=3)
+                wv = cv if kb is None else slice_working(cv, kb, axis=3)
+                logits, _, _ = self.family.forward(self.params, self.config, tok.view(1, 1),
+                                                   wk, wv, pos, **self.fwd_kw)
+                logits = logits[0]
             pos += 1
             yield t
 
@@ -422,32 +436,47 @@ class DecoderLM:
                         emit_prompt: bool = False,
                         stats: Optional[GenerationStats] = None,
                         ) -> Iterator[StreamedToken]:
-        """Token-streaming generation (cf. generator.rs:183,228)."""
-        gen = config or GenerationConfig()
-        ids, history, generator = self._start(gen, prompt, token_ids)
-        prompt_len = len(ids)
-        stats = stats or GenerationStats()
-        stats.start()
-        ck, cv = self._ensure_cache()
-        logits, ck, cv, _ = self._prefill_with_reuse(ids, ck, cv)
-        stats.mark_prefill(prompt_len)
-        if emit_prompt:
-            for t in ids:
-                yield StreamedToken(self.tokenizer.decode([t], False), t,
-                                    TokenType.PROMPT)
-        max_new = gen.max_new_tokens if gen.max_new_tokens is not None else \
-            max(gen.max_length - prompt_len, 0)
-        sdec = StreamDecoder(self.tokenizer)
-        emitted: list[int] = []
-        try:
-            for t in self._decode(logits, ck, cv, history, prompt_len, gen,
-                                  generator, max_new, cancellation):
-                emitted.append(t)
-                yield StreamedToken(sdec.push(t), t, TokenType.GENERATED)
-        finally:
-            self._session_ids = ids + emitted
-            stats.mark_decode_done(len(emitted))
-            stats.print_summary()
+        """Token-streaming generation (cf. generator.rs:183,228).
+
+        `stats` times the prefill up to the first generated token read back
+        (so the card's prefill is in it) and the decode from there."""
+        with profiling.annotate("kjarni.stream.request") as span:
+            gen = config or GenerationConfig()
+            stats = stats or GenerationStats()
+            with profiling.annotate("kjarni.stream.start"):
+                ids, history, generator = self._start(gen, prompt, token_ids)
+                stats.start()
+                ck, cv = self._ensure_cache()
+            prompt_len = len(ids)
+            read = False
+
+            def first_read():   # the first token is on the host: the prefill is done
+                nonlocal read
+                read = True
+                stats.mark_prefill(prompt_len)
+                if span:
+                    span.count(first_token_ns=time.perf_counter_ns())
+
+            logits, ck, cv, _ = self._prefill_with_reuse(ids, ck, cv)
+            if emit_prompt:
+                for t in ids:
+                    yield StreamedToken(self.tokenizer.decode([t], False), t,
+                                        TokenType.PROMPT)
+            max_new = gen.max_new_tokens if gen.max_new_tokens is not None else \
+                max(gen.max_length - prompt_len, 0)
+            sdec = StreamDecoder(self.tokenizer)
+            emitted: list[int] = []
+            try:
+                for t in self._decode(logits, ck, cv, history, prompt_len, gen,
+                                      generator, max_new, cancellation, first_read):
+                    emitted.append(t)
+                    yield StreamedToken(sdec.push(t), t, TokenType.GENERATED)
+            finally:
+                self._session_ids = ids + emitted
+                if not read:
+                    stats.mark_prefill(prompt_len)
+                stats.mark_decode_done(len(emitted))
+                stats.print_summary()
 
     def generate(self, prompt: Optional[str] = None, *,
                  token_ids: Optional[Sequence[int]] = None,

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core import profiling
 from ..core.errors import GenerationError, InvalidConfigError
 from ..core.metadata import RopeScaling
 from ..core.placement import host_gather, host_matmul
@@ -525,55 +526,56 @@ def _run_stack(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
         raise GenerationError("a per-row decode position takes one token per row "
                               "and the plain attention")
     pos_start = pos_start if per_row else int(pos_start)
-    x = (host_gather(params["embed"], ids) if cfg.embed_on_host
-         else F.embedding(ids, params["embed"]))
-    if per_row:     # per-row tables [B, 1, 1, D]
-        cos = params["rope_cos"][pos_start][:, None, None]
-        sin = params["rope_sin"][pos_start][:, None, None]
-    elif positions is None:
-        cos = params["rope_cos"][pos_start:pos_start + S]
-        sin = params["rope_sin"][pos_start:pos_start + S]
-    else:   # per-row tables [B, 1, S, D]
-        cos = params["rope_cos"][positions][:, None]
-        sin = params["rope_sin"][positions][:, None]
-    if tp is not None:  # the tables are used inside each rank's heads
-        cos, sin = tp.copy_in(cos), tp.copy_in(sin)
+    with profiling.annotate("kjarni.forward"):
+        x = (host_gather(params["embed"], ids) if cfg.embed_on_host
+             else F.embedding(ids, params["embed"]))
+        if per_row:     # per-row tables [B, 1, 1, D]
+            cos = params["rope_cos"][pos_start][:, None, None]
+            sin = params["rope_sin"][pos_start][:, None, None]
+        elif positions is None:
+            cos = params["rope_cos"][pos_start:pos_start + S]
+            sin = params["rope_sin"][pos_start:pos_start + S]
+        else:   # per-row tables [B, 1, S, D]
+            cos = params["rope_cos"][positions][:, None]
+            sin = params["rope_sin"][positions][:, None]
+        if tp is not None:  # the tables are used inside each rank's heads
+            cos, sin = tp.copy_in(cos), tp.copy_in(sin)
 
-    bias = None
-    if not use_flash:
-        bias = causal_bias(pos_start, S, T, ids.device, cfg.sliding_window)
-        if pad_mask is not None:
-            bias = bias + torch.where(pad_mask.bool(), 0.0,
-                                      NEG_INF)[:, None, None, :]   # [B, 1, S, T]
-
-    def layer(cache, i):
-        if cache is None:
-            return None
-        return ({n: t[i] for n, t in cache.items()} if isinstance(cache, dict)
-                else cache[i])
-
-    def attend(kc, vc, q, k, v):
-        if kc is None:
-            return attention(q, k, v, bias)
-        _cache_write(kc, k, pos_start)
-        _cache_write(vc, v, pos_start)
+        bias = None
         if not use_flash:
-            return attention(q, _cache_read(kc, T, x.dtype), _cache_read(vc, T, x.dtype),
-                             bias)
-        kb = kv_bucket if kv_bucket is not None else S
-        if kb <= S:
-            # from-zero prefill: the fresh block is the whole valid cache
-            return flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
-        return flash_attention(q, _cache_read(kc, kb, x.dtype),
-                               _cache_read(vc, kb, x.dtype), causal=True,
-                               window=cfg.sliding_window, q_offset=pos_start,
-                               kv_len=pos_start + S)
+            bias = causal_bias(pos_start, S, T, ids.device, cfg.sliding_window)
+            if pad_mask is not None:
+                bias = bias + torch.where(pad_mask.bool(), 0.0,
+                                          NEG_INF)[:, None, None, :]   # [B, 1, S, T]
 
-    for i in range(cfg.num_layers):
-        x = decoder_layer(layer_params(params["layers"], i), cfg, x, cos, sin,
-                          functools.partial(attend, layer(cache_k, i), layer(cache_v, i)),
-                          tp)
-    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+        def layer(cache, i):
+            if cache is None:
+                return None
+            return ({n: t[i] for n, t in cache.items()} if isinstance(cache, dict)
+                    else cache[i])
+
+        def attend(kc, vc, q, k, v):
+            if kc is None:
+                return attention(q, k, v, bias)
+            _cache_write(kc, k, pos_start)
+            _cache_write(vc, v, pos_start)
+            if not use_flash:
+                return attention(q, _cache_read(kc, T, x.dtype), _cache_read(vc, T, x.dtype),
+                                 bias)
+            kb = kv_bucket if kv_bucket is not None else S
+            if kb <= S:
+                # from-zero prefill: the fresh block is the whole valid cache
+                return flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+            return flash_attention(q, _cache_read(kc, kb, x.dtype),
+                                   _cache_read(vc, kb, x.dtype), causal=True,
+                                   window=cfg.sliding_window, q_offset=pos_start,
+                                   kv_len=pos_start + S)
+
+        for i in range(cfg.num_layers):
+            x = decoder_layer(layer_params(params["layers"], i), cfg, x, cos, sin,
+                              functools.partial(attend, layer(cache_k, i), layer(cache_v, i)),
+                              tp)
+        return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
 
 def forward(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
