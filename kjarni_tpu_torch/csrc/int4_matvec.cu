@@ -9,10 +9,10 @@
 // store their f32 sums as f32 (the store is a template on the output type).
 // The decode GEMV also takes an f32 x itself and rounds each element to bf16
 // where it loads it, as torch's .to(bfloat16) rounds (to nearest even), so
-// a decoded f32 token pays no separate cast; the prefill GEMM takes bf16 x,
+// a decoded f32 token pays no separate cast; the prefill GEMMs take bf16 x,
 // cast by the wrapper (one M x K cast feeds an M x K x N product). G == 1
-// (one scale per column) is taken as well as even G. Two kernels; the
-// wrapper's launch_plan picks one by M.
+// (one scale per column) is taken as well as even G. Three kernels; the
+// wrapper's launch_plan picks one by shape.
 //
 // Decode (M == 1): int4_gemv_kernel. Every packed byte is read once and used
 // for 4 flops, so it is bound by device-memory bytes (K*N/2 weight bytes).
@@ -32,8 +32,45 @@
 //     warps in order through shared memory). No atomics and no split across
 //     blocks: two calls give bit-identical outputs.
 //
-// Prefill (M > 1): int4_gemm_kernel. 2*M*K*N flops over K*N/2 + 2*M*K bytes:
-// bound by the weight bytes at small M and by the tensor cores at M = 1024.
+// Prefill (M > 1): 2*M*K*N flops over K*N/2 + 2*M*K bytes. The packed
+// weight is the larger read below M ~ 300 (the card's ~295 bf16 flops a
+// byte), so small M is bound by the weight bytes and the tensor cores bound
+// every prompt bucket (M >= 1024). Two GEMMs; launch_plan picks by shape:
+//
+// int4_gemm_kernel_sm90 (path 2; M >= 128 where TMA takes the shape and the
+// plan's model times it faster: every prefill bucket and admission wave of
+// the model zoo's projections). Its bound is the tensor cores, and the work
+// that is not a product (decoding nibbles, scaling group partials) must hide
+// behind them:
+//   * one persistent block per SM walks 128 x 128 output tiles (128 rows of
+//     x, 128 columns), n fastest, so the blocks in flight share their x rows
+//     and the packed weight stays in L2;
+//   * a producer warp keeps a 5-stage ring full with TMA: a stage is x's
+//     [128][64] bf16 of each half (rows rs.. and K/2 + rs..), the packed
+//     [64][128] bytes and the two group-scale rows, behind one mbarrier; the
+//     tiles land 128-byte swizzled, so wgmma and the nibble loads read them
+//     without bank conflicts, and past M, N and K/2 they read as zeros;
+//   * two consumer warpgroups (setmaxnreg 232, the producer 40) each own 64
+//     columns. Operands are swapped: the decoded weight is wgmma's A, from
+//     registers, x's rows its B (m64n128k16), so no decoded weight touches
+//     shared memory. A thread's two columns are neighbours, so one 16-bit
+//     load a packed row brings both; byte_perm + lop3 + a bf16x2 subtraction
+//     decode two nibbles, and the byte pairs of a stage serve both halves;
+//   * a unit is two stages of one group: each half's products accumulate in
+//     f32 (a stage's four k-steps decoded, then issued as one wgmma batch,
+//     the next batch decoded while it runs), and at the half's end the
+//     group's f32 scale multiplies the f32 partial into the f32 sum;
+//   * K is never split: one block sums a tile in a fixed order, so two calls
+//     give bit-identical outputs.
+// Decoding and scaling in the consumers' instruction stream cost it ~20% of
+// the products' time; ptxas serializes wgmma (C7513 / C7514) if A registers
+// are redefined or a partial is read while products are in flight, hence the
+// batches and the flush after the half's last product.
+//
+// int4_gemm_kernel (path 1; every other M > 1: the engine's decode step at
+// M = 40, speculative verification, narrow shards where few tiles leave SMs
+// idle, and shapes TMA does not take: N or K not a multiple of 16, groups
+// that end inside a unit):
 //   * 32, 64 or 128 x rows by 128 output columns per block (the plan takes the
 //     smallest that holds M, so a short prompt feeds few zero rows to the
 //     tensor cores), 8 warps, bf16 mma.sync m16n8k16 fed by ldmatrix;
@@ -51,9 +88,10 @@
 //     narrow N), the plan splits K across up to 16 blocks per tile. They write
 //     f32 partials, and the last to arrive, counted per tile, sums them in
 //     split order in the same launch: bit-identical outputs, no float atomics.
-// One block (8 warps) fits an SM, for its shared memory, and the ldmatrix ->
-// mma latency is poorly hidden. Next (later work): wgmma with TMA-fed,
-// warp-specialised stages.
+// One block (8 warps) fits an SM, for its shared memory; the ldmatrix -> mma
+// latency is poorly hidden, which holds it near a fifth of its bound.
+#include <cuda.h>
+
 #include <type_traits>
 
 #include "mma.cuh"
@@ -647,6 +685,376 @@ __global__ void __launch_bounds__(kThreads, 1) int4_gemm_kernel(const Int4Params
   sum_splits<kMI, OutT>(p, m0, n0, gridDim.z);
 }
 
+// ---------------------------------------------------------------------------
+// prefill GEMM at compute-bound M: TMA-fed, warp-specialised wgmma
+// ---------------------------------------------------------------------------
+
+// The tile of one block's turn: 128 rows of x (the wgmma width) by 128 output
+// columns, 64 to each of two consumer warpgroups; a stage holds 64 packed rows.
+struct Sm90 {
+  static constexpr int kBT = 128;                // x rows (tokens) per tile
+  static constexpr int kCols = 128;              // output columns per tile
+  static constexpr int kRows = 64;               // packed rows per stage
+  static constexpr int kUnit = 2;                // stages of one group: one f32 partial
+  static constexpr int kConsumers = 2;           // consumer warpgroups; a producer after them
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kXBytes = kBT * kRows * 2;        // one half of x: [kBT][64] bf16
+  static constexpr int kWBytes = kRows * kCols;          // the packed bytes: [64][128]
+  static constexpr int kScaleBytes = kCols * 4;          // one group-scale row
+  static constexpr int kWOff = 2 * kXBytes;
+  static constexpr int kSOff = kWOff + kWBytes;
+  static constexpr int kStageBytes = kSOff + 2 * kScaleBytes;
+  static constexpr int kRing = (227 * 1024 - 2048) / kStageBytes;   // TMA ring depth: 5
+  static constexpr int kSmem = kRing * kStageBytes + 2 * kRing * 8 + 1024;  // + barriers, alignment
+  static_assert(kStageBytes % 1024 == 0, "swizzled tiles start on 1024-byte boundaries");
+};
+
+struct Sm90Params {
+  CUtensorMap x_map;     // x as [M][2][K/2] bf16: box {64, 1, kBT}, 128B swizzle
+  CUtensorMap w_map;     // w4 [K/2][N] bytes: box {128, 64}, 128B swizzle
+  CUtensorMap s_map;     // scale [G][N] f32: box {kCols, 1}
+  void* y;
+  int M, K, N, G;
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                       int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                       int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// accumulators that in-flight wgmmas write: read only after the wait that
+// completes them (this point)
+template <int R>
+__device__ __forceinline__ void hold(float (&d)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
+  }
+}
+// matrix descriptor of a K-major tile in 128-byte-swizzled rows: 8-row groups
+// 1024 bytes apart (the flash kernel's form)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+// d[64 x 128] (+)= a[64 x 16] (registers, each warp's 16 rows in the mma.sync
+// A layout) * B[16 x 128] (K-major through desc_b); accumulate = 0 overwrites d
+__device__ __forceinline__ void wgmma_rs(float (&d)[16][4], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// byte j of w0 at bits 0..7 and byte j of w1 at bits 16..23
+__device__ __forceinline__ uint32_t byte_pair(uint32_t w0, uint32_t w1, int j) {
+  return __byte_perm(w0, w1, j | (j << 4) | ((j + 4) << 8) | ((j + 4) << 12));
+}
+
+// One tile of y is 128 rows of x by 128 columns. Swapped operands: the
+// decoded weights are wgmma's A (64 output columns a product, from
+// registers), x's rows its N. Thread (gid, tig) of warp w in consumer c holds
+// A rows gid and gid + 8, which are the neighbouring columns col, col + 1
+// (col = 64 c + 16 w + 2 gid): byte 0 of the thread's 16-bit word of a packed
+// row is row gid, byte 1 row gid + 8, so one shared-memory load a row brings
+// both.
+template <typename OutT>
+__global__ void __launch_bounds__(Sm90::kThreads, 1)
+    int4_gemm_kernel_sm90(const __grid_constant__ Sm90Params p) {
+  using T = Sm90;
+  constexpr int kBT = T::kBT, kRows = T::kRows, kRing = T::kRing, kU = T::kUnit;
+  constexpr int kSteps = kRows / 16;             // k-steps a stage
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kRing * T::kStageBytes);
+  uint64_t* empty = full + kRing;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], T::kConsumers * 4);   // each consumer warp releases a stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int K2 = p.K / 2;
+  const int g = p.K / p.G;
+  const int nst = (K2 + kRows - 1) / kRows;
+  const int tiles_n = (p.N + T::kCols - 1) / T::kCols;
+  const int tiles = tiles_n * ((p.M + kBT - 1) / kBT);
+  const int wg = threadIdx.x / 128;
+
+  if (wg == T::kConsumers) {
+    // the producer: one thread keeps the ring full, tile after tile
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x % 128 != 0) return;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int n0 = (tile % tiles_n) * T::kCols, m0 = (tile / tiles_n) * kBT;
+      for (int s = 0; s < nst; ++s, ++it) {
+        const int slot = it % kRing;
+        mbar_wait(&empty[slot], ((it / kRing) & 1) ^ 1);
+        unsigned char* st = smem + slot * T::kStageBytes;
+        uint64_t* bar = &full[slot];
+        mbar_expect_tx(bar, T::kStageBytes);
+        const int rs = s * kRows;
+        tma_3d(st, &p.x_map, bar, rs, 0, m0);
+        tma_3d(st + T::kXBytes, &p.x_map, bar, rs, 1, m0);
+        tma_2d(st + T::kWOff, &p.w_map, bar, n0, rs);
+        tma_2d(st + T::kSOff, &p.s_map, bar, n0, rs / g);
+        tma_2d(st + T::kSOff + T::kScaleBytes, &p.s_map, bar, n0, (K2 + rs) / g);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+  const int gid = lane / 4, tig = lane % 4;
+  // the thread's first column in the tile, and its bytes in the swizzled
+  // [64][128] block: rows 16 ks + 2 tig (+ 8) at `even`, 16 ks + 2 tig + 1 (+ 8) at `odd`
+  const int col = wg * 64 + warp * 16 + 2 * gid;
+  const int even = T::kWOff + 2 * tig * 128 + (((col / 16) ^ (2 * tig)) * 16) + col % 16;
+  const int odd = T::kWOff + (2 * tig + 1) * 128 + (((col / 16) ^ (2 * tig + 1)) * 16) +
+                  col % 16;
+
+  // part: the f32 partial of one half of a unit (one group), scaled into acc
+  // at the half's end
+  float acc[kBT / 8][4], part[kBT / 8][4];
+  // acc += part * the scales of half h at the unit starting at stage s
+  auto flush = [&](int s, int h) {
+    const float2 sc = *reinterpret_cast<const float2*>(
+        smem + (s % kRing) * T::kStageBytes + T::kSOff + h * T::kScaleBytes + col * 4);
+#pragma unroll
+    for (int j = 0; j < kBT / 8; ++j) {
+      acc[j][0] = fmaf(part[j][0], sc.x, acc[j][0]);
+      acc[j][1] = fmaf(part[j][1], sc.x, acc[j][1]);
+      acc[j][2] = fmaf(part[j][2], sc.y, acc[j][2]);
+      acc[j][3] = fmaf(part[j][3], sc.y, acc[j][3]);
+    }
+  };
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int n0 = (tile % tiles_n) * T::kCols, m0 = (tile / tiles_n) * kBT;
+#pragma unroll
+    for (int j = 0; j < kBT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+    for (int s0 = 0; s0 < nst; s0 += kU) {
+      const int nu = min(kU, nst - s0);
+      uint32_t q[kU][kSteps][4];             // the unit's byte pairs: both halves' nibbles
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          if (u >= nu) break;
+          const int slot = (it + s0 + u) % kRing;
+          const unsigned char* st = smem + slot * T::kStageBytes;
+          if (h == 0) {
+            mbar_wait(&full[slot], ((it + s0 + u) / kRing) & 1);
+#pragma unroll
+            for (int ks = 0; ks < kSteps; ++ks) {
+              const unsigned char* wr = st + ks * 16 * 128;
+              const uint32_t w0 = *reinterpret_cast<const uint16_t*>(wr + even);
+              const uint32_t w1 = *reinterpret_cast<const uint16_t*>(wr + odd);
+              const uint32_t w2 = *reinterpret_cast<const uint16_t*>(wr + 8 * 128 + even);
+              const uint32_t w3 = *reinterpret_cast<const uint16_t*>(wr + 8 * 128 + odd);
+              q[u][ks][0] = byte_pair(w0, w1, 0);
+              q[u][ks][1] = byte_pair(w0, w1, 1);
+              q[u][ks][2] = byte_pair(w2, w3, 0);
+              q[u][ks][3] = byte_pair(w2, w3, 1);
+            }
+          }
+          // the stage's k-steps decoded, then issued as one batch
+          uint32_t a[kSteps][4];
+#pragma unroll
+          for (int ks = 0; ks < kSteps; ++ks)
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              a[ks][r] = nibble_pair(h ? q[u][ks][r] >> 4 : q[u][ks][r]);
+          wg_fence();
+          const uint32_t xb = smem_addr(st + h * T::kXBytes);
+#pragma unroll
+          for (int ks = 0; ks < kSteps; ++ks)
+            wgmma_rs(part, a[ks], gmma_desc(xb + ks * 32), u > 0 || ks > 0);
+          wg_commit();
+          wg_wait<1>();                          // the batch before is done
+        }
+        wg_wait<0>();
+        hold(part);
+        flush(it + s0, h);
+      }
+      // every warp is done with the unit's stages: hand them back
+      __syncwarp();
+      if (lane == 0) {
+        for (int u = 0; u < nu; ++u) mbar_arrive(&empty[(it + s0 + u) % kRing]);
+      }
+    }
+    it += nst;
+
+    // row m, columns n and n + 1: A rows gid and gid + 8
+    OutT* y = static_cast<OutT*>(p.y);
+    const int n = n0 + col;
+    if (n < p.N) {
+#pragma unroll
+      for (int j = 0; j < kBT / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = m0 + 8 * j + 2 * tig + e;
+          if (m < p.M) store2(y + (int64_t)m * p.N + n, acc[j][e], acc[j][e + 2]);
+        }
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a tensor map over `base`: dims and box innermost first, strides in bytes
+// of every dimension but the first; out-of-bounds elements read as zeros
+bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+                const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return encode != nullptr &&
+         encode(map, type, rank, const_cast<void*>(base), dims, strides, box, ones,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// shapes the TMA path takes: 16-byte rows and bases, groups of whole units
+bool sm90_takes(const Int4Params& p) {
+  return p.K % 16 == 0 && p.N % 16 == 0 && reinterpret_cast<uintptr_t>(p.x) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(p.w4) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(p.scale) % 16 == 0 &&
+         (p.G == 1 || (p.K / p.G) % (Sm90::kUnit * Sm90::kRows) == 0);
+}
+
+// the tensor maps and one launch: a persistent block on each SM, or one a tile
+template <typename OutT>
+cudaError_t launch_sm90(const Int4Params& p, cudaStream_t st) {
+  using T = Sm90;
+  if (!sm90_takes(p)) return cudaErrorInvalidValue;
+  Sm90Params q;
+  const cuuint64_t K2 = p.K / 2, M = p.M, N = p.N, G = p.G;
+  const cuuint64_t x_dims[3] = {K2, 2, M}, x_strides[2] = {K2 * 2, K2 * 4};
+  const cuuint32_t x_box[3] = {T::kRows, 1, T::kBT};
+  const cuuint64_t w_dims[2] = {N, K2}, w_strides[1] = {N};
+  const cuuint32_t w_box[2] = {T::kCols, T::kRows};
+  const cuuint64_t s_dims[2] = {N, G}, s_strides[1] = {N * 4};
+  const cuuint32_t s_box[2] = {T::kCols, 1};
+  if (!tensor_map(&q.x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, p.x, x_dims, x_strides,
+                  x_box, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&q.w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, p.w4, w_dims, w_strides, w_box,
+                  CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&q.s_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, p.scale, s_dims, s_strides,
+                  s_box, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  q.y = p.y;
+  q.M = p.M; q.K = p.K; q.N = p.N; q.G = p.G;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      int4_gemm_kernel_sm90<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (attr != cudaSuccess) return attr;
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const int tiles = (p.N + T::kCols - 1) / T::kCols * ((p.M + T::kBT - 1) / T::kBT);
+  int4_gemm_kernel_sm90<OutT><<<tiles < sms ? tiles : sms, T::kThreads, T::kSmem, st>>>(q);
+  return cudaGetLastError();
+}
+
 template <typename XT, typename OutT>
 cudaError_t launch_gemv(const Int4Params& p, cudaStream_t st) {
   const int BN = kV * p.col_threads;
@@ -691,8 +1099,11 @@ cudaError_t launch_gemm_tile(const Int4Params& p, int splits, cudaStream_t st) {
 // K split across `splits` blocks per output tile (1..16, none of them empty).
 // With splits > 1, `ws` holds splits * M * N floats and `counters` one int per
 // output tile, all zero; the kernel leaves them zero. Returns a cudaError_t;
-// 0 means the launch was accepted. XT, x's type: bf16 on both paths, f32 on
-// the GEMV alone.
+// 0 means the launch was accepted.
+// path 2: the TMA / wgmma GEMM (any M; K and N multiples of 16, 16-byte
+// aligned bases, G == 1 or groups a multiple of 64 rows), one persistent
+// block per SM at most; the tile arguments are not read.
+// XT, x's type: bf16 on the GEMMs, bf16 or f32 on the GEMV.
 template <typename XT, typename OutT>
 int run(const void* x, const void* w4, const void* scale, void* y, void* ws, void* counters,
         int M, int K, int N, int G, int path, int col_threads, int rows_per_lane,
@@ -711,6 +1122,10 @@ int run(const void* x, const void* w4, const void* scale, void* y, void* ws, voi
   p.vec_s = N % 4 == 0 && reinterpret_cast<uintptr_t>(scale) % 16 == 0;
   p.vec_x = K % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (path == 2) {     // the TMA / wgmma GEMM reads bf16 x
+    if constexpr (!std::is_same_v<XT, __nv_bfloat16>) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_sm90<OutT>(p, st));
+  }
   if (path == 1) {
     if constexpr (!std::is_same_v<XT, __nv_bfloat16>)   // the GEMM reads bf16 x
       return static_cast<int>(cudaErrorInvalidValue);

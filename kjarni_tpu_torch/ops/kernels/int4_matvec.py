@@ -2,11 +2,14 @@
 
 Replaces kjarni_tpu/ops/pallas/int4_matvec.py::int4_matvec. In the port it is
 the "w4" branch of models/llama.py::_mm, for decode (M = 1) and prefill
-(M = bucket) alike. `launch_plan` picks the kernel by M: a GEMV that streams
-the packed bytes for decode (M == 1), a tiled tensor-core GEMM for everything
-else, with a row tile and a split of K sized to the grid. The CUDA source is
+(M = bucket) alike. `launch_plan` picks the kernel by shape: a GEMV that
+streams the packed bytes for decode (M == 1); for M >= 128, where TMA takes
+the shape, a TMA-fed, warp-specialised wgmma GEMM ("wgmma") wherever the
+plan's model times it faster; else the mma.sync GEMM ("gemm"), with a row
+tile and a split of K sized to the grid. The CUDA source is
 csrc/int4_matvec.cu; its header says what bounds each path on the H100 and
-what the design does about it.
+what the design does about it. `int4_matvec.launches` counts launches and
+`int4_matvec.launches_by_path` counts them by path.
 
 `int4_matvec` launches the kernel for CUDA tensors and raises on what the
 kernel does not take; it runs the plain version only for tensors on the CPU.
@@ -39,6 +42,14 @@ _GEMM_MAX_SPLITS = 16
 _GEMM_STAGE_US = {32: 1.3, 64: 2.0, 128: 3.5}
 _SUM_BYTES_PER_US = 60e3
 _SMS = 132              # H100 SXM
+# the TMA / wgmma GEMM ("wgmma"): 128-column by 128-row output tiles, 64 packed
+# rows a stage, one persistent block per SM; its time per stage of a tile and
+# the least M it takes (launch_plan says where they come from)
+_WGMMA_COLS = 128
+_WGMMA_ROWS = 128
+_WGMMA_STAGE_US = 1.0
+_WGMMA_MIN_M = 128
+_PATHS = {"gemv": 0, "gemm": 1, "wgmma": 2}     # the C entry points' `path`
 # (x's dtype as the kernel reads it, y's dtype) -> the C entry point; the
 # GEMM reads bf16 x only
 _ENTRIES = {(torch.bfloat16, torch.bfloat16): "kj_int4_matvec_bf16",
@@ -48,11 +59,11 @@ _X_DTYPES = (torch.bfloat16, torch.float32)
 
 
 class Plan(NamedTuple):
-    """How one call launches: `path` "gemv" or "gemm". For the GEMV, the
-    threads across each block's 8 * col_threads columns and the packed rows
-    each of the block's other threads walks down K (the block covers all of
-    K). For the GEMM, the x rows per block and the blocks that split K for
-    each output tile."""
+    """How one call launches: `path` "gemv", "gemm" or "wgmma". For the GEMV,
+    the threads across each block's 8 * col_threads columns and the packed
+    rows each of the block's other threads walks down K (the block covers all
+    of K). For the GEMM, the x rows per block and the blocks that split K for
+    each output tile. The wgmma GEMM's tiles are fixed (128 x rows, splits 1)."""
     path: str
     col_threads: int = 0
     rows_per_lane: int = 0
@@ -60,8 +71,13 @@ class Plan(NamedTuple):
     splits: int = 0
 
 
-@functools.lru_cache(maxsize=256)
 def gemm_plan(M: int, K: int, N: int) -> Plan:
+    """The mma.sync GEMM's grid (`_gemm_best`)."""
+    return _gemm_best(M, K, N)[1]
+
+
+@functools.lru_cache(maxsize=256)
+def _gemm_best(M: int, K: int, N: int) -> tuple[float, Plan]:
     """The GEMM's grid: the row tile (32, 64 or 128 rows of x) and the split
     of K's 64-row stages across blocks, chosen together as the cheapest by a
     model fitted to the H100 (one block per SM): waves x stages per split x
@@ -82,7 +98,22 @@ def gemm_plan(M: int, K: int, N: int) -> Plan:
                 us += splits * min(M, row_tile) * _GEMM_COLS * 4 / _SUM_BYTES_PER_US
             if best is None or (us, splits) < best[:2]:
                 best = (us, splits, row_tile)
-    return Plan("gemm", row_tile=best[2], splits=best[1])
+    return best[0], Plan("gemm", row_tile=best[2], splits=best[1])
+
+
+def wgmma_us(M: int, K: int, N: int) -> float:
+    """The wgmma GEMM's time by the same model: the persistent blocks' turns
+    over the output tiles x stages a tile x the time of a stage."""
+    tiles = -(-N // _WGMMA_COLS) * -(-M // _WGMMA_ROWS)
+    return -(-tiles // _SMS) * -(-(K // 2) // _GEMM_STAGE) * _WGMMA_STAGE_US
+
+
+def wgmma_takes(M: int, K: int, N: int, G: int) -> bool:
+    """Shapes the wgmma GEMM takes: M at or above _WGMMA_MIN_M, 16-byte rows
+    of x, w4 and the scales for TMA (K and N multiples of 16), and groups
+    that end only between pairs of 64-row stages (G == 1, or g % 128 == 0)."""
+    return (M >= _WGMMA_MIN_M and K % 16 == 0 and N % 16 == 0
+            and (G == 1 or (K // G) % (2 * _GEMM_STAGE) == 0))
 
 
 def launch_plan(M: int, K: int, N: int, G: int) -> Plan:
@@ -90,9 +121,17 @@ def launch_plan(M: int, K: int, N: int, G: int) -> Plan:
     with the widest blocks that still give two per SM; where N is too small
     for that, 32-column blocks (one 32-byte sector of each packed row), or
     16-column ones where even those leave SMs idle. Every other M takes the
-    GEMM (`gemm_plan`)."""
+    wgmma GEMM where it takes the shape and the model times it below the
+    mma.sync GEMM's best grid (`gemm_plan`), else that grid. The wgmma GEMM's
+    threshold (M >= 128) and time per tile-stage (1.0 us) come from
+    chip_smoke.py's int4 lines on an H100 SXM: at M = 128 it beat the mma.sync
+    GEMM at three of Mistral-7B's four projection shapes, and at M = 1024 and
+    8192 a tile-stage took 0.92-1.09 us."""
     if M > 1:
-        return gemm_plan(M, K, N)
+        us, plan = _gemm_best(M, K, N)
+        if wgmma_takes(M, K, N, G) and wgmma_us(M, K, N) < us:
+            return Plan("wgmma", row_tile=_WGMMA_ROWS, splits=1)
+        return plan
 
     def blocks(ct):
         return -(-N // (_GEMV_COLS * ct))
@@ -175,7 +214,12 @@ def int4_matvec(x: torch.Tensor, w4: torch.Tensor, scale: torch.Tensor) -> torch
     if not (w4.is_contiguous() and scale.is_contiguous()):
         # a copy here would move the whole weight on every call
         raise ValueError("int4_matvec: w4 and scale must be contiguous")
-    return _launch(x.contiguous(), w4, scale, launch_plan(M, K, N, G))
+    x = x.contiguous()
+    plan = launch_plan(M, K, N, G)
+    if plan.path == "wgmma" and (x.data_ptr() % 16 or w4.data_ptr() % 16
+                                 or scale.data_ptr() % 16):
+        plan = gemm_plan(M, K, N)      # TMA reads 16-byte aligned bases only
+    return _launch(x, w4, scale, plan)
 
 
 def _launch(x: torch.Tensor, w4: torch.Tensor, scale: torch.Tensor,
@@ -186,7 +230,7 @@ def _launch(x: torch.Tensor, w4: torch.Tensor, scale: torch.Tensor,
     M, K = x.shape
     N, G = w4.shape[1], scale.shape[0]
     y = torch.empty(M, N, dtype=x.dtype, device=x.device)
-    if plan.path == "gemm":
+    if plan.path != "gemv":
         x = x.to(torch.bfloat16)
     symbol = _ENTRIES[(x.dtype, y.dtype)]
     ws = counters = None
@@ -201,11 +245,13 @@ def _launch(x: torch.Tensor, w4: torch.Tensor, scale: torch.Tensor,
     err = fn(x.data_ptr(), w4.data_ptr(), scale.data_ptr(), y.data_ptr(),
              None if ws is None else ws.data_ptr(),
              None if counters is None else counters.data_ptr(),
-             M, K, N, G, int(plan.path == "gemm"), plan.col_threads, plan.rows_per_lane,
+             M, K, N, G, _PATHS[plan.path], plan.col_threads, plan.rows_per_lane,
              plan.row_tile, plan.splits, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "int4_matvec")
     int4_matvec.launches += 1
+    int4_matvec.launches_by_path[plan.path] += 1
     return y
 
 
 int4_matvec.launches = 0
+int4_matvec.launches_by_path = dict.fromkeys(_PATHS, 0)

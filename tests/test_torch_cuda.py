@@ -2,7 +2,8 @@
 
 int4 at M = 1 (the decode GEMV) and at Ms across the GEMM's row tiles, with
 one group and with groups of 128, ragged K/2 and N, K split across blocks
-and not, and bit-identical repeat calls; flash at D = 32, 64, 96 and 128 and G = 1, 3, 4, 6, 7
+and not, and bit-identical repeat calls; the TMA / wgmma GEMM at Mistral-7B's
+prefill shapes and ragged M, one launch a call; flash at D = 32, 64, 96 and 128 and G = 1, 3, 4, 6, 7
 and 8 (the zoo's groups at their prefill and cache-reuse shapes), with batch > 1, S and T across several 64-key tiles with ragged edges,
 every tile class (interior, causal diagonal, window left edge, kv_len edge
 with a poisoned tail), q in the [B, S, H, D] storage that the model passes,
@@ -178,14 +179,54 @@ def test_int4_kernel_at_batch_times_bucket(card, K, N):
     test_int4_kernel_matches_plain(card, 8 * 1024, K, N, 128)
 
 
+# Mistral-7B's projections (K, N): q and o, k and v, gate and up, down; and a
+# Qwen2.5-0.5B width with one scale per column
+_MISTRAL_INT4 = [(4096, 4096, 128), (4096, 1024, 128), (4096, 14336, 128),
+                 (14336, 4096, 128), (896, 4864, 896)]
+
+
+@pytest.mark.parametrize("M", [1000, 1024, 4096, 4097, 8192])
+@pytest.mark.parametrize("K,N,group", _MISTRAL_INT4)
+def test_int4_wgmma_kernel_at_prefill_shapes(card, M, K, N, group):
+    """The TMA / wgmma GEMM at the prefill buckets and ragged M: the plan
+    takes it, and it holds the plain version's bound."""
+    assert launch_plan(M, K, N, K // group).path == "wgmma"
+    before = int4_matvec.launches_by_path["wgmma"]
+    test_int4_kernel_matches_plain(card, M, K, N, group)
+    assert int4_matvec.launches_by_path["wgmma"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int4_wgmma_kernel_is_one_launch(card, dtype):
+    """One call on the wgmma path launches exactly one kernel, named
+    int4_gemm_kernel..., in bf16 and with f32 x (whose cast to bf16 is the
+    wrapper's one elementwise kernel beside it)."""
+    from torch.profiler import ProfilerActivity, profile
+    x, w4, scale = _int4_inputs(card, 1024, 4096, 4096, 128)
+    x = x.to(dtype)
+    int4_matvec(x, w4, scale)                  # built and loaded outside the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        int4_matvec(x, w4, scale)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+    ours = [k for k in kernels if "int4_gemm_kernel" in k]
+    assert len(ours) == 1 and "sm90" in ours[0], kernels
+    assert len(kernels) == (1 if dtype == torch.bfloat16 else 2), kernels
+
+
 @pytest.mark.parametrize("M,K,N,group", [(1, 8192, 2048, 128), (1, 2048, 512, 2048),
                                          (8, 8192, 1000, 128), (1024, 2048, 8192, 128),
-                                         (1024, 2048, 512, 128)])
+                                         (1024, 2048, 512, 128), (256, 2048, 512, 128),
+                                         (8192, 14336, 4096, 128), (1000, 896, 4864, 896)])
 def test_int4_kernel_is_deterministic(card, M, K, N, group):
-    """No float atomics: the GEMV sums its lanes in a fixed tree, and a GEMM
-    split across K sums its splits in order. Repeated calls are bit-identical."""
+    """No float atomics: the GEMV sums its lanes in a fixed tree, a GEMM
+    split across K sums its splits in order, and the wgmma GEMM keeps K in
+    one block. Repeated calls are bit-identical."""
+    plan = launch_plan(M, K, N, K // group)
     if M > 1 and N <= 1000:
-        assert launch_plan(M, K, N, K // group).splits > 1
+        assert plan.splits > 1 or plan.path == "wgmma"
     x, w4, scale = _int4_inputs(card, M, K, N, group)
     first = int4_matvec(x, w4, scale)
     for _ in range(3):
@@ -287,7 +328,8 @@ def test_flash_f32_kernel_tile_classes(card, B, H, Hkv, S, T, D, causal, window,
 @pytest.mark.parametrize("M,K,N,group", [(1, 2048, 8192, 128), (1, 2048, 128256, 128),
                                          (1, 200, 128, 200), (8, 2048, 1002, 128),
                                          (8, 8192, 2048, 128), (33, 512, 264, 128),
-                                         (1024, 2048, 8192, 128), (1024, 2048, 512, 2048)])
+                                         (1024, 2048, 8192, 128), (1024, 2048, 512, 2048),
+                                         (1000, 4096, 1024, 128), (4097, 14336, 4096, 128)])
 def test_int4_kernel_f32_activations(card, M, K, N, group):
     """An f32 x: the kernel rounds it to bf16 (as the Pallas body does) and
     writes f32, held to the plain version in the same form (x_as_bf16)

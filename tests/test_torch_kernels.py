@@ -20,7 +20,7 @@ from kjarni_tpu.ops.pallas.int4_matvec import int4_matvec as jax_int4_matvec
 from kjarni_tpu_torch.models.llama import pack_int4
 from kjarni_tpu_torch.ops.kernels.flash_attention import (HEAD_DIMS, check_shapes,
                                                           flash_attention)
-from kjarni_tpu_torch.ops.kernels.int4_matvec import int4_matvec, launch_plan
+from kjarni_tpu_torch.ops.kernels.int4_matvec import int4_matvec, launch_plan, wgmma_takes
 
 
 def rand(*shape, seed=0):
@@ -240,9 +240,10 @@ class TestInt4PlainVsJax:
 
     def test_cpu_runs_plain_without_counting(self):
         x, w4, scale, _, _ = make_int4_case(1, 256, 128, 64)
-        before = int4_matvec.launches
+        before = int4_matvec.launches, dict(int4_matvec.launches_by_path)
         int4_matvec(to_torch(x), torch.from_numpy(w4), to_torch(scale))
-        assert int4_matvec.launches == before
+        assert (int4_matvec.launches, int4_matvec.launches_by_path) == before
+        assert set(int4_matvec.launches_by_path) == {"gemv", "gemm", "wgmma"}
 
     @pytest.mark.parametrize("M,K,N", [
         (1, 2048, 2048), (1, 8192, 2048), (1, 2048, 128256), (1024, 2048, 8192),
@@ -253,7 +254,12 @@ class TestInt4PlainVsJax:
         G = K // 128 if K % 256 == 0 else 1
         plan = launch_plan(M, K, N, G)
         # each M goes to exactly one path: the GEMV takes M == 1 alone
-        assert plan.path == ("gemv" if M == 1 else "gemm")
+        assert plan.path == "gemv" if M == 1 else plan.path in ("gemm", "wgmma")
+        if plan.path == "wgmma":
+            # fixed tiles, K whole: the kernel walks every stage of every tile
+            assert (plan.col_threads, plan.rows_per_lane, plan.splits) == (0, 0, 1)
+            assert plan.row_tile == 128 and wgmma_takes(M, K, N, G)
+            return
         if plan.path == "gemm":
             assert plan.col_threads == plan.rows_per_lane == 0
             # a row tile the kernel has; a short prompt takes the smallest
@@ -282,6 +288,34 @@ class TestInt4PlainVsJax:
         assert (rows - 8) * lanes < K // 2 <= rows * lanes
         # at least one block per SM of the H100 where N allows
         assert -(-N // (8 * plan.col_threads)) >= min(132, -(-N // 16))
+
+
+# Mistral-7B's projections (K, N): q and o, k and v, gate and up, down
+_MISTRAL = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+
+
+@pytest.mark.parametrize("M,K,N,G,path", [
+    # the single stream's prefill at every bucket of its prompts, and
+    # admission waves of lanes x bucket
+    *[(M, K, N, K // 128, "wgmma") for M in (1024, 2048, 4096, 8192, 4 * 1024, 3 * 2048)
+      for K, N in _MISTRAL],
+    # a Qwen width with one scale per column, and a tp shard
+    (1024, 896, 4864, 1, "wgmma"), (8192, 2048, 512, 16, "wgmma"),
+    # the engine's decode step over 40 slots, speculative verification
+    *[(40, K, N, K // 128, "gemm") for K, N in _MISTRAL],
+    (5, 4096, 4096, 32, "gemm"),
+    # groups of 32 and 64 rows end inside the kernel's two-stage units; N not
+    # a multiple of 16
+    (8192, 4096, 4096, 128, "gemm"), (8192, 4096, 4096, 64, "gemm"),
+    (8192, 4096, 1000, 32, "gemm"),
+    # decode
+    *[(1, K, N, K // 128, "gemv") for K, N in _MISTRAL],
+])
+def test_launch_plan_picks_the_path(M, K, N, G, path):
+    """Which kernel each call takes, by shape alone: the wgmma GEMM at the
+    prefill and admission shapes, the mma.sync GEMM at small M and at
+    shapes TMA or its stages do not take, the GEMV at M = 1."""
+    assert launch_plan(M, K, N, G).path == path
 
 
 def test_bf16_cast_matches_ml_dtypes():
