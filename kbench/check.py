@@ -3,7 +3,8 @@
 After the window has closed and the program's state is freed, two samples of
 the requests the window finished, drawn from the seed and each always holding
 the longest and the shortest, one of greedy and one of sampled requests, run
-through the plain reference (`reference/decoder.py`) over each prompt with its
+through the plain reference (`reference/decoder.py`, the forward of the
+configuration's architecture module, `kbench/arch/`) over each prompt with its
 served tokens. Two numbers are compared, each against the cell's limit:
 
 - `max_logit_gap`, of greedy tokens: how far the reference's logit of the
@@ -37,7 +38,9 @@ it asked for (no stop token is live), fails the run as well.
 from __future__ import annotations
 
 import random
+from pathlib import Path
 
+from . import lookup
 from .reference.decoder import logits_at
 
 
@@ -128,7 +131,7 @@ def _sampler_faults(refs: list, sample: list, seed: int) -> dict:
 
 
 def gaps(hf: dict, seed: int, greedy: list, sampled: list, device, quant,
-         control: bool = False) -> dict:
+         control: bool = False, kroot: Path = lookup.KROOT) -> dict:
     """The readings: "max_logit_gap" and "tokens" of the greedy sample,
     "nucleus_excess" and "sampled_tokens" of the sampled one; with control,
     "control_gap" (the fp8 control's widest gap) and "sampler_faults"."""
@@ -137,7 +140,7 @@ def gaps(hf: dict, seed: int, greedy: list, sampled: list, device, quant,
     if not both:
         return out
     seqs, rows = teacher_forced(both)
-    ref = logits_at(hf, seed, seqs, rows, device, quant=quant)
+    ref = logits_at(hf, seed, seqs, rows, device, quant=quant, kroot=kroot)
     rg, rs = ref[:len(greedy)], ref[len(greedy):]
     if greedy:
         out["max_logit_gap"] = max(_gap(r, s.tokens) for r, s in zip(rg, greedy))
@@ -148,7 +151,7 @@ def gaps(hf: dict, seed: int, greedy: list, sampled: list, device, quant,
         out["sampled_tokens"] = sum(len(s.tokens) for s in sampled)
     if control and greedy:
         low = logits_at(hf, seed, seqs[:len(greedy)], rows[:len(greedy)], device,
-                        quant=quant, precision="fp8")
+                        quant=quant, precision="fp8", kroot=kroot)
         out["control_gap"] = max(_gap(r, c.argmax(dim=-1)) for r, c in zip(rg, low))
     if control and sampled:
         out["sampler_faults"] = _sampler_faults(rs, sampled, seed)
@@ -156,7 +159,7 @@ def gaps(hf: dict, seed: int, greedy: list, sampled: list, device, quant,
 
 
 def judge(window, hf: dict, seed: int, limits: dict, device, quant,
-          control: bool = False) -> tuple[bool, dict, dict]:
+          control: bool = False, kroot: Path = lookup.KROOT) -> tuple[bool, dict, dict]:
     """(correct, checks {name: {"value", "limit"}}, the readings). With
     control, the readings also hold "control_correct": the control's verdict
     under the cell's limit, and "faults_correct": each sampler fault's."""
@@ -167,7 +170,7 @@ def judge(window, hf: dict, seed: int, limits: dict, device, quant,
     greedy = pick(window.served, seed, n_tok, n_req)
     nucleus = "max_nucleus_excess" in limits
     sampled = pick(window.served, seed, n_tok, n_req, greedy=False) if nucleus else []
-    read = gaps(hf, seed, greedy, sampled, device, quant, control)
+    read = gaps(hf, seed, greedy, sampled, device, quant, control, kroot)
     gap = read["max_logit_gap"]
     checks = {"max_logit_gap": {"value": gap, "limit": limits["max_logit_gap"]}}
     ok = gap is not None and gap <= limits["max_logit_gap"]

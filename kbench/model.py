@@ -9,6 +9,11 @@ word-level `tokenizer.json` over the vocabulary (requests are sent as token
 ids). The weights are `weights.SeededWeights`, put in place of
 `weights/safetensors_loader.ModelWeights` for the construction alone: the
 harness's one seam into the program. No weight file is written.
+
+The configuration's `model_type` picks the architecture module
+(`kbench/arch/<family>.py`) whose layout the seeded checkpoint follows; a new
+architecture is a new file there, with no edit here. The program builds the
+model for that `model_type` by itself.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from __future__ import annotations
 import json
 from pathlib import Path
 
+from . import lookup
 from .weights import SeededWeights
 
 EXTRA_KEYS = ("source", "dtype", "quantize", "reduced", "assumed")
@@ -37,7 +43,8 @@ def tokenizer_json(vocab: int) -> dict:
             "model": {"type": "WordLevel", "vocab": words, "unk_token": "[UNK]"}}
 
 
-def build(conf: dict, seed: int, max_context: int, device, model_dir: Path):
+def build(conf: dict, seed: int, max_context: int, device, model_dir: Path,
+          kroot: Path = lookup.KROOT):
     """The program's DecoderLM of configuration `conf` with weights from
     `seed`, on `device`. Every stop token is dropped, so each request runs
     to its max_new_tokens, as serving benchmarks run random weights."""
@@ -47,7 +54,7 @@ def build(conf: dict, seed: int, max_context: int, device, model_dir: Path):
     model_dir.mkdir(parents=True, exist_ok=True)
     (model_dir / "config.json").write_text(json.dumps(hf))
     (model_dir / "tokenizer.json").write_text(json.dumps(tokenizer_json(hf["vocab_size"])))
-    source = SeededWeights(hf, seed, device)
+    source = SeededWeights(hf, seed, device, kroot)
     seam = decoder_lm.ModelWeights
     decoder_lm.ModelWeights = lambda _dir: source
     try:

@@ -1,5 +1,6 @@
 """Operations and bytes of the program's kernels and of a decoder's useful
-work, from shapes alone.
+work, from shapes alone. The kernel families (`roofline/kernels/`) take their
+bounds from here.
 
 A kernel's bound is the least time the card could take for one launch: the
 larger of its operations over the bf16 tensor-core peak (int4's mma runs in
@@ -12,10 +13,12 @@ full square.
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
+from .. import lookup
 from .peaks import BF16_FLOP_PER_S, HBM_BYTES_PER_S
 
 
@@ -56,31 +59,9 @@ def flash_cost(B: int, H: int, Hkv: int, S: int, T: int, D: int, causal: bool,
     return flops, nbytes
 
 
-def matmul_params(cfg: dict) -> tuple[int, int]:
-    """(weights of every layer's projections, weights of the head) of a
-    llama-family config: the multiply-adds one token costs outside
-    attention."""
-    hid, inter = cfg["hidden_size"], cfg["intermediate_size"]
-    H = cfg["num_attention_heads"]
-    Hkv = cfg.get("num_key_value_heads", H)
-    D = cfg.get("head_dim") or hid // H
-    per_layer = hid * (H + 2 * Hkv) * D + H * D * hid + 3 * hid * inter
-    return per_layer * cfg["num_hidden_layers"], hid * cfg["vocab_size"]
-
-
-def useful_flops(cfg: dict, prompt: int, new_tokens: int) -> float:
-    """Model operations of one request with no padding: the prompt's
-    projections and causal attention, the head once for the first token,
-    then each further token over its whole context. A request that returns
-    n tokens runs n - 1 decode forwards after its prefill."""
-    layers_w, head_w = matmul_params(cfg)
-    H = cfg["num_attention_heads"]
-    D = cfg.get("head_dim") or cfg["hidden_size"] // H
-    L = cfg["num_hidden_layers"]
-    attn_per_pair = 4.0 * H * D * L
-    flops = 2.0 * layers_w * prompt + attn_per_pair * prompt * (prompt + 1) / 2
-    flops += 2.0 * head_w
-    for j in range(1, new_tokens):
-        ctx = prompt + j               # keys the j-th decode forward attends
-        flops += 2.0 * (layers_w + head_w) + attn_per_pair * ctx
-    return flops
+def useful_flops(cfg: dict, prompt: int, new_tokens: int,
+                 kroot: Path = lookup.KROOT) -> float:
+    """Model operations of one request with no padding, as the architecture
+    module of cfg's `model_type` counts them (`kbench/arch/<family>.py`; a
+    new architecture is a new file there, with no edit here)."""
+    return lookup.architecture(cfg, kroot).useful_flops(cfg, prompt, new_tokens)

@@ -6,8 +6,12 @@ from the root of a checkout. Everything is found by name: the workload's entry
 in `BENCHMARK.json`, its cell file `kbench/cells/<workload>.json` (driver,
 rate, slots, context, limits), its configuration file, its traffic mix
 `kbench/traffic/<mix>.json` (read by `traffic.py`), its driver
-`kbench/drivers/<driver>.py`, and each metric's reader
-`kbench/metrics/<metric>.py`. A new cell, mix, configuration or metric is new
+`kbench/drivers/<driver>.py`, each metric's reader
+`kbench/metrics/<metric>.py`, the configuration's architecture module
+`kbench/arch/<family>.py` (by `model_type`: its checkpoint layout, reference
+and useful FLOPs) and each kernel family `kbench/roofline/kernels/<family>.py`
+(its kernel names, launches and bounds); `lookup.py` gives the contracts. A
+new cell, mix, configuration, metric, architecture or kernel family is new
 files and new entries, and no edit.
 
 A run: the model is built from the seed on the card, the cell's traffic is
@@ -32,7 +36,6 @@ T_START = time.perf_counter()
 import argparse  # noqa: E402
 import gc  # noqa: E402
 import importlib  # noqa: E402
-import importlib.util  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import shutil  # noqa: E402
@@ -42,7 +45,9 @@ import tempfile  # noqa: E402
 import types  # noqa: E402
 from pathlib import Path  # noqa: E402
 
-KROOT = Path(__file__).resolve().parent
+from . import lookup  # noqa: E402
+
+KROOT = lookup.KROOT
 BENCHMARK = KROOT.parent / "BENCHMARK.json"
 FORBIDDEN = ("jax", "jaxlib", "flax", "kjarni_tpu")
 TRACE_AT = 0.4            # the traced slice starts this far into the window
@@ -85,12 +90,7 @@ def metric_entries(bench: dict, workload: str, trace: bool) -> list:
 
 def reader(name: str, kroot: Path = KROOT):
     """The `read(run)` of metric `name`, from kbench/metrics/<name>.py."""
-    spec = importlib.util.spec_from_file_location(
-        f"kbench_metric_{name.replace('.', '_').replace('-', '_')}",
-        kroot / "metrics" / f"{name}.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return lookup.load(Path(kroot) / "metrics" / f"{name}.py").read
 
 
 def forbidden_modules(modules=None) -> list:
@@ -150,13 +150,13 @@ def execute(bench: dict, workload: str, seed: int, seconds: float, trace: bool,
     mix = traffic.load_mix(cell["traffic"], kroot / "traffic")
     tmp = Path(tempfile.mkdtemp(prefix="kbench-"))
     try:
-        lm = model.build(conf, seed, cell["max_context"], device, tmp / "model")
+        lm = model.build(conf, seed, cell["max_context"], device, tmp / "model", kroot)
         state = driver.setup(lm, cell)
         driver.warm(state, traffic.warm_requests(mix, hf["vocab_size"],
                                                  hf.get("bos_token_id"),
                                                  cell["warm_new_tokens"]))
         reqs = _requests(cell, mix, seconds, hf, seed)
-        tracer = Tracer(trace, TRACE_AT * seconds, min(TRACE_S, seconds / 2))
+        tracer = Tracer(trace, TRACE_AT * seconds, min(TRACE_S, seconds / 2), kroot)
         tracer.install()
         if device == "cuda":
             torch.cuda.synchronize()
@@ -178,7 +178,7 @@ def execute(bench: dict, workload: str, seed: int, seconds: float, trace: bool,
             torch.cuda.empty_cache()
         t_ref = time.perf_counter()
         ok, checks, readings = check.judge(window, hf, seed, cell["check"], device,
-                                           conf.get("quantize"), control)
+                                           conf.get("quantize"), control, kroot)
         log(f"reference {time.perf_counter() - t_ref:.2f} s: {readings}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -93,7 +93,7 @@ def test_int4_scheme_matches_the_stated_one():
 
 def test_control_is_one_precision_down():
     x = torch.randn(4, 64, generator=torch.Generator().manual_seed(1))
-    y = decoder._fp8_rows(x)
+    y = decoder.fp8_rows(x)
     rel = ((y - x).abs() / x.abs().clamp_min(1e-3)).max()
     assert 0.005 < float(rel) <= 0.0625 + 1e-6          # e4m3: 3 mantissa bits
 
@@ -110,10 +110,12 @@ def _imports(path: Path) -> set:
 
 
 def test_the_yardstick_imports_nothing_of_the_program():
-    """The reference, the weights it draws and the cost functions import
-    neither JAX, the JAX package nor the port."""
-    files = list((KBENCH / "reference").glob("*.py")) + \
-        list((KBENCH / "roofline").glob("*.py")) + [KBENCH / "weights.py", KBENCH / "stats.py"]
+    """The reference, the architecture modules, the weights they draw, the
+    cost functions and the kernel families import neither JAX, the JAX
+    package nor the port (a family names its entry function as a string)."""
+    files = [f for d in ("reference", "arch", "roofline", "roofline/kernels")
+             for f in (KBENCH / d).glob("*.py")] + \
+        [KBENCH / n for n in ("weights.py", "stats.py", "lookup.py")]
     for f in files:
         bad = _imports(f) & {"jax", "jaxlib", "flax", "kjarni_tpu", "kjarni_tpu_torch"}
         assert not bad, (f, bad)

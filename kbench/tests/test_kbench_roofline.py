@@ -2,6 +2,7 @@
 
 import pytest
 
+from kbench import lookup
 from kbench.roofline import costs
 from kbench.roofline.peaks import BF16_FLOP_PER_S, HBM_BYTES_PER_S
 
@@ -52,11 +53,12 @@ def test_int4_cost_by_hand():
 
 
 def test_useful_flops_by_hand():
-    cfg = {"hidden_size": 8, "intermediate_size": 16, "num_attention_heads": 2,
-           "num_key_value_heads": 1, "num_hidden_layers": 3, "vocab_size": 10}
+    cfg = {"model_type": "llama", "hidden_size": 8, "intermediate_size": 16,
+           "num_attention_heads": 2, "num_key_value_heads": 1, "num_hidden_layers": 3,
+           "vocab_size": 10}
     # per layer: q 8x8, k and v 8x4 each, o 8x8, gate/up/down 3 x 8x16
     per_layer = 8 * 8 + 2 * 8 * 4 + 8 * 8 + 3 * 8 * 16
-    assert costs.matmul_params(cfg) == (3 * per_layer, 80)
+    assert lookup.architecture(cfg).matmul_params(cfg) == (3 * per_layer, 80)
     attn = 4 * 2 * 4 * 3          # 4 H D L per kept (query, key) pair
     prompt, new = 5, 3
     want = 2 * 3 * per_layer * 5 + attn * 15 + 2 * 80

@@ -1,8 +1,13 @@
-"""Busy and idle time, gap labels and roofline shares from a synthetic trace."""
+"""Busy and idle time, gap labels and roofline shares from a synthetic trace;
+a kernel family added as a file, its launches recorded by wrapping every
+binding of its entry function."""
+
+import sys
+import types
 
 import pytest
 
-from kbench import trace
+from kbench import lookup, trace
 
 MS = 1_000_000
 
@@ -50,3 +55,79 @@ def test_roofline_share_needs_matching_counts():
     assert 0 < sl.roofline_pct("int4") < 100
     assert _slice([flash, int4]).roofline_pct("int4") is None    # 1 launch, 2 kernels
     assert _slice([]).roofline_pct("flash") is None
+
+
+FAMILY = '''"""toy: a stand-in kernel family (a test of the lookup by file)."""
+
+KERNELS = ("toy_kernel",)
+ENTRY = "kbench_toyprog.kern:launch"
+
+
+def record(args, kwargs):
+    return (args[0],)
+
+
+def bound_s(rec):
+    return rec[0] * 1e-3
+'''
+KERN = '''
+def launch(n, nested=False):
+    launch.calls += 1
+    if nested:
+        launch(n)          # through the module's own name
+    return n
+
+
+launch.calls = 0
+'''
+
+
+@pytest.fixture
+def toyprog(monkeypatch):
+    """A stand-in program: the entry's module, and two modules that bind it,
+    one under another name."""
+    mods = {n: types.ModuleType(n) for n in
+            ("kbench_toyprog", "kbench_toyprog.kern", "kbench_toyprog.a", "kbench_toyprog.b")}
+    exec(KERN, mods["kbench_toyprog.kern"].__dict__)
+    entry = mods["kbench_toyprog.kern"].launch
+    mods["kbench_toyprog.a"].launch = entry
+    mods["kbench_toyprog.b"].go = entry
+    for n, m in mods.items():
+        monkeypatch.setitem(sys.modules, n, m)
+    return mods, entry
+
+
+def test_a_kernel_family_is_a_file(tmp_path, toyprog):
+    mods, entry = toyprog
+    (tmp_path / "roofline" / "kernels").mkdir(parents=True)
+    (tmp_path / "roofline" / "kernels" / "toy.py").write_text(FAMILY)
+    tr = trace.Tracer(True, 0.0, 60.0, kroot=tmp_path)
+    tr.install()
+    bindings = [(mods["kbench_toyprog.kern"], "launch"), (mods["kbench_toyprog.a"], "launch"),
+                (mods["kbench_toyprog.b"], "go")]
+    assert all(getattr(m, n) is not entry for m, n in bindings)
+    mods["kbench_toyprog.a"].launch(3)        # before the slice: not recorded
+    tr.poll(0.0)
+    mods["kbench_toyprog.a"].launch(5)
+    mods["kbench_toyprog.b"].go(7, nested=True)
+    mods["kbench_toyprog.kern"].launch(11)
+    tr.close()
+    assert tr.launches == [("toy", 5), ("toy", 7), ("toy", 11)]   # the nested call once
+    assert entry.calls == 5                   # the program's own counter saw every call
+    assert all(getattr(m, n) is entry for m, n in bindings)
+    fams = {"toy": lookup.kernel_families(tmp_path)["toy"]}
+    dev = [("toy_kernel<1>", 0, 10 * MS), ("toy_kernel<2>", 10 * MS, 20 * MS),
+           ("toy_kernel<1>", 20 * MS, 46 * MS)]
+    sl = trace.Slice(0.05, dev, [], tr.launches, fams)
+    assert sl.kernel_count == {"toy": 3}
+    assert sl.roofline_pct("toy") == pytest.approx(100 * (5 + 7 + 11) * 1e-3 / 46e-3)
+    assert trace.Slice(0.05, dev[:2], [], tr.launches, fams).roofline_pct("toy") is None
+
+
+def test_families_that_share_kernel_names_are_refused(tmp_path):
+    d = tmp_path / "roofline" / "kernels"
+    d.mkdir(parents=True)
+    (d / "toy.py").write_text(FAMILY)
+    (d / "toy2.py").write_text(FAMILY.replace('("toy_kernel",)', '("toy_kernel<2>",)'))
+    with pytest.raises(ValueError, match="share kernel names"):
+        lookup.kernel_families(tmp_path)

@@ -1,6 +1,7 @@
 """A tiny benchmark for the CPU tests: a configuration, two mixes, two cells and
 a dummy per-layer metric, added as files and entries only, in a scratch copy
-of the harness's data folders."""
+of the harness's data folders (with its architecture modules and kernel
+families, to which a test may add files of its own)."""
 
 from __future__ import annotations
 
@@ -26,13 +27,18 @@ def read(run):
 '''
 
 
-def make(root: Path, model_type: str = "mistral") -> tuple[dict, Path]:
-    """(the benchmark dict, the harness root) of the tiny benchmark."""
+def make(root: Path, model_type: str = "mistral",
+         arch_files: tuple = ()) -> tuple[dict, Path]:
+    """(the benchmark dict, the harness root) of the tiny benchmark;
+    `arch_files` are further architecture modules, copied into its `arch/`."""
     k = Path(root) / "kbench"
     for d in ("cells", "traffic", "configs"):
         (k / d).mkdir(parents=True, exist_ok=True)
-    if not (k / "metrics").exists():
-        shutil.copytree(KBENCH / "metrics", k / "metrics")
+    for d in ("metrics", "arch", "roofline/kernels"):
+        if not (k / d).exists():
+            shutil.copytree(KBENCH / d, k / d, ignore=shutil.ignore_patterns("__pycache__"))
+    for f in arch_files:
+        shutil.copy(f, k / "arch" / Path(f).name)
     (k / "metrics" / "dummy.requests.py").write_text(DUMMY_METRIC)
     conf = dict(TINY, model_type=model_type)
     (k / "configs" / "tiny.json").write_text(json.dumps(conf))

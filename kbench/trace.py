@@ -2,10 +2,16 @@
 
 A run with tracing on profiles one slice of its window with torch.profiler
 (host ops and the card's kernels) and, over the same slice, records the shapes
-of every launch of the program's two hand-written kernels by wrapping the two
-names `models/llama.py` calls (`int4_matvec`, `flash_attention`); the wrappers
-pass their arguments through unchanged. The card is synchronised at both ends
-of the slice, so the launches recorded are the kernels traced.
+of every launch of each kernel family. A family is a file,
+`kbench/roofline/kernels/<family>.py` (`lookup.py` gives its contract): its
+device kernels' names, the program's function whose calls are its launches,
+the launch record and the launch's bound. A new family is a new file, with no
+edit here. While the tracer is installed, every binding of each family's
+function in the program's loaded modules is wrapped (a module that imports it
+under its own name too); the wrappers pass their arguments through unchanged,
+and only the outermost call records, so a function that calls itself through
+its own module's name is one launch. The card is synchronised at both ends of
+the slice, so the launches recorded are the kernels traced.
 
 From the slice: the seconds in which any operation ran on the card (`busy_s`,
 the union of kernel, copy and set intervals), the slice's length
@@ -19,13 +25,14 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import importlib
+import sys
 import time
+from pathlib import Path
 from typing import Optional
 
-from .roofline.costs import bound_s, flash_cost, int4_cost
+from . import lookup
 
-KERNELS = {"int4": ("int4_gemv_kernel", "int4_gemm_kernel"),
-           "flash": ("flash_fwd_kernel",)}
 SPAN_PREFIX = "kbench."
 GAP_LABELLED = 400        # longest gaps given a label
 TOP = 10
@@ -105,20 +112,19 @@ def label_gaps(idle: list, host: list) -> list:
     return sorted(([k, v] for k, v in sums.items()), key=lambda kv: -kv[1])[:TOP]
 
 
-def kernel_family(name: str) -> Optional[str]:
-    for fam, pats in KERNELS.items():
-        if any(p in name for p in pats):
+def kernel_family(name: str, families: dict) -> Optional[str]:
+    """The family of `families` whose kernel names `name` holds, or None."""
+    for fam, mod in families.items():
+        if any(p in name for p in mod.KERNELS):
             return fam
     return None
 
 
-def launch_bound_s(rec: tuple) -> float:
-    """The least time of one recorded launch (roofline/costs.py)."""
-    if rec[0] == "int4":
-        _, M, K, N, G, xb, yb = rec
-        return bound_s(*int4_cost(M, K, N, G, xb, yb))
-    _, B, H, Hkv, S, T, D, causal, window, q_offset, kv_len = rec
-    return bound_s(*flash_cost(B, H, Hkv, S, T, D, causal, window, q_offset, kv_len))
+def launch_bound_s(rec: tuple, families: Optional[dict] = None) -> float:
+    """The least time of one recorded launch, (family, *its record), by its
+    family's `bound_s`."""
+    fams = lookup.kernel_families() if families is None else families
+    return fams[rec[0]].bound_s(rec[1:])
 
 
 def _sync() -> bool:
@@ -141,7 +147,9 @@ def _profiler():
 class Slice:
     """What one traced slice holds, as the metric readers see it."""
 
-    def __init__(self, window_s: float, dev: list, host: list, launches: list):
+    def __init__(self, window_s: float, dev: list, host: list, launches: list,
+                 families: Optional[dict] = None):
+        fams = lookup.kernel_families() if families is None else families
         self.window_s = window_s
         t0 = min([s for _, s, _ in dev + host], default=0)
         t1 = max([e for _, _, e in dev + host], default=0)
@@ -151,7 +159,7 @@ class Slice:
         self.kernel_count: dict = {}
         by_name: dict = {}
         for name, s, e in dev:
-            fam = kernel_family(name)
+            fam = kernel_family(name, fams)
             if fam is not None:
                 self.device_s[fam] = self.device_s.get(fam, 0.0) + (e - s) / 1e9
                 self.kernel_count[fam] = self.kernel_count.get(fam, 0) + 1
@@ -162,7 +170,7 @@ class Slice:
         self.bound_s: dict = {}
         self.launch_count: dict = {}
         for rec in launches:
-            self.bound_s[rec[0]] = self.bound_s.get(rec[0], 0.0) + launch_bound_s(rec)
+            self.bound_s[rec[0]] = self.bound_s.get(rec[0], 0.0) + launch_bound_s(rec, fams)
             self.launch_count[rec[0]] = self.launch_count.get(rec[0], 0) + 1
 
     def roofline_pct(self, family: str) -> Optional[float]:
@@ -180,51 +188,64 @@ class Tracer:
     otherwise only keeps the harness's host spans. Drivers call poll(now)
     between units of work, and wrap each unit in span(name)."""
 
-    def __init__(self, on: bool, start_s: float, length_s: float):
+    def __init__(self, on: bool, start_s: float, length_s: float,
+                 kroot: Path = lookup.KROOT):
         self.on, self.start_s, self.end_s = on, start_s, start_s + length_s
+        self.kroot = kroot
         self.active = False
         self.done = not on
         self.launches: list = []
         self.slice: Optional[Slice] = None
+        self._families: Optional[dict] = None
         self._prof = None
         self._t0 = 0.0
-        self._unpatch = None
+        self._bindings: list = []   # (module, name, the function it held)
         self.spans: list = []     # (name, start_s, end_s) on the harness clock
 
     def install(self) -> None:
-        """Wrap the two kernel names models/llama.py calls, and start and
-        stop the profiler once, so that its first start (CUPTI's set-up,
-        seconds long) falls into set-up and not into the slice."""
+        """Wrap every binding of each kernel family's entry function in the
+        program's loaded modules, and start and stop the profiler once, so
+        that its first start (CUPTI's set-up, seconds long) falls into set-up
+        and not into the slice."""
         if not self.on:
             return
         with _profiler():
             _sync()
-        from kjarni_tpu_torch.models import llama
-        orig_int4, orig_flash = llama.int4_matvec, llama.flash_attention
+        self._families = lookup.kernel_families(self.kroot)
+        for fam, mod in self._families.items():
+            module, name = mod.ENTRY.split(":")
+            entry = getattr(importlib.import_module(module), name)
+            launch = self._wrap(fam, mod.record, entry)
+            package = module.split(".")[0]
+            for m in list(sys.modules.values()):
+                if m is None or getattr(m, "__name__", "").split(".")[0] != package:
+                    continue
+                for attr in [k for k, v in getattr(m, "__dict__", {}).items()
+                             if v is entry]:
+                    self._bindings.append((m, attr, entry))
+                    setattr(m, attr, launch)
 
-        def int4_matvec(x, w4, scale):
-            if self.active:
-                M, K = x.shape
-                xb = x.element_size() if M == 1 else 2
-                self.launches.append(("int4", M, K, w4.shape[1], scale.shape[0], xb,
-                                      x.element_size()))
-            return orig_int4(x, w4, scale)
+    def _wrap(self, family: str, record, entry):
+        """`entry` recording the launch of each outermost call while active.
+        It shares the entry's attributes (the program's launch counters)."""
+        depth = 0
 
-        def flash_attention(q, k, v, *, causal=False, scale=None, window=None,
-                            q_offset=0, kv_len=None):
-            if self.active and q.dtype.itemsize == 2:
-                B, H, S, D = q.shape
-                self.launches.append(("flash", B, H, k.shape[1], S, k.shape[2], D,
-                                      causal, window, int(q_offset),
-                                      k.shape[2] if kv_len is None else int(kv_len)))
-            return orig_flash(q, k, v, causal=causal, scale=scale, window=window,
-                              q_offset=q_offset, kv_len=kv_len)
+        def launch(*args, **kwargs):
+            nonlocal depth
+            if depth == 0 and self.active:
+                rec = record(args, kwargs)
+                if rec is not None:
+                    self.launches.append((family, *rec))
+            depth += 1
+            try:
+                return entry(*args, **kwargs)
+            finally:
+                depth -= 1
 
-        llama.int4_matvec, llama.flash_attention = int4_matvec, flash_attention
-
-        def unpatch():
-            llama.int4_matvec, llama.flash_attention = orig_int4, orig_flash
-        self._unpatch = unpatch
+        launch.__name__, launch.__qualname__ = entry.__name__, entry.__qualname__
+        launch.__doc__ = entry.__doc__
+        launch.__dict__ = entry.__dict__
+        return launch
 
     def poll(self, now_s: float) -> None:
         if self.done:
@@ -249,14 +270,16 @@ class Tracer:
         self._prof.__exit__(None, None, None)
         dev, host = _events(self._prof)
         self._prof = None
-        self.slice = Slice(window_s, dev, host, self.launches)
+        fams = self._families if self._families is not None \
+            else lookup.kernel_families(self.kroot)
+        self.slice = Slice(window_s, dev, host, self.launches, fams)
 
     def close(self) -> None:
         self.stop()
         self.done = True
-        if self._unpatch is not None:
-            self._unpatch()
-            self._unpatch = None
+        for m, attr, entry in reversed(self._bindings):
+            setattr(m, attr, entry)
+        self._bindings = []
 
     @contextlib.contextmanager
     def span(self, name: str, clock):

@@ -1,18 +1,26 @@
 """Seeded weights for the benchmark's models, made on the device.
 
 Every tensor has the name and shape of the published Hugging Face checkpoint.
-The tensors of one kind over every layer (`model.layers.{}.mlp.gate_proj.weight`
-for all L layers) are drawn together, in one call of a `torch.Generator` on the
-device seeded from (the run's seed, the kind's name pattern), in bf16, the type
-they are served in. So a model is a dozen large draws, and the reference
-(`kbench/reference/`) draws any kind again by itself from the seed alone.
+The layout, {name pattern: kind}, is the architecture module's (`kinds(cfg)`
+of `kbench/arch/<family>.py`, found by `model_type`; a new architecture is a
+new file there, with no edit here). A pattern holds one `{}` for a kind with a
+tensor in each of a range of layers (`Kind.layers`, every layer by default),
+and a second `{}` for a kind with one tensor per expert in each of those
+layers (`Kind.experts`): `model.layers.{}.mlp.experts.{}.gate_proj.weight`.
+
+The tensors of one kind are drawn together, in one call of a `torch.Generator`
+on the device seeded from (the run's seed, the kind's name pattern), in bf16,
+the type they are served in: [*shape] for a pattern without `{}`, [layers,
+*shape] with one, [layers, experts, *shape] with two. So a model is a dozen
+large draws, and the reference draws any kind again by itself from the seed
+alone.
 
 Projections and embeddings are N(0, 0.02) (the published `initializer_range`);
-RMSNorm weights are 1 + N(0, 0.1), so that a norm the program dropped or
+norm weights are 1 + N(0, 0.1), so that a norm the program dropped or
 misapplied shows in its outputs.
 
 `SeededWeights` is the one seam between the harness and the program: it stands
-in for `weights/safetensors_loader.ModelWeights` while `DecoderLM` is built,
+in for `weights/safetensors_loader.ModelWeights` while the model is built,
 with the same `__contains__`, `get`, `get_f32` and `has_any`.
 """
 
@@ -20,12 +28,26 @@ from __future__ import annotations
 
 import hashlib
 import re
+from pathlib import Path
+from typing import NamedTuple, Optional
 
 import torch
 
+from . import lookup
+
 PROJ_STD = 0.02
 NORM_STD = 0.1
-_LAYER = re.compile(r"^model\.layers\.(\d+)\.(.+)$")
+_INDEX = re.compile(r"(?<=\.)\d+(?=\.)")
+
+
+class Kind(NamedTuple):
+    """One kind of tensor: its shape in one layer (and expert), whether it is
+    a norm weight, the layers [first, stop) that hold it (None: all), and the
+    count of the second index of a pattern with two `{}`."""
+    shape: tuple
+    is_norm: bool
+    layers: Optional[tuple] = None
+    experts: Optional[int] = None
 
 
 def kind_seed(seed: int, pattern: str) -> int:
@@ -34,59 +56,50 @@ def kind_seed(seed: int, pattern: str) -> int:
     return int.from_bytes(digest[:8], "little") >> 1
 
 
-def _heads(cfg: dict) -> tuple[int, int, int]:
-    H = cfg["num_attention_heads"]
-    D = cfg.get("head_dim") or cfg["hidden_size"] // H
-    return H, cfg.get("num_key_value_heads", H), D
-
-
-def kinds(cfg: dict) -> dict[str, tuple[tuple[int, ...], bool]]:
-    """Every kind of tensor of a llama-family checkpoint: name pattern ->
-    (shape, is_norm). A pattern with `{}` is one tensor per layer, of that
-    shape each."""
-    hid, inter, V = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
-    H, Hkv, D = _heads(cfg)
-    p = "model.layers.{}."
-    out = {"model.embed_tokens.weight": ((V, hid), False),
-           "model.norm.weight": ((hid,), True),
-           p + "input_layernorm.weight": ((hid,), True),
-           p + "post_attention_layernorm.weight": ((hid,), True),
-           p + "self_attn.o_proj.weight": ((hid, H * D), False),
-           p + "mlp.down_proj.weight": ((hid, inter), False)}
-    if not cfg.get("tie_word_embeddings", False):
-        out["lm_head.weight"] = ((V, hid), False)
-    if cfg["model_type"] == "phi3":
-        out[p + "self_attn.qkv_proj.weight"] = (((H + 2 * Hkv) * D, hid), False)
-        out[p + "mlp.gate_up_proj.weight"] = ((2 * inter, hid), False)
-    elif cfg["model_type"] in ("llama", "mistral"):
-        out[p + "self_attn.q_proj.weight"] = ((H * D, hid), False)
-        out[p + "self_attn.k_proj.weight"] = ((Hkv * D, hid), False)
-        out[p + "self_attn.v_proj.weight"] = ((Hkv * D, hid), False)
-        out[p + "mlp.gate_proj.weight"] = ((inter, hid), False)
-        out[p + "mlp.up_proj.weight"] = ((inter, hid), False)
-    else:
-        raise ValueError(f"no weight layout for model_type {cfg['model_type']!r}")
+def kinds(cfg: dict, kroot: Path = lookup.KROOT) -> dict:
+    """Every kind of tensor of cfg's checkpoint: name pattern -> Kind, from
+    its architecture module."""
+    out = {p: Kind(*k) for p, k in lookup.architecture(cfg, kroot).kinds(cfg).items()}
+    for p, k in out.items():
+        stack_shape(cfg, p, k)         # raises for a kind its pattern cannot hold
     return out
 
 
-def draw(cfg: dict, seed: int, pattern: str, device) -> torch.Tensor:
-    """One kind of tensor in bf16 on `device`: [L, *shape] for a per-layer
-    pattern, else [*shape]. The same (cfg, seed, pattern, device type) gives
-    the same bits."""
-    shape, is_norm = kinds(cfg)[pattern]
-    if "{}" in pattern:
-        shape = (cfg["num_hidden_layers"], *shape)
+def layer_range(cfg: dict, kind: Kind) -> tuple:
+    return kind.layers or (0, cfg["num_hidden_layers"])
+
+
+def stack_shape(cfg: dict, pattern: str, kind: Kind) -> tuple:
+    """The shape of one kind's draw: its shape behind one index per `{}`."""
+    n = pattern.count("{}")
+    if n == 0:
+        return tuple(kind.shape)
+    first, stop = layer_range(cfg, kind)
+    if n == 1 and kind.experts is None:
+        return (stop - first, *kind.shape)
+    if n == 2 and kind.experts is not None:
+        return (stop - first, kind.experts, *kind.shape)
+    raise ValueError(f"pattern {pattern!r} has {n} indices and experts={kind.experts}")
+
+
+def draw(cfg: dict, seed: int, pattern: str, device, *, layout: Optional[dict] = None,
+         kroot: Path = lookup.KROOT) -> torch.Tensor:
+    """One kind of tensor in bf16 on `device`, stacked as `stack_shape` says.
+    `layout` is cfg's {pattern: kind} where the caller has it (an
+    architecture module passes its own), else it is looked up. The same
+    (cfg, seed, pattern, device type) gives the same bits."""
+    kind = Kind(*(kinds(cfg, kroot) if layout is None else layout)[pattern])
     g = torch.Generator(device=device).manual_seed(kind_seed(seed, pattern))
-    t = torch.randn(shape, generator=g, device=device, dtype=torch.bfloat16)
-    return t.mul_(NORM_STD).add_(1.0) if is_norm else t.mul_(PROJ_STD)
+    t = torch.randn(stack_shape(cfg, pattern, kind), generator=g, device=device,
+                    dtype=torch.bfloat16)
+    return t.mul_(NORM_STD).add_(1.0) if kind.is_norm else t.mul_(PROJ_STD)
 
 
-def split_name(name: str) -> tuple[str, int | None]:
-    """A tensor name -> (its kind's pattern, its layer or None)."""
-    m = _LAYER.match(name)
-    if m is None:
-        return name, None
-    return "model.layers.{}." + m.group(2), int(m.group(1))
+def split_name(name: str) -> tuple[str, tuple]:
+    """A tensor name -> (its kind's pattern, its indices): every all-digit
+    part of the dotted name is an index (`model.layers.3.mlp.experts.17.w`
+    -> `model.layers.{}.mlp.experts.{}.w`, (3, 17))."""
+    return _INDEX.sub("{}", name), tuple(int(i) for i in _INDEX.findall(name))
 
 
 class SeededWeights:
@@ -97,28 +110,43 @@ class SeededWeights:
     layer at a time, so only one extra kind is ever held. Nothing is written
     to disk."""
 
-    def __init__(self, cfg: dict, seed: int, device):
+    def __init__(self, cfg: dict, seed: int, device, kroot: Path = lookup.KROOT):
         self.cfg, self.seed, self.device = cfg, seed, torch.device(device)
-        self._kinds = kinds(cfg)
+        self._kinds = kinds(cfg, kroot)
         self._held: tuple[str, torch.Tensor] | None = None
         self.draws = 0
 
+    def _position(self, name: str) -> tuple[str, tuple] | None:
+        """(pattern, index into the kind's draw) of a tensor the layout has,
+        else None."""
+        pattern, idx = split_name(name)
+        kind = self._kinds.get(pattern)
+        if kind is None:
+            return None
+        if idx:
+            first, stop = layer_range(self.cfg, kind)
+            if not first <= idx[0] < stop:
+                return None
+            if len(idx) == 2 and not 0 <= idx[1] < kind.experts:
+                return None
+            idx = (idx[0] - first, *idx[1:])
+        return pattern, idx
+
     def __contains__(self, name: str) -> bool:
-        pattern, layer = split_name(name)
-        return pattern in self._kinds and \
-            (layer is None) == ("{}" not in pattern) and \
-            (layer is None or layer < self.cfg["num_hidden_layers"])
+        return self._position(name) is not None
 
     def get(self, name: str) -> torch.Tensor:
-        if name not in self:
+        at = self._position(name)
+        if at is None:
             raise KeyError(f"no tensor {name!r} in the seeded checkpoint")
-        pattern, layer = split_name(name)
+        pattern, idx = at
         if self._held is None or self._held[0] != pattern:
             self._held = None          # free the last kind before drawing
-            self._held = (pattern, draw(self.cfg, self.seed, pattern, self.device))
+            self._held = (pattern, draw(self.cfg, self.seed, pattern, self.device,
+                                        layout=self._kinds))
             self.draws += 1
         t = self._held[1]
-        return t if layer is None else t[layer]
+        return t[idx] if idx else t
 
     def get_f32(self, name: str):
         return self.get(name).float().cpu().numpy()
