@@ -2562,7 +2562,7 @@ class EngineProbe:
         state = {"wave": [], "win": [], "step": 0}
 
         def admit_wave(grp, pi, m, bucket):
-            mode = eng._admit_plan(bucket, m)["mode"]
+            mode = eng._admit_plan(bucket, m, len(grp))["mode"]
             self.modes[mode] = self.modes.get(mode, 0) + 1
             state["wave"] = [req[0] for _, req in grp]
             if fault == "flash_wave_q_offset_0":
@@ -2772,7 +2772,7 @@ def serve_engine(d: Path, quantize) -> dict:
            "windows": eng.stats["windows"], "decode_steps": a["probe"].steps,
            "admission_waves": eng.stats["admission_waves"],
            "prefix_hits": eng.stats["prefix_hits"], "waves_by_plan": a["probe"].modes,
-           "plans": {f"{b}+{m}": p["mode"] for (b, m), p in eng._admit_plans.items()},
+           "plans": {f"{b}+{m}": p["mode"] for (b, m, _), p in eng._admit_plans.items()},
            "flash_launches": flash_n, "int4_launches": int4_n, "int4_launches_by_M": shapes,
            "new_tokens": a["new_tokens"], "seconds": a["seconds"],
            "tok_per_s": a["tok_per_s"], "ttft_ms_p50": a["ttft_ms_p50"],

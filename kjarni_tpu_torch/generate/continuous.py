@@ -182,7 +182,8 @@ class ContinuousEngine:
         # [n, H, S, T] score block; tests shrink it to force those plans
         self._admit_score_limit = 2_000_000_000
         self._flash_ok = bool(getattr(lm, "_flash_ok", False))
-        self._admit_plans: dict = {}   # (bucket, m) -> chosen memory plan
+        self._admit_plans: dict = {}   # (bucket, m, counted lanes) -> chosen memory plan
+        self._wave_lanes = bool(getattr(self.family, "ADMIT_WAVE_LANES", False))
 
     # ------------------------------------------------------------------
 
@@ -253,20 +254,24 @@ class ContinuousEngine:
             # still converge on its current common prefix
             self._auto_candidate = list(ids)
 
-    def _admit_plan(self, bucket: int, m: int) -> dict:
-        """The admission memory plan of a (bucket, m) wave, computed as the
-        JAX engine computes it. The wave attends the slot caches over the
-        working range [0, kb); a materialized score block costs
-        4 * H * bucket * kb bytes per lane in f32, counted over all S lanes
-        (the JAX engine pads every wave to S lanes; this one runs the joining
-        lanes only). Under the limit: one plain pass. Above it: flash where
-        the model takes it, else the suffix in chunks whose score blocks stay
-        under the limit."""
-        plan = self._admit_plans.get((bucket, m))
+    def _admit_plan(self, bucket: int, m: int, lanes: int) -> dict:
+        """The admission memory plan of a (bucket, m) wave of `lanes` lanes,
+        computed as the JAX engine computes it. The wave attends the slot
+        caches over the working range [0, kb); a materialized score block
+        costs 4 * H * bucket * kb bytes per lane in f32, counted over all S
+        lanes (the JAX engine pads every wave to S lanes; this one runs the
+        joining lanes only), or over the wave's own `lanes` for a family
+        whose module sets ADMIT_WAVE_LANES (DeepSeek-V2, which has no JAX
+        engine to match). Under the limit: one plain pass. Above it: flash
+        where the model takes it, else the suffix in chunks whose score
+        blocks stay under the limit. Plans are kept by (bucket, m, counted
+        lanes)."""
+        n_lanes = lanes if self._wave_lanes else self.S
+        key = (bucket, m, n_lanes)
+        plan = self._admit_plans.get(key)
         if plan is not None:
             return plan
         cfg = self.cfg
-        n_lanes = self.S
         kb = min(-(-(m + bucket) // 256) * 256, self.T)
         eff_kb = self.T if kb >= self.T else kb
         limit = self._admit_score_limit
@@ -284,7 +289,7 @@ class ContinuousEngine:
                     if 4 * cfg.num_heads * c * eff_kb * n_lanes <= limit:
                         break            # largest dividing chunk under limit
         plan = {"mode": mode, "chunk": chunk, "kb": eff_kb, "score_bytes": score_bytes}
-        self._admit_plans[(bucket, m)] = plan
+        self._admit_plans[key] = plan
         return plan
 
     def _admit_wave(self, grp: list, pi: int, m: int, bucket: int) -> None:
@@ -295,7 +300,7 @@ class ContinuousEngine:
         sampler, then scatter the lanes' caches and state into their slots.
         Nothing is read back: each first token is column 0 of the next
         window's block."""
-        plan = self._admit_plan(bucket, m)
+        plan = self._admit_plan(bucket, m, len(grp))
         mode, chunk, kb = plan["mode"], plan["chunk"], plan["kb"]
         lm, cfg, dev = self.lm, self.cfg, self.device
         n = len(grp)

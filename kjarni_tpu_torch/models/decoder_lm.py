@@ -1,6 +1,6 @@
-"""DecoderLM: a loaded decoder language model (llama family or GPT-2) with a
-streaming generator and batched generation (port of
-kjarni_tpu/models/decoder_lm.py).
+"""DecoderLM: a loaded decoder language model (llama family, DeepSeek-V2 or
+GPT-2, picked by `model_type`) with a streaming generator and batched
+generation (port of kjarni_tpu/models/decoder_lm.py).
 
 Per request: one prefill forward over the prompt bucket, writing the KV cache
 in place and skipping a prefix that is still in the cache from the previous
@@ -47,6 +47,7 @@ from ..tokenizer_native import bpe_from_gguf_metadata
 from ..weights.checkpoint import load_checkpoint
 from ..weights.gguf import GgufWeights
 from ..weights.safetensors_loader import ModelWeights
+from . import deepseek_v2 as kdeepseek
 from . import gpt2 as kgpt2
 from . import llama as kllama
 
@@ -167,9 +168,19 @@ class DecoderLM:
         else:
             hf_cfg = ws.hf_config()  # GGUF metadata -> HF-style config
         self.hf_config = hf_cfg
-        if hf_cfg.get("model_type", "llama") == "gpt2":
+        model_type = hf_cfg.get("model_type", "llama")
+        if model_type == "gpt2":
             self.family = kgpt2
             self.config = cfg = kgpt2.Gpt2Config.from_hf(hf_cfg)
+        elif model_type == kdeepseek.ARCH:
+            self.family = kdeepseek
+            self.config = cfg = kdeepseek.DeepseekV2Config.from_hf(hf_cfg)
+            asked = {"quantize": quantize, "kv_cache": kv_cache, "tp": tp,
+                     "execution_plan": execution_plan if plan != ExecutionPlan() else None}
+            refused = {k: v for k, v in asked.items() if v is not None}
+            if refused:
+                raise InvalidConfigError(f"{kdeepseek.ARCH} runs in bf16 or f32 on one device, "
+                                         f"without {refused}")
         else:
             self.family = kllama
             self.config = cfg = kllama.DecoderConfig.from_hf(hf_cfg)
@@ -185,9 +196,9 @@ class DecoderLM:
         if params is not None:
             # the checkpoint's dtype rules
             dtype = resolve_dtype(params["embed"].dtype, self.device)
-        elif self.family is kllama:
-            params = kllama.load_params(ws, cfg, dtype, rope_cache_len=self.max_context,
-                                        device=load_device)
+        elif self.family in (kllama, kdeepseek):
+            params = self.family.load_params(ws, cfg, dtype, rope_cache_len=self.max_context,
+                                             device=load_device)
         else:
             params = kgpt2.load_params(ws, cfg, dtype, device=load_device)
         # quantize is ignored for gpt2, and for a checkpoint already quantized,
@@ -422,7 +433,7 @@ class DecoderLM:
         ids = self.tokenizer.encode(prompt, add_special_tokens=False)
         if add_bos and self.bos_token_id is not None and \
                 (not ids or ids[0] != self.bos_token_id) and \
-                self.config.arch in ("llama", "mistral"):
+                self.config.arch in ("llama", "mistral", kdeepseek.ARCH):
             ids = [self.bos_token_id] + ids
         return ids
 

@@ -71,7 +71,7 @@ def load_params(ws: ModelWeights, cfg: Gpt2Config, dtype=torch.float32,
         return _get(ws, pre + name).to(device=device, dtype=dtype)
 
     def stack(fmt):
-        return _stack(ws, pre + fmt, L, dtype, device, transpose=False)
+        return _stack(ws, pre + fmt, range(L), dtype, device, transpose=False)
 
     embed = one("wte.weight")
     layers = {

@@ -139,18 +139,18 @@ def _get(ws: ModelWeights, name: str) -> torch.Tensor:
     return torch.from_numpy(t) if isinstance(t, np.ndarray) else t
 
 
-def _stack(ws: ModelWeights, fmt: str, L: int, dtype, device,
+def _stack(ws: ModelWeights, fmt: str, layers: range, dtype, device,
            transpose: bool = True) -> torch.Tensor:
-    """Stack L checkpoint tensors on `device`. Each layer goes to the device
-    in its stored dtype and is transposed and cast there, so the host holds
-    no converted copy of the model."""
+    """Stack the checkpoint tensors of `layers` on `device`. Each layer goes
+    to the device in its stored dtype and is transposed and cast there, so
+    the host holds no converted copy of the model."""
     out = None
-    for i in range(L):
+    for j, i in enumerate(layers):
         t = _get(ws, fmt.format(i)).to(device)
         t = t.t() if transpose else t
         if out is None:
-            out = torch.empty((L, *t.shape), dtype=dtype, device=device)
-        out[i].copy_(t)
+            out = torch.empty((len(layers), *t.shape), dtype=dtype, device=device)
+        out[j].copy_(t)
     return out
 
 
@@ -168,7 +168,7 @@ def load_params(ws: ModelWeights, cfg: DecoderConfig, dtype=torch.float32,
     p = "model."
 
     def stack(fmt, transpose=True):
-        return _stack(ws, fmt, L, dtype, device, transpose)
+        return _stack(ws, fmt, range(L), dtype, device, transpose)
 
     def lin_stack(names_fmt, bias_fmt=None):
         out = {"w": stack(names_fmt)}

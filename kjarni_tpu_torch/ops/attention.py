@@ -19,7 +19,8 @@ from .masks import NEG_INF  # noqa: F401
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               bias: Optional[torch.Tensor] = None,
               scale: Optional[float] = None) -> torch.Tensor:
-    """q [B, Hq, S, D], k/v [B, Hkv, T, D] -> [B, Hq, S, D] in q's dtype.
+    """q/k [B, Hq|Hkv, S|T, D], v [B, Hkv, T, Dv] -> [B, Hq, S, Dv] in q's
+    dtype.
 
     `bias` broadcasts against [B, Hq, S, T]. The G = Hq/Hkv query heads of one
     KV head fold into [B, Hkv, G, S, D], so K/V are never repeated.
@@ -42,7 +43,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.exp(shifted.to(prob_dtype))
     probs = probs / probs.sum(dim=-1, keepdim=True).to(prob_dtype)
     out = torch.matmul(probs.to(q.dtype).reshape(B, Hkv, G * S, -1), v)
-    return out.reshape(B, Hq, S, D)
+    return out.reshape(B, Hq, S, v.shape[-1])
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
